@@ -1,0 +1,23 @@
+"""Dispatch by the tensors' device: the CUDA kernel on the card, the
+plain PyTorch version (kernels/ref.py) on the CPU.
+
+There is no switch and no fallback: a CUDA tensor always goes to the
+hand-written kernel, which launches or raises.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import ref
+
+
+def paged_attention(q, k_pages, v_pages, table, lens, window: int = 0,
+                    scale=None, k_scale=None, v_scale=None, k_extra=None):
+    """Decode attention over a paged KV pool; see kernels/ref.py for the
+    contract.  The kernel reads only each slot's live pages."""
+    kw = dict(window=window, scale=scale, k_scale=k_scale, v_scale=v_scale,
+              k_extra=k_extra)
+    if q.is_cuda:
+        return pa.paged_attention(q, k_pages, v_pages, table, lens, **kw)
+    if q.device.type == "cpu":
+        return ref.paged_attention(q, k_pages, v_pages, table, lens, **kw)
+    raise ValueError(f"paged_attention: no implementation for {q.device}")

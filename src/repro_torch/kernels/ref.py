@@ -1,0 +1,74 @@
+"""Plain PyTorch versions of the hand-written kernels (their oracles).
+
+Written for clarity and numerical fidelity, not speed.  On a CPU tensor
+kernels/ops.py dispatches here; on the card chip_smoke.py holds each
+CUDA kernel against its plain version on the same inputs.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -2.0 ** 30
+
+
+def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, table: torch.Tensor,
+                    lens: torch.Tensor, window: int = 0,
+                    scale: Optional[float] = None,
+                    k_scale: Optional[torch.Tensor] = None,
+                    v_scale: Optional[torch.Tensor] = None,
+                    k_extra: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Decode attention over a paged KV pool (the kernel's oracle).
+
+    q:       (B, H, dk[+dr])       one query per slot (the decode step)
+    k_pages: (n_pages, page, Hkv, dk) physical page pool
+    v_pages: (n_pages, page, Hkv, dv)
+    table:   (B, P) int            per-slot logical->physical page ids;
+                                   entries >= n_pages mean "unallocated"
+    lens:    (B,) int              valid entries per slot (incl. the
+                                   token written this step)
+    -> (B, H, dv) in q's dtype.
+
+    Quantized pools pass k_scale/v_scale (n_pages, page, Hkv) per-token
+    scales: pages dequantize to f32 (value * scale) right after the
+    gather.  k_extra (n_pages, page, Hkv, dr) is an unquantized extra
+    key-feature block (absorbed-MLA rope keys) concatenated after the
+    main block; q then carries dk + dr features.
+
+    The gather materializes every slot's P*page logical entries; entries
+    past `lens` are masked to NEG_INF before the softmax, so they
+    contribute exactly 0.
+    """
+    B, H, dkq = q.shape
+    n_pages, page, Hkv, dk = k_pages.shape
+    dv = v_pages.shape[-1]
+    g = H // Hkv
+    P = table.shape[1]
+    S = P * page
+    scale = scale if scale is not None else dkq ** -0.5
+    t = table.long().clamp(0, n_pages - 1)
+    # (B, P, page, Hkv, d) -> (B, S, Hkv, d), logical position order
+    k = k_pages[t].reshape(B, S, Hkv, dk).float()
+    v = v_pages[t].reshape(B, S, Hkv, dv).float()
+    if k_scale is not None:
+        k = k * k_scale[t].reshape(B, S, Hkv)[..., None].float()
+    if v_scale is not None:
+        v = v * v_scale[t].reshape(B, S, Hkv)[..., None].float()
+    if k_extra is not None:
+        dr = k_extra.shape[-1]
+        ke = k_extra[t].reshape(B, S, Hkv, dr).float()
+        k = torch.cat([k, ke], -1)
+    kp = torch.arange(S, device=q.device)
+    ln = lens.long()
+    ok = kp[None, :] < ln[:, None]
+    if window > 0:
+        ok &= kp[None, :] > (ln[:, None] - 1 - window)
+    bias = torch.where(ok, 0.0, NEG_INF).float()  # (B, S)
+    qf = q.float().reshape(B, Hkv, g, dkq)
+    s = torch.einsum("bhgd,bkhd->bhgk", qf, k) * scale
+    s = s + bias[:, None, None]
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", p, v)
+    return o.reshape(B, H, dv).to(q.dtype)
