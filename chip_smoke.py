@@ -14,13 +14,25 @@ Phases, one JSON line each:
      through EnsembleEngine.generate for 32 new tokens; the kernel's
      launch count must equal the formula printed;
   3  the card against the CPU end to end on reduced gemma3-1b at f32:
-     identical greedy tokens and allclose fused log-probs.
+     identical greedy tokens and allclose fused log-probs;
+  4  the fused distillation-loss kernels (forward and backward) against
+     their plain version on the card: the NiN training path's shape, a
+     262k bf16 vocab, and f32 with padded labels; times as in phase 1,
+     beside one F.cross_entropy call with probability targets;
+  5  the training path at full width: paper NiN, K=4 members, batch 64
+     each, 2 EC rounds through Trainer.run_round (round 1 opens with 8
+     Eqn-9 distill steps); the kernels' launch counts must equal the
+     formula printed, every loss be finite and the Jensen gap >= 0;
+     device ms per step by CUDA events (no profiler) against host ms;
+  6  the card against the CPU on reduced NiN at f32: one plain and one
+     distill round, losses and evaluate() metrics within 1e-4.
 Then the kernels line, the card line, and last the result line.  Any
 failure exits non-zero before the result line.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -223,23 +235,27 @@ def n_paged_layers(cfg, max_seq, tf) -> int:
                if tf.layer_pages(cfg, s, max_seq))
 
 
-def profile_steps(torch, eng, n: int) -> dict:
-    """Device time per decode step by kernel, from torch.profiler over n
-    steps (the profiler slows the host, so the idle share is taken
-    against the unprofiled step time instead)."""
+def profile_steps(torch, run, n: int, name: str) -> dict:
+    """Device time per step by kernel, from torch.profiler around run(),
+    which takes n steps; `name_ms` sums the kernels whose name holds
+    `name`, `wall_ms` is the host clock of the profiled window per step.
+    The profiler slows the host, so for a host-bound step the idle share
+    is taken against the unprofiled step time instead."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            eng.step()
+        t0 = time.perf_counter()
+        run()
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / n * 1e3
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     ms = lambda e: e.self_device_time_total / n / 1e3  # noqa: E731
     top = sorted(kern, key=ms, reverse=True)[:6]
-    return {"busy_ms": sum(ms(e) for e in kern),
-            "paged_ms": sum(ms(e) for e in kern if "paged_kernel" in e.key),
+    return {"busy_ms": sum(ms(e) for e in kern), "wall_ms": wall_ms,
+            "name_ms": sum(ms(e) for e in kern if name in e.key),
             "top": [[e.key[:60], ms(e)] for e in top]}
 
 
@@ -291,7 +307,8 @@ def phase2(torch, np, card):
         eng.step()
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
-    prof = profile_steps(torch, eng, n=3)
+    prof = profile_steps(torch, lambda: [eng.step() for _ in range(3)], 3,
+                         "paged_kernel")
     emit({"phase": 2, "card": card, "arch": cfg.name, "dtype": cfg.dtype,
           "members": K,
           "slots": 4, "prompt_lens": plens, "new_tokens": n_new,
@@ -307,7 +324,7 @@ def phase2(torch, np, card):
           "device_busy_ms_per_step": prof["busy_ms"],
           "device_idle_share": 1.0 - prof["busy_ms"] * (n_new - 1)
                                / (decode_s * 1e3),
-          "paged_attention_ms_per_step": prof["paged_ms"],
+          "paged_attention_ms_per_step": prof["name_ms"],
           "top_kernels_ms_per_step": prof["top"],
           "sample": outs[0][:8].tolist()})
     del eng, params
@@ -357,6 +374,344 @@ def phase3(torch, np):
                                rtol=1e-4)
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the fused distillation loss against its plain version
+# ---------------------------------------------------------------------------
+
+# operations per element, for the bound: forward max, subtract, exp,
+# add, the pseudo product and its sum, the label compare (7, rounded up);
+# backward subtract, exp, the (1+lam) product, the one-hot compare and
+# subtract, the lam product and subtract, the g/N product (8)
+DISTILL_OPS = {"fwd": 8, "bwd": 8}
+
+
+def distill_inputs(torch, gen, N, V, zdt, pdt, pad):
+    """Pseudo-labels peaked where the logits are large (a softmax of 2z
+    plus noise, as an ensemble's are), so that <p, z> is of the size of
+    the loss and a kernel that dropped the lambda terms would fail."""
+    z = (torch.randn(N, V, generator=gen, device="cuda") * 3).to(zdt)
+    y = torch.randint(0, V, (N,), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    if pad:
+        y[::7] = -1
+    p = torch.softmax(2 * z.float() + torch.randn(N, V, generator=gen,
+                                                  device="cuda"), -1)
+    return z, y, p.to(pdt), torch.tensor(0.4, device="cuda")
+
+
+# (atol, rtol, relative L1) on N * dz / g, whose entries are O(1): f32
+# at the JAX package's kernel-test tolerance; bf16 one rounding of the
+# output (2^-7 relative), atol for the f32 cancellation before it
+DZ_TOL = {"float32": (2e-5, 2e-5, 2e-5), "bfloat16": (1e-5, 8e-3, 8e-3)}
+
+
+def check_dz(torch, dz, dz_ref, g: float, name: str) -> tuple:
+    """Hold dz = g/N * ((1+lam) softmax - onehot - lam p) against its
+    plain version at the gradient's own scale, N * dz / g, element by
+    element and in relative L1 (the L1 sees the many small softmax
+    entries that no elementwise atol can).  -> (max abs error of dz,
+    of N * dz / g, relative L1)."""
+    scale = dz.shape[0] / g
+    a, b = dz.float() * scale, dz_ref.float() * scale
+    atol, rtol, l1 = DZ_TOL[str(dz.dtype).split(".")[-1]]
+    torch.testing.assert_close(a, b, atol=atol, rtol=rtol,
+                               msg=lambda m: f"{name} bwd: {m}")
+    rel_l1 = ((a - b).abs().sum() / b.abs().sum()).item()
+    if not rel_l1 <= l1:
+        raise AssertionError(f"{name} bwd: relative L1 error {rel_l1} > {l1}")
+    err = (dz.float() - dz_ref.float()).abs().max().item()
+    return err, (a - b).abs().max().item(), rel_l1
+
+
+def distill_bound(z, p, which):
+    """(bound_ms, bound_by): each input read once, each output written
+    once (forward: logits, pseudo, labels in; lse, gold, dot out;
+    backward: logits, pseudo, labels, lse in; dz out), against the
+    elementwise operations at the f32 rate outside the tensor cores."""
+    N, V = z.shape
+    nbytes = z.numel() * z.element_size() + p.numel() * p.element_size()
+    if which == "fwd":
+        nbytes += N * 4 + 3 * N * 4
+    else:
+        nbytes += N * 4 + N * 4 + z.numel() * z.element_size()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = DISTILL_OPS[which] * N * V / PEAK_OPS["float32"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase4(torch, flush, card):
+    import torch.nn.functional as F
+    from repro_torch.kernels import distill_loss as dl
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # name, N, V, logits dtype, pseudo dtype, padded labels
+        ("nin_f32", 256, 100, f32, f32, False),      # the main path's shape
+        ("vocab_bf16", 2048, 262144, bf16, f32, False),
+        ("vocab_f32_pad", 512, 32768, f32, f32, True),
+    ]
+    # loss rtol 1e-5 for both logits types: both sides read the same
+    # values and sum in f32; dz: DZ_TOL
+    loss_tol = 1e-5
+    main = {}
+    for name, N, V, zdt, pdt, pad in cases:
+        z, y, p, lam = distill_inputs(torch, gen, N, V, zdt, pdt, pad)
+        g = torch.tensor(1.0, device="cuda")
+        # forward: the kernel's loss against the plain loss
+        zk = z.clone().requires_grad_()
+        got = dl.fused_distill_loss(zk, y, p, lam)
+        zr = z.clone().requires_grad_()
+        want = ref.distill_loss(zr, y, p, lam)
+        torch.cuda.synchronize()
+        err_f = abs(got.item() - want.item())
+        torch.testing.assert_close(got.detach(), want.detach(),
+                                   rtol=loss_tol, atol=0,
+                                   msg=lambda m: f"{name} fwd: {m}")
+        # backward: the kernel's dz against autograd of the plain version
+        (dz,) = torch.autograd.grad(got, zk)
+        (dz_ref,) = torch.autograd.grad(want, zr, retain_graph=True)
+        torch.cuda.synchronize()
+        err_b, err_scaled, rel_l1 = check_dz(torch, dz, dz_ref, 1.0, name)
+        # the library yardstick: one cross_entropy with probability
+        # targets onehot(y) + lam * pseudo, built beforehand
+        target = lam * p.to(zdt)
+        ok = y >= 0
+        target[ok.nonzero()[:, 0], y[ok].long()] += 1.0
+        zl = z.clone().requires_grad_()
+        lib_loss = F.cross_entropy(zl, target)
+        lse, _, _ = dl.distill_loss_fwd(z, y, p)
+        fns = {
+            "fwd": (lambda: dl.distill_loss_fwd(z, y, p),
+                    lambda: ref.distill_loss_parts(z, y, p),
+                    lambda: F.cross_entropy(z, target)),
+            "bwd": (lambda: dl.distill_loss_bwd(z, y, p, lse, g, lam),
+                    lambda: torch.autograd.grad(want, zr, retain_graph=True),
+                    lambda: torch.autograd.grad(lib_loss, zl,
+                                                retain_graph=True)),
+        }
+        for which, (kern, plain, lib) in fns.items():
+            ms = time_ms(kern, torch, flush)
+            plain_ms = time_ms(plain, torch, flush, iters=10)
+            lib_ms = time_ms(lib, torch, flush, iters=10)
+            bound_ms, bound_by = distill_bound(z, p, which)
+            row = {"phase": 4, "card": card,
+                   "kernel": f"distill_loss_{which}", "case": name,
+                   "N": N, "V": V, "logits": str(zdt).split(".")[-1],
+                   "pseudo": str(pdt).split(".")[-1], "padded_labels": pad,
+                   "max_abs_err": err_f if which == "fwd" else err_b,
+                   "tol": ({"loss_rtol": loss_tol} if which == "fwd" else
+                           dict(zip(("atol", "rtol", "rel_l1"),
+                                    DZ_TOL[str(zdt).split(".")[-1]]),
+                                of="N*dz/g")),
+                   "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+            if which == "bwd":
+                row.update(max_abs_err_scaled=err_scaled, rel_l1_err=rel_l1)
+            emit(row)
+            if name == "nin_f32":
+                main[which] = row
+        del z, p, zk, zr, got, want, dz, dz_ref, target, zl, lib_loss, fns
+        torch.cuda.empty_cache()
+    return main
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the training path at full width
+# ---------------------------------------------------------------------------
+
+def step_inputs(tr, n: int, distill: bool) -> list:
+    """n steps' (batch, pseudo) drawn as run_round draws them."""
+    from repro_torch.data import sample_batch
+    if distill:
+        return [tr._sample_pseudo_batch() for _ in range(n)]
+    return [(sample_batch(tr.rng, tr.shards, tr.batch), None)
+            for _ in range(n)]
+
+
+def run_on(tr, inputs: list, lam) -> None:
+    """The steps on these inputs, from a copy of the trainer's state."""
+    state = tr.state
+    for batch, pseudo in inputs:
+        state, _ = tr._plain_step(state, batch, pseudo,
+                                  0.0 if pseudo is None else lam)
+
+
+def host_ms(torch, tr, n: int, distill: bool, lam) -> float:
+    """Host ms per step over n steps, sampling included, ending in a
+    synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_on(tr, step_inputs(tr, n, distill), lam)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def device_ms(torch, tr, distill: bool, lam) -> dict:
+    """Device ms per step with no host gap between the steps, and host
+    ms to enqueue one, without the profiler.  The batches are drawn
+    first; the host then enqueues n steps while the stream is held by a
+    torch.cuda._sleep, and CUDA events bracket the steps.  The reading
+    counts only if the device was still asleep when the host had
+    enqueued the last step; else one step is tried (on the H100 two
+    NiN steps fit ahead of the device and four did not)."""
+    for n in (2, 1):
+        inputs = step_inputs(tr, n, distill)
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(n * 400_000_000)   # ~0.2 s a step, 20x its enqueue
+        s.record()
+        t0 = time.perf_counter()
+        run_on(tr, inputs, lam)
+        enqueue_s = time.perf_counter() - t0
+        e.record()
+        ahead = not s.query()
+        e.synchronize()
+        if ahead:
+            return {"steps": n, "device_ms": s.elapsed_time(e) / n,
+                    "enqueue_ms": enqueue_s / n * 1e3}
+    return {"steps": 0, "device_ms": None, "enqueue_ms": None}
+
+
+def phase5(torch, np, card):
+    from repro_torch.common.types import ECConfig
+    from repro_torch.configs import registry
+    from repro_torch.data import image_member_datasets, sample_batch
+    from repro_torch.kernels import distill_loss as dl
+    from repro_torch.optim import sgd_momentum
+    from repro_torch.runtime.trainer import Trainer
+    cfg = registry.get_config("paper_nin")
+    K, B, per_member, rounds = 4, 64, 1024, 2
+    ec = ECConfig(tau=16, p_steps=8, lam=0.5, relabel_fraction=0.7,
+                  label_mode="dense", aggregator="ec")
+    train, test = image_member_datasets(K, per_member,
+                                        n_classes=cfg.vocab_size, img=32,
+                                        seed=0, device="cuda")
+    tr = Trainer(cfg, ec, sgd_momentum(0.05, 0.9), K, 0, train, test,
+                 batch_size=B, seed=0, device="cuda")
+    # warm-up (cuDNN, the kernels' first load) on a copy of the state,
+    # with its own indices: run_round below starts from the untouched state
+    warm = sample_batch(np.random.default_rng(99), tr.shards, B)
+    fake = torch.softmax(torch.randn(K, B, cfg.vocab_size, device="cuda"),
+                         -1)
+    tr._plain_step(tr._plain_step(tr.state, warm, None, 0.0)[0], warm,
+                   fake, torch.tensor(0.5, device="cuda"))
+    expected = (rounds - 1) * ec.p_steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dl.distill_loss_fwd.launches = 0
+    dl.distill_loss_bwd.launches = 0
+    losses, evals, round_s = [], [], []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        losses.append(tr.run_round())
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t0)
+        evals.append(tr.evaluate())
+    launches = {"fwd": dl.distill_loss_fwd.launches,
+                "bwd": dl.distill_loss_bwd.launches}
+    peak = torch.cuda.max_memory_allocated()
+    for which, n in launches.items():
+        if n != expected:
+            raise AssertionError(f"distill_loss_{which} launched {n} times, "
+                                 f"expected {expected}")
+    for r, (loss, ev) in enumerate(zip(losses, evals)):
+        vals = [loss] + list(ev.values())
+        if not all(math.isfinite(v) for v in vals):
+            raise AssertionError(f"round {r}: non-finite {loss}, {ev}")
+        gap = ev["local_loss"] - ev["global_loss"]
+        if gap < -1e-6:
+            raise AssertionError(f"round {r}: Jensen gap {gap} < 0")
+    # the parts of a round, timed on copies of the state: host ms per
+    # step (median of 3 interleaved runs of 10), device ms per step with
+    # the host's gaps taken out, and their ratio, the idle share
+    lam = torch.tensor(0.25, device="cuda")
+    times = {False: [], True: []}
+    for _ in range(3):
+        for distill in (False, True):
+            times[distill].append(host_ms(torch, tr, 10, distill, lam))
+    step = {}
+    for distill, name in ((False, "plain"), (True, "distill")):
+        ms = sorted(times[distill])[1]
+        dev = device_ms(torch, tr, distill, lam)
+        step[name] = dict(dev, host_ms=ms, host_ms_runs=times[distill],
+                          idle_share=None if dev["device_ms"] is None
+                          else 1.0 - dev["device_ms"] / ms)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr._relabel()
+    torch.cuda.synchronize()
+    relabel_s = time.perf_counter() - t0
+    # device time by kernel under the profiler, over 3 plain and 3
+    # distill steps: for the kernels' names and shares (the profiler
+    # adds to the kernels' sum, which is read against step["device_ms"])
+    prof = profile_steps(torch, lambda: (
+        run_on(tr, step_inputs(tr, 3, False), lam),
+        run_on(tr, step_inputs(tr, 3, True), lam)), 6, "distill_")
+    emit({"phase": 5, "card": card, "arch": cfg.name, "dtype": "float32",
+          "tf32": False, "members": K, "batch_per_member": B,
+          "per_member": per_member, "img": 32, "tau": ec.tau,
+          "p_steps": ec.p_steps, "rounds": rounds,
+          "launch_formula": f"({rounds} rounds - 1) x {ec.p_steps} distill "
+                            f"steps x 1 launch = {expected} each way",
+          "launches": launches, "round_loss": losses,
+          "evaluate": evals,
+          "jensen_gap": [e["local_loss"] - e["global_loss"] for e in evals],
+          "round_s": round_s,
+          "images_per_s": K * B * ec.tau / round_s[-1],
+          "plain_step_ms": step["plain"]["host_ms"],
+          "distill_step_ms": step["distill"]["host_ms"], "steps": step,
+          "relabel_s": relabel_s, "max_memory_allocated": peak,
+          "profiler_kernel_ms_per_step": prof["busy_ms"],
+          "profiled_step_ms": prof["wall_ms"],
+          "distill_kernels_ms_per_distill_step": prof["name_ms"] * 2,
+          "top_kernels_ms_per_step": prof["top"]})
+    del tr, train, test
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6: training on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def phase6(torch):
+    from repro_torch import models
+    from repro_torch.common.types import ECConfig
+    from repro_torch.configs import registry
+    from repro_torch.data import image_member_datasets
+    from repro_torch.optim import sgd_momentum
+    from repro_torch.runtime.trainer import Trainer
+    cfg = registry.get_config("paper_nin").with_(d_model=48, vocab_size=10)
+    K = 4
+    params = models.init(cfg, seed=0, device="cpu", members=K)
+    params = {k: v.numpy() for k, v in params.items()}
+    train, test = image_member_datasets(K, 64, n_classes=10, img=16,
+                                        seed=0, device="cpu")
+    ec = ECConfig(tau=4, p_steps=2, lam=0.5, relabel_fraction=0.5,
+                  label_mode="dense", aggregator="ec")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        tr = Trainer(cfg, ec, sgd_momentum(0.02), K, 0, train, test,
+                     batch_size=16, seed=1, params=params, device=dev)
+        rows = []
+        for _ in range(2):   # a plain round, then a distill round
+            rows.append(tr.run_round())
+            rows.extend(tr.evaluate().values())
+        rows.extend(tr.evaluate_compressed().values())
+        out[dev] = rows
+    got, want = (torch.tensor(out[d], dtype=torch.float64)
+                 for d in ("cuda", "cpu"))
+    err = (got - want).abs().max().item()
+    emit({"phase": 6, "arch": "paper_nin reduced (d_model 48, img 16, "
+                              "10 classes)", "dtype": "float32",
+          "members": K, "values_compared": len(out["cpu"]),
+          "max_abs_err": err, "rtol": 1e-4})
+    # tolerance: the same f32 math, summed in another order on each device
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -382,14 +737,32 @@ def main() -> int:
     del flush
     launches = phase2(torch, np, card)
     phase3(torch, np)
-    emit({"kernels": [{
-        "name": "paged_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
-        "replaces": "src/repro/kernels/paged_attention.py:117",
-        "launches": launches, "max_abs_err": main_row["max_abs_err"],
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}]})
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    distill_rows = phase4(torch, flush, card)
+    del flush
+    distill_launches = phase5(torch, np, card)
+    phase6(torch)
+
+    def entry(name, source, replaces, n, row):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": n,
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"]}
+
+    dsrc = "src/repro_torch/kernels/csrc/distill_loss.cu"
+    emit({"kernels": [
+        entry("paged_attention",
+              "src/repro_torch/kernels/csrc/paged_attention.cu",
+              "src/repro/kernels/paged_attention.py:117", launches,
+              main_row),
+        entry("distill_loss_fwd", dsrc,
+              "src/repro/kernels/distill_loss.py:35",
+              distill_launches["fwd"], distill_rows["fwd"]),
+        entry("distill_loss_bwd", dsrc,
+              "src/repro/kernels/distill_loss.py:71",
+              distill_launches["bwd"], distill_rows["bwd"])]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

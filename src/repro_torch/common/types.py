@@ -141,3 +141,22 @@ class ModelConfig:
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ECConfig:
+    """The paper's hyper-parameters (Section 4/5)."""
+
+    tau: int = 40  # local SGD steps between aggregations
+    lam: float = 0.5  # initial combination coefficient (Eqn 9)
+    p_steps: int = 20  # compression steps (paper: tau/2); lambda anneals to 0
+    relabel_fraction: float = 0.7  # paper relabels 70% of D_k
+    # pseudo-label accumulator: "dense" (exact) | "topk" (merge-prune)
+    label_mode: str = "dense"
+    top_m: int = 64  # accumulator width in topk mode
+    aggregator: str = "ec"  # "ec" | "ma" | "sync" (baselines)
+    protocol: str = "ring"  # "ring" | "allgather"
+    # average probabilities (paper Eqn 6) or logits
+    average_probs: bool = True
+    # straggler policy: members whose heartbeat lags get dropped this round
+    straggler_drop_max: int = 0

@@ -6,6 +6,7 @@ hand-written kernel, which launches or raises.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import distill_loss as dl
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
 
@@ -21,3 +22,15 @@ def paged_attention(q, k_pages, v_pages, table, lens, window: int = 0,
     if q.device.type == "cpu":
         return ref.paged_attention(q, k_pages, v_pages, table, lens, **kw)
     raise ValueError(f"paged_attention: no implementation for {q.device}")
+
+
+def fused_distill_loss(logits, labels, pseudo, lam):
+    """Eqn 9, mean over rows: (1+lam)*lse - z[y] - lam*<pseudo, z>; see
+    kernels/ref.distill_loss.  On the card one forward and one backward
+    kernel launch cover all rows."""
+    if logits.is_cuda:
+        return dl.fused_distill_loss(logits, labels, pseudo, lam)
+    if logits.device.type == "cpu":
+        return ref.distill_loss(logits, labels, pseudo, lam)
+    raise ValueError(f"fused_distill_loss: no implementation for "
+                     f"{logits.device}")

@@ -6,7 +6,7 @@ CUDA kernel against its plain version on the same inputs.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -72,3 +72,28 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgk,bkhd->bhgd", p, v)
     return o.reshape(B, H, dv).to(q.dtype)
+
+
+def distill_loss_parts(logits: torch.Tensor, labels: torch.Tensor,
+                       pseudo: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(N, V) logits, (N,) int labels, (N, V) pseudo-label probs ->
+    per-row (lse, gold, dot) in f32; the Eqn-9 loss of row i is
+    (1+lam)*lse_i - gold_i - lam*dot_i.  A label outside [0, V) (-1
+    pads) hits no column: its gold is 0, as in the fused kernel."""
+    lg = logits.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    y = labels.long()
+    hit = (y >= 0) & (y < lg.shape[-1])
+    gold = lg.gather(-1, torch.where(hit, y, 0)[..., None])[..., 0]
+    gold = torch.where(hit, gold, 0.0)
+    dot = (pseudo.float() * lg).sum(-1)
+    return lse, gold, dot
+
+
+def distill_loss(logits: torch.Tensor, labels: torch.Tensor,
+                 pseudo: torch.Tensor, lam) -> torch.Tensor:
+    """Eqn 9, mean over rows: CE(z, y) + lam * CE(z, pseudo) for
+    pseudo-labels that sum to 1 (the fused kernel's oracle)."""
+    lse, gold, dot = distill_loss_parts(logits, labels, pseudo)
+    return ((1.0 + lam) * lse - gold - lam * dot).mean()

@@ -357,8 +357,10 @@ def gqa_prefill(params: dict, x: torch.Tensor, cache: dict,
 # layers folded into the page axis, (K*count*n_pages, page, Hkv, dh) — a
 # view of the whole plane, no copy — and a (K, B, P) page table already
 # mapped into that global id space (transformer.global_table), so one
-# kernel launch serves all K members.  Ids >= the folded page count are
-# unallocated: reads clamp and are masked by position, writes drop.
+# kernel launch serves all K members.  Writes take a table whose
+# unallocated entries are >= the folded page count, and drop there;
+# reads take one whose unallocated entries point at the last page of the
+# member's own layer (the JAX package's clamp), masked by position.
 
 
 def gqa_paged_cache_init(a: AttnConfig, lead, n_pages: int, page_size: int,
@@ -390,7 +392,8 @@ def _scatter_token(pages: torch.Tensor, vals: torch.Tensor,
 
 def _gather_pages(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """(N, page, ...) x (K, B, P) -> (K*B, P*page, ...) logical view.
-    Unallocated entries clamp to a live page; callers mask by position."""
+    Takes the read table (no sentinels past N); callers mask by
+    position."""
     N, page = pages.shape[:2]
     K, B, P = table.shape
     out = pages[table.long().clamp(0, N - 1)]      # (K, B, P, page, ...)
@@ -438,12 +441,14 @@ def paged_write_chunk(cache: dict, name: str, chunk: torch.Tensor,
 
 
 def gqa_decode_paged(params: dict, x: torch.Tensor, cache: dict,
-                     pos: torch.Tensor, table: torch.Tensor, a: AttnConfig,
+                     pos: torch.Tensor, table: torch.Tensor,
+                     read_table: torch.Tensor, a: AttnConfig,
                      cfg: ModelConfig, window: int,
                      theta: float) -> torch.Tensor:
     """One-token decode over the paged pool, every row at its OWN position.
 
-    x (K, B, 1, d); pos (B,); table (K, B, P) global ids; cache
+    x (K, B, 1, d); pos (B,); table / read_table (K, B, P) global ids
+    for writes / reads (transformer.global_table); cache
     {"k_pages", "v_pages": (N, page, Hkv, dh)} folded pool.  The new
     token's K/V scatter into the slot's current page in place, then one
     kernels/ops.paged_attention call reads all K members' pages.
@@ -455,7 +460,8 @@ def gqa_decode_paged(params: dict, x: torch.Tensor, cache: dict,
     lens = (pos.int() + 1).repeat(K)
     o = ops.paged_attention(_fold(q[:, :, 0]).contiguous(), cache["k_pages"],
                             cache["v_pages"],
-                            table.reshape(K * B, -1).int().contiguous(),
+                            read_table.reshape(K * B, -1).int()
+                            .contiguous(),
                             lens, window=window,
                             scale=1.0 / math.sqrt(a.head_dim))
     return _out(params, o[:, None], K, B)
@@ -463,18 +469,20 @@ def gqa_decode_paged(params: dict, x: torch.Tensor, cache: dict,
 
 def gqa_prefill_paged(params: dict, x: torch.Tensor, cache: dict,
                       idx: torch.Tensor, n_tok: torch.Tensor,
-                      table: torch.Tensor, a: AttnConfig, cfg: ModelConfig,
+                      table: torch.Tensor, read_table: torch.Tensor,
+                      a: AttnConfig, cfg: ModelConfig,
                       window: int, theta: float) -> torch.Tensor:
     """Multi-token prefill over the paged pool.  x (K, B, C, d) chunks at
-    positions idx..idx+C-1 per row; table (K, B, P) global ids.  Same
+    positions idx..idx+C-1 per row; table / read_table (K, B, P) global
+    ids for writes / reads (transformer.global_table).  Same
     math as gqa_prefill: queries attend over the gathered pre-existing
     pages plus the chunk, then the chunk's K/V land in the slot's pages
     in place.  -> (K, B, C, d)."""
     K, B, C, _ = x.shape
     q_pos, c_pos = _chunk_pos(idx, n_tok, C)
     q, k, v = _qkv(params, x, a, cfg, q_pos, theta)
-    k_cache = paged_gather(cache, "k_pages", table, k.dtype)  # (K*B, S, ..)
-    v_cache = paged_gather(cache, "v_pages", table, v.dtype)
+    k_cache = paged_gather(cache, "k_pages", read_table, k.dtype)
+    v_cache = paged_gather(cache, "v_pages", read_table, v.dtype)
     S = k_cache.shape[1]
     slot_ids = torch.arange(S, device=x.device)
     cache_pos = torch.where(slot_ids < idx.long()[:, None], slot_ids, FAR)

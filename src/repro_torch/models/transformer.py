@@ -181,21 +181,28 @@ def init_slot_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def global_table(table: torch.Tensor, c: int, count: int,
-                 n_pages: int) -> torch.Tensor:
-    """(K, B, P) per-member page ids -> ids into the layer's plane with
-    members and layers folded into the page axis, (K*count*n_pages, ...):
-    member k's layer c pages start at (k*count + c)*n_pages.  Unallocated
-    entries map to the folded page count (still a sentinel)."""
+                 n_pages: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(K, B, P) per-member page ids -> (write, read) ids into the layer's
+    plane with members and layers folded into the page axis,
+    (K*count*n_pages, ...): member k's layer c pages start at
+    (k*count + c)*n_pages.  Unallocated entries map, in the write table,
+    to the folded page count (a sentinel: the write drops) and, in the
+    read table, to the last page of member k's own layer c, which is
+    where the JAX package's per-layer pool clamps them (the read is then
+    masked by position)."""
     K = table.shape[0]
     base = ((torch.arange(K, device=table.device, dtype=torch.int32)
              * count + c) * n_pages)[:, None, None]
-    return torch.where(table < n_pages, table + base,
-                       K * count * n_pages).int()
+    ok = table < n_pages
+    write = torch.where(ok, table + base, K * count * n_pages).int()
+    read = torch.where(ok, table + base, base + n_pages - 1).int()
+    return write, read
 
 
 def _layer_cache(lc: dict, c: int, count: int,
                  table: Optional[torch.Tensor]):
-    """One layer's cache views (+ its global page table when paged)."""
+    """One layer's cache views (+ its global (write, read) page tables
+    when paged)."""
     if "k_pages" in lc:
         n_pages = lc["k_pages"].shape[2]
         fold = {k: v.view(-1, *v.shape[3:]) for k, v in lc.items()}
@@ -221,8 +228,9 @@ def _decode(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor):
                 window, theta = _mixer_window(cfg, spec)
                 h_in = rmsnorm(p["norm_mix"], x, cfg.norm_eps)
                 if tbl is not None:
-                    h = attn.gqa_decode_paged(p["attn"], h_in, lc, pos, tbl,
-                                              cfg.attn, cfg, window, theta)
+                    h = attn.gqa_decode_paged(p["attn"], h_in, lc, pos,
+                                              *tbl, cfg.attn, cfg, window,
+                                              theta)
                 else:
                     h = attn.gqa_decode(p["attn"], h_in, lc, pos, cfg.attn,
                                         cfg, window, theta)
@@ -273,7 +281,7 @@ def _prefill(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
                 h_in = rmsnorm(p["norm_mix"], x, cfg.norm_eps)
                 if tbl is not None:
                     h = attn.gqa_prefill_paged(p["attn"], h_in, lc, idx,
-                                               n_tok, tbl, cfg.attn, cfg,
+                                               n_tok, *tbl, cfg.attn, cfg,
                                                window, theta)
                 else:
                     h = attn.gqa_prefill(p["attn"], h_in, lc, idx, n_tok,

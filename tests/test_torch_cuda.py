@@ -1,9 +1,10 @@
 """Tests of the PyTorch port that need the card (marker `cuda`).
 
-The hand-written CUDA paged-attention kernel against its plain PyTorch
-version in every option, its input checks, and the engine on the card
-against the engine on the CPU.  Each test skips where there is no CUDA
-device.  No JAX import, so the file runs on a machine without JAX:
+The hand-written CUDA kernels (paged attention; the fused distillation
+loss, forward and backward) against their plain PyTorch versions in
+every option, their input checks, and the engine and the trainer on the
+card against the CPU.  Each test skips where there is no CUDA device.
+No JAX import, so the file runs on a machine without JAX:
 
     python -m pytest tests/test_torch_cuda.py -q
 """
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 from repro_torch.configs import registry
+from repro_torch.kernels import distill_loss as dl
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
 from repro_torch.models import transformer as tf
@@ -119,3 +121,93 @@ def test_engine_on_card_matches_cpu(cuda):
         outs.append(eng.generate(prompts, 10))
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
+
+
+# (N, V, logits dtype, pseudo dtype, padded labels): the NiN main path's
+# shape, a multi-tile bf16 vocab, odd widths (element-wise loads), pads
+DISTILL_CASES = {
+    "nin_f32": (256, 100, torch.float32, torch.float32, False),
+    "vocab_bf16": (64, 8192, torch.bfloat16, torch.float32, False),
+    "bf16_pseudo": (32, 1000, torch.float32, torch.bfloat16, False),
+    "f32_pad": (48, 2048, torch.float32, torch.float32, True),
+    "odd_v": (33, 517, torch.float32, torch.float32, True),
+    "odd_v_bf16": (17, 301, torch.bfloat16, torch.bfloat16, False),
+}
+# loss rtol 1e-5 for both logits types (both sides read the same values
+# and sum in f32).  dz is held at its own scale, N * dz / g, whose
+# entries are O(1): (atol, rtol, relative L1) f32 at the JAX package's
+# kernel-test tolerance; bf16 one rounding of the output (2^-7 relative)
+LOSS_RTOL = 1e-5
+DZ_TOL = {torch.float32: (2e-5, 2e-5, 2e-5),
+          torch.bfloat16: (1e-5, 8e-3, 8e-3)}
+
+
+def distill_case(name, dev, seed=0):
+    """Pseudo-labels peaked where the logits are large (a softmax of 2z
+    plus noise), so that <p, z> is of the size of the loss."""
+    N, V, zdt, pdt, pad = DISTILL_CASES[name]
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    z = (torch.randn(N, V, generator=g, device=dev) * 3).to(zdt)
+    y = torch.randint(0, V, (N,), generator=g, device=dev,
+                      dtype=torch.int32)
+    if pad:
+        y[::5] = -1
+    p = torch.softmax(2 * z.float() + torch.randn(N, V, generator=g,
+                                                  device=dev), -1)
+    lam = torch.tensor(0.4, device=dev)
+    return z, y, p.to(pdt), lam
+
+
+def assert_dz_close(dz, dz_ref, g):
+    """Element by element and in relative L1 (which sees the many small
+    softmax entries), at the scale N * dz / g."""
+    atol, rtol, l1 = DZ_TOL[dz.dtype]
+    a, b = (t.float() * (t.shape[0] / g) for t in (dz, dz_ref))
+    torch.testing.assert_close(a, b, atol=atol, rtol=rtol)
+    assert (a - b).abs().sum() <= l1 * b.abs().sum()
+
+
+@pytest.mark.parametrize("name", sorted(DISTILL_CASES))
+def test_distill_kernels_match_plain_version(cuda, name):
+    z, y, p, lam = distill_case(name, cuda)
+    f0, b0 = dl.distill_loss_fwd.launches, dl.distill_loss_bwd.launches
+    zk = z.clone().requires_grad_()
+    got = dl.fused_distill_loss(zk, y, p, lam)
+    got.backward(torch.tensor(1.7, device=cuda))
+    torch.cuda.synchronize()
+    assert (dl.distill_loss_fwd.launches, dl.distill_loss_bwd.launches) \
+        == (f0 + 1, b0 + 1)
+    zr = z.clone().requires_grad_()
+    want = ref.distill_loss(zr, y, p, lam)
+    want.backward(torch.tensor(1.7, device=cuda))
+    torch.testing.assert_close(got, want, rtol=LOSS_RTOL, atol=0)
+    assert zk.grad.dtype == z.dtype
+    assert_dz_close(zk.grad, zr.grad, 1.7)
+    parts = dl.distill_loss_fwd(z, y, p)
+    for a, b in zip(parts, ref.distill_loss_parts(z, y, p)):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=LOSS_RTOL)
+
+
+def test_distill_kernels_check_their_inputs(cuda):
+    z, y, p, lam = distill_case("nin_f32", cuda)
+    for kw, match in ((dict(labels=y.long()), "labels dtype"),
+                      (dict(pseudo=p[:-1]), "pseudo has shape"),
+                      (dict(logits=z.t().contiguous().t()), "contiguous"),
+                      (dict(logits=z.half()), "logits dtype"),
+                      (dict(pseudo=p.cpu()), "pseudo is on"),
+                      (dict(logits=z[None]), "want logits")):
+        args = dict(logits=z, labels=y, pseudo=p)
+        args.update(kw)
+        with pytest.raises(ValueError, match=match):
+            dl.distill_loss_fwd(**args)
+    lse, _, _ = dl.distill_loss_fwd(z, y, p)
+    g = torch.tensor(1.0, device=cuda)
+    with pytest.raises(ValueError, match="lam is on"):
+        dl.distill_loss_bwd(z, y, p, lse, g, lam.cpu())
+    with pytest.raises(ValueError, match="g has shape"):
+        dl.distill_loss_bwd(z, y, p, lse, g[None], lam)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        dl.distill_loss_fwd(z.cpu(), y.cpu(), p.cpu())
+    with pytest.raises(ValueError, match="lam is on"):
+        dl.fused_distill_loss(z, y, p, lam.cpu())
