@@ -3,18 +3,30 @@
 
     python3 chip_smoke.py
 
-Phases, one JSON line each:
+Phases, one JSON line each, in the order 0, 1, 7, 2, 8, 3, 4, 5, 6:
   0  the card's name and power limit; build every CUDA kernel from
      src/repro_torch/kernels/csrc (one nvcc per source, all at once);
-  1  each kernel against its plain PyTorch version on the card, at the
-     main path's shapes and in every variant it takes, with its time
-     (cold L2), the plain version's, one library call's and the bound;
-  2  the main path at full width: gemma3-1b (bf16, 26 layers), K=4
+  1  the paged-attention kernel against its plain PyTorch version on the
+     card, at the decode path's shapes and in every variant it takes,
+     with its time (cold L2), the plain version's, one library call's
+     and the bound;
+  7  the flash-attention kernel likewise, f32 and bf16, at the prefill's
+     shapes (gemma3-1b over a 512 ring and over 576 gathered positions,
+     deepseek-7b over 576, each plus a 128-token chunk, mid-prompt and
+     ragged tail) and the full forward's (top-left causal, T = S =
+     2048), beside one scaled_dot_product_attention call with the same
+     boolean mask;
+  2  the serving path at full width: gemma3-1b (bf16, 26 layers), K=4
      members, paged KV, 4 requests of 300-512 prompt tokens served
-     through EnsembleEngine.generate for 32 new tokens; the kernel's
-     launch count must equal the formula printed;
-  3  the card against the CPU end to end on reduced gemma3-1b at f32:
-     identical greedy tokens and allclose fused log-probs;
+     through EnsembleEngine.generate for 32 new tokens; both kernels'
+     launch counts must equal the formulas printed (paged attention per
+     decode step, flash attention per prefill call); prefill's device
+     time by the profiler beside its host seconds;
+  8  the same for deepseek-7b at full width (bf16, 30 layers, every one
+     paged), after an init that must peak below 60 GB;
+  3  the card against the CPU end to end on reduced gemma3-1b and
+     deepseek-7b at f32: identical greedy tokens and allclose fused
+     log-probs;
   4  the fused distillation-loss kernels (forward and backward) against
      their plain version on the card: the NiN training path's shape, a
      262k bf16 vocab, and f32 with padded labels; times as in phase 1,
@@ -227,7 +239,137 @@ def phase1(torch, flush, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 2: the main path at full width
+# phase 7: flash_attention against its plain version
+# ---------------------------------------------------------------------------
+
+FAR = -(10 ** 9)    # the models' empty-slot position
+
+
+def flash_positions(torch, N, S, C, idx, n_tok, ring_window):
+    """Positions of one prefill chunk at idx with n_tok valid tokens over
+    S cache entries, as models/attention.py builds them: a ring of S
+    slots (ring_window > 0) or S gathered positions, then the chunk."""
+    from repro_torch.models import attention as attn
+    idx_t = torch.full((N,), idx, device="cuda")
+    q_pos, c_pos = attn._chunk_pos(idx_t, torch.full((N,), n_tok,
+                                                     device="cuda"), C)
+    if ring_window:
+        cache_pos = attn._cache_entry_pos(S, idx_t, ring_window)
+    else:
+        slot = torch.arange(S, device="cuda")
+        cache_pos = torch.where(slot < idx, slot, FAR).expand(N, S)
+    return q_pos.int().contiguous(), \
+        torch.cat([cache_pos, c_pos], 1).int().contiguous()
+
+
+# name: (N, T, cache S (0: top-left T = S), H, Hkv, dh, window, idx, n_tok)
+# gemma3-1b: ring of 512 (local layers, window 512) and 576 gathered
+# positions (global layer) plus a 128 chunk; deepseek-7b: 576 gathered
+# plus the chunk; apply at T = S = 2048, top-left causal
+FLASH_CASES = {
+    "gemma3_ring_mid": (4, 128, 512, 4, 1, 256, 512, 256, 128),
+    "gemma3_ring_tail": (4, 128, 512, 4, 1, 256, 512, 256, 44),
+    "gemma3_paged_mid": (4, 128, 576, 4, 1, 256, 0, 256, 128),
+    "gemma3_paged_tail": (4, 128, 576, 4, 1, 256, 0, 256, 44),
+    "deepseek_paged_mid": (4, 128, 576, 32, 32, 128, 0, 256, 128),
+    "deepseek_paged_tail": (4, 128, 576, 32, 32, 128, 0, 256, 44),
+    "gemma3_apply_2048": (4, 2048, 0, 4, 1, 256, 0, 0, 0),
+    "gemma3_apply_2048_w512": (4, 2048, 0, 4, 1, 256, 512, 0, 0),
+    "deepseek_apply_2048": (4, 2048, 0, 32, 32, 128, 0, 0, 0),
+}
+
+
+def flash_valid(torch, q_pos, k_pos, T, S, window, dev="cuda"):
+    """(N or 1, T, S) mask of the (query, key) pairs that count."""
+    if q_pos is None:
+        q_pos = torch.arange(T, device=dev)[None]
+        k_pos = torch.arange(S, device=dev)[None]
+    qp, kp = q_pos.long()[:, :, None], k_pos.long()[:, None, :]
+    ok = (kp >= 0) & (kp <= qp)
+    if window:
+        ok &= kp > qp - window
+    return ok
+
+
+def flash_bound(q, k, v, q_pos, k_pos, ok):
+    """(bound_ms, bound_by): q, k, v and the positions read once and the
+    output written once, over the memory rate, against 4 * dh flops (the
+    score and the value products) for every (query head, key) pair the
+    mask keeps, over the peak rate of the inputs' type."""
+    N, T, H, dh = q.shape
+    nbytes = 2 * q.numel() * q.element_size() + \
+        (k.numel() + v.numel()) * k.element_size()
+    if q_pos is not None:
+        nbytes += (q_pos.numel() + k_pos.numel()) * 4
+    pairs = int(ok.sum()) * (N // ok.shape[0]) * H
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * dh * pairs / PEAK_OPS[str(q.dtype).split(".")[-1]] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase7(torch, flush, card):
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    main = None
+    for name, (N, T, S0, H, Hkv, dh, window, idx, n_tok) in \
+            FLASH_CASES.items():
+        for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
+            S = S0 + T if S0 else T
+            q, k, v = (torch.randn(N, n, h, dh, generator=gen,
+                                   device="cuda").to(dt)
+                       for n, h in ((T, H), (S, Hkv), (S, Hkv)))
+            kw = dict(causal=True, window=window)
+            if S0:
+                kw["q_pos"], kw["k_pos"] = flash_positions(
+                    torch, N, S0, T, idx, n_tok, window)
+            got = fa.flash_attention(q, k, v, **kw)
+            want = ref.attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            ok = flash_valid(torch, kw.get("q_pos"), kw.get("k_pos"), T, S,
+                             window)
+            rows = ok.any(-1).expand(N, T)      # rows with a valid key
+            if not torch.isfinite(got.float()).all():
+                raise AssertionError(f"flash {name}: non-finite output")
+            err = (got.float() - want.float())[rows].abs().max().item()
+            torch.testing.assert_close(
+                got.float()[rows], want.float()[rows], atol=tol, rtol=tol,
+                msg=lambda m: f"flash {name} {dt}: {m}")
+            ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw), torch,
+                         flush)
+            plain_ms = time_ms(lambda: ref.attention(q, k, v, **kw), torch,
+                               flush, iters=10)
+            # the yardstick: SDPA on (N, H, T, dh) views made beforehand,
+            # with the same mask as a boolean (N, 1, T, S) tensor
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            mask = ok[:, None].expand(N, 1, T, S).contiguous()
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, scale=dh ** -0.5,
+                enable_gqa=H != Hkv), torch, flush, iters=10)
+            bound_ms, bound_by = flash_bound(q, k, v, kw.get("q_pos"),
+                                             kw.get("k_pos"), ok)
+            row = {"phase": 7, "card": card, "kernel": "flash_attention",
+                   "case": name, "dtype": str(dt).split(".")[-1],
+                   "N": N, "T": T, "S": S, "H": H, "Hkv": Hkv, "dh": dh,
+                   "window": window, "idx": idx, "n_tok": n_tok,
+                   "max_abs_err": err, "tol": tol, "ms": ms,
+                   "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   # the kernel's rate over every (query head, key) pair,
+                   # masked ones included (it skips no tile)
+                   "full_tflop_per_s": 4 * N * H * T * S * dh / ms / 1e9}
+            emit(row)
+            if name == "deepseek_paged_mid" and dt == torch.bfloat16:
+                main = row
+            del q, k, v, got, want, qt, kt, vt, mask
+        torch.cuda.empty_cache()
+    return main
+
+
+# ---------------------------------------------------------------------------
+# phases 2 and 8: the serving path at full width
 # ---------------------------------------------------------------------------
 
 def n_paged_layers(cfg, max_seq, tf) -> int:
@@ -259,47 +401,91 @@ def profile_steps(torch, run, n: int, name: str) -> dict:
             "top": [[e.key[:60], ms(e)] for e in top]}
 
 
-def phase2(torch, np, card):
+SERVE = dict(members=4, slots=4, max_prompt=512, max_out=64, page=16,
+             prompt_lens=[300, 377, 451, 512], new_tokens=32)
+
+
+def serve_phase(torch, np, card, arch: str, phase: int,
+                init_limit: float = None) -> dict:
+    """`arch` at full width, bf16, K=4 members, paged KV (page 16): 4
+    requests of 300-512 prompt tokens through EnsembleEngine.generate for
+    32 new tokens, greedy.  Both kernels' launch counts must equal their
+    formulas: paged_attention once per paged layer per decode step after
+    the first token (which prefill emits); flash_attention once per
+    attention layer per prefill call.  -> the kernels' launch counts."""
     from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.models import transformer as tf
     from repro_torch.serving.engine import EnsembleEngine
-    cfg = registry.get_config("gemma3-1b")
-    K, n_new = 4, 32
+    cfg = registry.get_config(arch)
+    K, n_new, plens = SERVE["members"], SERVE["new_tokens"], \
+        SERVE["prompt_lens"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = tf.init(cfg, seed=0, device="cuda", members=K)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    eng = EnsembleEngine(cfg, params, n_slots=4, max_prompt=512, max_out=64,
-                         paged=True, page_size=16, device="cuda")
+    init_peak = torch.cuda.max_memory_allocated()
+    if init_limit is not None and init_peak >= init_limit:
+        raise AssertionError(f"{arch} init peaked at {init_peak} B, limit "
+                             f"{init_limit}")
+    eng = EnsembleEngine(cfg, params, n_slots=SERVE["slots"],
+                         max_prompt=SERVE["max_prompt"],
+                         max_out=SERVE["max_out"], paged=True,
+                         page_size=SERVE["page"], device="cuda")
     rng = np.random.default_rng(0)
-    plens = [300, 377, 451, 512]
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in plens]
     eng.generate(prompts, max_new=2)            # warm-up (cuBLAS, kernel load)
     n_paged = n_paged_layers(cfg, eng.max_seq, tf)
-    expected = n_paged * (n_new - 1)            # chunked prefill: no kernel
+    n_attn = sum(count * len(specs) for count, specs in cfg.segments())
+    calls = sum(-(-n // eng.prefill_chunk) for n in plens)
+    expected = {"paged_attention": n_paged * (n_new - 1),
+                "flash_attention": n_attn * calls}
+    formulas = {
+        "paged_attention": f"{n_paged} paged layers x ({n_new} - 1) decode "
+                           f"steps = {expected['paged_attention']}",
+        "flash_attention": f"{n_attn} attention layers x {calls} prefill "
+                           f"calls = {expected['flash_attention']}"}
     torch.cuda.reset_peak_memory_stats()
     pa.paged_attention.launches = 0
+    fa.flash_attention.launches = 0
+    prefills0 = eng.prefills_run
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     outs = eng.generate(prompts, max_new=n_new)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
-    launches = pa.paged_attention.launches
-    if launches != expected:
-        raise AssertionError(f"paged_attention launched {launches} times, "
-                             f"expected {expected}")
+    launches = {"paged_attention": pa.paged_attention.launches,
+                "flash_attention": fa.flash_attention.launches}
+    prefill_calls = eng.prefills_run - prefills0
+    serve_peak = torch.cuda.max_memory_allocated()
+    if prefill_calls != calls:
+        raise AssertionError(f"the engine ran {prefill_calls} prefill calls,"
+                             f" expected {calls}")
+    for name, n in launches.items():
+        if n != expected[name]:
+            raise AssertionError(f"{arch}: {name} launched {n} times, "
+                                 f"expected {formulas[name]}")
     for o in outs:
         if len(o) != n_new or o.min() < 0 or o.max() >= cfg.vocab_size:
             raise AssertionError(f"bad output {o}")
+
+    def admit():
+        eng.update_slots(release=range(eng.n_slots),
+                         admits=[(i, p, n_new) for i, p in enumerate(prompts)])
+
+    def prefill_all():
+        for i, n in enumerate(plens):
+            for _ in range(-(-n // eng.prefill_chunk)):
+                eng.prefill(i)
+
     # the same requests again through the engine's own calls, timed by part
-    eng.update_slots(release=range(eng.n_slots),
-                     admits=[(i, p, n_new) for i, p in enumerate(prompts)])
+    admit()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for i, n in enumerate(plens):
-        for _ in range(-(-n // eng.prefill_chunk)):
-            eng.prefill(i)
+    prefill_all()
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -309,18 +495,22 @@ def phase2(torch, np, card):
     decode_s = time.perf_counter() - t0
     prof = profile_steps(torch, lambda: [eng.step() for _ in range(3)], 3,
                          "paged_kernel")
-    emit({"phase": 2, "card": card, "arch": cfg.name, "dtype": cfg.dtype,
-          "members": K,
-          "slots": 4, "prompt_lens": plens, "new_tokens": n_new,
-          "prefill_chunk": eng.prefill_chunk, "paged_layers": n_paged,
-          "launch_formula": f"{n_paged} paged layers x ({n_new} - 1) "
-                            f"decode steps = {expected}",
+    admit()
+    pre = profile_steps(torch, prefill_all, 1, "flash_kernel")
+    emit({"phase": phase, "card": card, "arch": cfg.name, "dtype": cfg.dtype,
+          "members": K, "slots": SERVE["slots"], "prompt_lens": plens,
+          "new_tokens": n_new, "prefill_chunk": eng.prefill_chunk,
+          "paged_layers": n_paged, "attention_layers": n_attn,
+          "prefill_calls": prefill_calls, "launch_formula": formulas,
           "launches": launches, "generate_s": gen_s,
           "tok_per_s": sum(len(o) for o in outs) / gen_s,
           "prefill_s": prefill_s,
+          "prefill_device_busy_ms": pre["busy_ms"],
+          "flash_attention_ms_in_prefill": pre["name_ms"],
+          "prefill_top_kernels_ms": pre["top"],
           "decode_ms_per_step": decode_s / (n_new - 1) * 1e3,
-          "init_s": init_s,
-          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "init_s": init_s, "init_peak_memory": init_peak,
+          "max_memory_allocated": serve_peak,
           "device_busy_ms_per_step": prof["busy_ms"],
           "device_idle_share": 1.0 - prof["busy_ms"] * (n_new - 1)
                                / (decode_s * 1e3),
@@ -336,13 +526,12 @@ def phase2(torch, np, card):
 # phase 3: card against CPU
 # ---------------------------------------------------------------------------
 
-def phase3(torch, np):
+def phase3(torch, np, arch: str):
     from repro_torch.configs import registry
     from repro_torch.core import ensemble as ens
     from repro_torch.models import transformer as tf
     from repro_torch.serving.engine import EnsembleEngine
-    cfg = registry.get_config("gemma3-1b", reduced=True).with_(
-        dtype="float32")
+    cfg = registry.get_config(arch, reduced=True).with_(dtype="float32")
     params = tf.init(cfg, seed=0, device="cpu", members=4)
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in (7, 19, 25, 32)]
@@ -368,7 +557,7 @@ def phase3(torch, np):
     emit({"phase": 3, "arch": cfg.name, "dtype": cfg.dtype, "members": 4,
           "tokens_identical": same, "logp_max_abs_err": err, "tol": 1e-4})
     if not same:
-        raise AssertionError(f"greedy tokens differ: {toks}")
+        raise AssertionError(f"{arch}: greedy tokens differ: {toks}")
     # tolerance: the same f32 math summed in another order on each device
     torch.testing.assert_close(lps["cuda"], lps["cpu"], atol=1e-4,
                                rtol=1e-4)
@@ -734,29 +923,45 @@ def main() -> int:
           "built": built})
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     main_row = phase1(torch, flush, card)
+    flash_row = phase7(torch, flush, card)
     del flush
-    launches = phase2(torch, np, card)
-    phase3(torch, np)
+    launches = {"gemma3-1b": serve_phase(torch, np, card, "gemma3-1b", 2),
+                "deepseek-7b": serve_phase(torch, np, card, "deepseek-7b", 8,
+                                           init_limit=60e9)}
+    for arch in launches:
+        phase3(torch, np, arch)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     distill_rows = phase4(torch, flush, card)
     del flush
     distill_launches = phase5(torch, np, card)
     phase6(torch)
 
-    def entry(name, source, replaces, n, row):
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": n,
-                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                "bound_by": row["bound_by"],
-                "library_ms": row["library_ms"]}
+    def entry(name, source, replaces, n, row, by_path=None):
+        out = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": n,
+               "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+               "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+               "bound_by": row["bound_by"],
+               "library_ms": row["library_ms"]}
+        if by_path:
+            out["launches_by_path"] = by_path
+        return out
+
+    def serving(kernel):
+        return {f"{arch} serve": n[kernel] for arch, n in launches.items()}
 
     dsrc = "src/repro_torch/kernels/csrc/distill_loss.cu"
     emit({"kernels": [
         entry("paged_attention",
               "src/repro_torch/kernels/csrc/paged_attention.cu",
-              "src/repro/kernels/paged_attention.py:117", launches,
-              main_row),
+              "src/repro/kernels/paged_attention.py:117",
+              launches["gemma3-1b"]["paged_attention"], main_row,
+              serving("paged_attention")),
+        entry("flash_attention",
+              "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:93",
+              launches["deepseek-7b"]["flash_attention"], flash_row,
+              serving("flash_attention")),
         entry("distill_loss_fwd", dsrc,
               "src/repro/kernels/distill_loss.py:35",
               distill_launches["fwd"], distill_rows["fwd"]),

@@ -7,12 +7,13 @@ from repro_torch.common.types import ModelConfig
 
 _MODULES = {
     "gemma3-1b": "repro_torch.configs.gemma3_1b",
+    "deepseek-7b": "repro_torch.configs.deepseek_7b",
     "paper_nin": "repro_torch.configs.paper_nin",
 }
 
 # archs the JAX package serves that this package does not run yet
-NOT_PORTED = ("llama3-405b", "starcoder2-7b", "deepseek-7b", "jamba-v0.1-52b",
-              "rwkv6-7b", "deepseek-v2-236b", "arctic-480b", "qwen2-vl-2b",
+NOT_PORTED = ("llama3-405b", "starcoder2-7b", "jamba-v0.1-52b", "rwkv6-7b",
+              "deepseek-v2-236b", "arctic-480b", "qwen2-vl-2b",
               "whisper-tiny")
 
 ARCH_IDS = tuple(_MODULES)

@@ -7,6 +7,7 @@ hand-written kernel, which launches or raises.
 from __future__ import annotations
 
 from repro_torch.kernels import distill_loss as dl
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
 
@@ -22,6 +23,21 @@ def paged_attention(q, k_pages, v_pages, table, lens, window: int = 0,
     if q.device.type == "cpu":
         return ref.paged_attention(q, k_pages, v_pages, table, lens, **kw)
     raise ValueError(f"paged_attention: no implementation for {q.device}")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    scale=None, q_pos=None, k_pos=None):
+    """Masked GQA attention, q (N, T, H, dh) over k/v (N, S, Hkv, dh),
+    top-left without positions or by per-row q_pos (N, T) / k_pos
+    (N, S); see kernels/ref.attention.  On the card one launch covers
+    every row and head."""
+    kw = dict(causal=causal, window=window, scale=scale, q_pos=q_pos,
+              k_pos=k_pos)
+    if q.is_cuda:
+        return fa.flash_attention(q, k, v, **kw)
+    if q.device.type == "cpu":
+        return ref.attention(q, k, v, **kw)
+    raise ValueError(f"flash_attention: no implementation for {q.device}")
 
 
 def fused_distill_loss(logits, labels, pseudo, lam):

@@ -13,6 +13,46 @@ import torch
 NEG_INF = -2.0 ** 30
 
 
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True, window: int = 0,
+              scale: Optional[float] = None,
+              q_pos: Optional[torch.Tensor] = None,
+              k_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Masked GQA attention (the flash kernel's oracle), all math in f32.
+
+    q (N, T, H, dh), k/v (N, S, Hkv, dh), H a multiple of Hkv: query head
+    h*g + i reads kv head h.  -> (N, T, H, dh) in q's dtype.
+
+    With no positions it is the TPU kernel's top-left contract: query t
+    sits at position t and key s at s.  With q_pos (N, T) and k_pos
+    (N, S) it applies the models' mask: a key at a negative position
+    (the empty-slot sentinel) is never attended, causal means k_pos <=
+    q_pos, and window > 0 means k_pos > q_pos - window.  A query row
+    with no valid key gets the uniform average of all S values (every
+    score is NEG_INF); callers discard such rows.
+    """
+    N, T, H, dh = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    scale = scale if scale is not None else dh ** -0.5
+    if q_pos is None:
+        q_pos = torch.arange(T, device=q.device).expand(N, T)
+    if k_pos is None:
+        k_pos = torch.arange(S, device=q.device).expand(N, S)
+    qp, kp = q_pos.long()[:, :, None], k_pos.long()[:, None, :]
+    ok = kp >= 0
+    if causal:
+        ok = ok & (kp <= qp)
+    if window > 0:
+        ok = ok & (kp > qp - window)
+    qf = q.float().reshape(N, T, Hkv, g, dh)
+    s = torch.einsum("nqhgd,nkhd->nhgqk", qf, k.float()) * scale
+    s = torch.where(ok[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("nhgqk,nkhd->nqhgd", p, v.float())
+    return o.reshape(N, T, H, v.shape[-1]).to(q.dtype)
+
+
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, table: torch.Tensor,
                     lens: torch.Tensor, window: int = 0,

@@ -10,10 +10,21 @@ relies on buffer donation; here the functions write through the views
 they are given (so a slot row taken with kv_cache.slot_row writes into
 the pool) and return only the attention output.
 
-Two compute paths, numerically identical: `_attend_dense` materializes
-the score matrix; `_attend_chunked` loops over KV chunks with an
-online-softmax accumulator.  Paged decode reads go through
-kernels/ops.paged_attention (the CUDA kernel on the card).
+Kernels: the full-sequence forward (`gqa_apply`) and both chunked
+prefills (`gqa_prefill` over a ring, `gqa_prefill_paged` over gathered
+pages, each plus the chunk) go through kernels/ops.flash_attention, one
+call per layer with the K members folded into its rows; paged decode
+reads go through kernels/ops.paged_attention.  On the card both are
+hand-written CUDA kernels.  Ring-layer decode (`gqa_decode`) stays on
+`attend`, whose two paths are numerically identical: `_attend_dense`
+materializes the score matrix, `_attend_chunked` loops over KV chunks
+with an online-softmax accumulator.
+
+Numerics: `attend` rounds the probabilities to the input dtype before
+the value product, as the JAX package's `attend` does; the flash path
+keeps them in f32, as the TPU flash kernel does.  At f32 the two agree
+to rounding (the port's prefill matches the JAX prefill within 2e-5);
+at bf16 they differ by one bf16 rounding of p.
 """
 from __future__ import annotations
 
@@ -185,12 +196,14 @@ def _out(params, o: torch.Tensor, K: int, B: int) -> torch.Tensor:
 def gqa_apply(params: dict, x: torch.Tensor, a: AttnConfig,
               cfg: ModelConfig, positions: torch.Tensor, window: int,
               theta: float, causal: bool = True) -> torch.Tensor:
-    """x (K, B, T, d), positions (B, T) -> (K, B, T, d)."""
+    """x (K, B, T, d), positions (B, T) -> (K, B, T, d).  positions are
+    0..T-1 in every row (transformer.apply's), so the attention mask is
+    the flash kernel's top-left one."""
     K, B, T, _ = x.shape
     q, k, v = _qkv(params, x, a, cfg, positions, theta)
-    o = attend(_fold(q), _fold(k), _fold(v), positions[0], positions[0],
-               window=window, causal=causal,
-               scale=1.0 / math.sqrt(a.head_dim))
+    o = ops.flash_attention(_fold(q), _fold(k), _fold(v), causal=causal,
+                            window=window,
+                            scale=1.0 / math.sqrt(a.head_dim))
     return _out(params, o, K, B)
 
 
@@ -340,10 +353,11 @@ def gqa_prefill(params: dict, x: torch.Tensor, cache: dict,
     k_pos = torch.cat([_cache_entry_pos(S, idx, window), c_pos], 1)
     k_all = torch.cat([_fold(cache["k"]), _fold(k)], 1)
     v_all = torch.cat([_fold(cache["v"]), _fold(v)], 1)
-    o = attend(_fold(q), k_all, v_all, _rows(q_pos, K), _rows(k_pos, K),
-               window=window, causal=True,
-               scale=1.0 / math.sqrt(a.head_dim),
-               force_dense=(S + C) <= ATTN_CHUNK * 4)
+    o = ops.flash_attention(_fold(q), k_all, v_all, causal=True,
+                            window=window,
+                            scale=1.0 / math.sqrt(a.head_dim),
+                            q_pos=_rows(q_pos, K).int(),
+                            k_pos=_rows(k_pos, K).int())
     chunk_cache_write(cache["k"], k, idx, n_tok, window)
     chunk_cache_write(cache["v"], v, idx, n_tok, window)
     return _out(params, o, K, B)
@@ -487,11 +501,12 @@ def gqa_prefill_paged(params: dict, x: torch.Tensor, cache: dict,
     slot_ids = torch.arange(S, device=x.device)
     cache_pos = torch.where(slot_ids < idx.long()[:, None], slot_ids, FAR)
     k_pos = torch.cat([cache_pos, c_pos], 1)
-    o = attend(_fold(q), torch.cat([k_cache, _fold(k)], 1),
-               torch.cat([v_cache, _fold(v)], 1), _rows(q_pos, K),
-               _rows(k_pos, K), window=window, causal=True,
-               scale=1.0 / math.sqrt(a.head_dim),
-               force_dense=(S + C) <= ATTN_CHUNK * 4)
+    o = ops.flash_attention(_fold(q), torch.cat([k_cache, _fold(k)], 1),
+                            torch.cat([v_cache, _fold(v)], 1), causal=True,
+                            window=window,
+                            scale=1.0 / math.sqrt(a.head_dim),
+                            q_pos=_rows(q_pos, K).int(),
+                            k_pos=_rows(k_pos, K).int())
     paged_write_chunk(cache, "k_pages", k, table, idx, n_tok)
     paged_write_chunk(cache, "v_pages", v, table, idx, n_tok)
     return _out(params, o, K, B)

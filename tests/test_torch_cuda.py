@@ -1,9 +1,9 @@
 """Tests of the PyTorch port that need the card (marker `cuda`).
 
-The hand-written CUDA kernels (paged attention; the fused distillation
-loss, forward and backward) against their plain PyTorch versions in
-every option, their input checks, and the engine and the trainer on the
-card against the CPU.  Each test skips where there is no CUDA device.
+The hand-written CUDA kernels (paged attention; flash attention; the
+fused distillation loss, forward and backward) against their plain
+PyTorch versions in every option, their input checks, and the engine
+and the trainer on the card against the CPU.  Each test skips where there is no CUDA device.
 No JAX import, so the file runs on a machine without JAX:
 
     python -m pytest tests/test_torch_cuda.py -q
@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.configs import registry
 from repro_torch.kernels import distill_loss as dl
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
 from repro_torch.models import transformer as tf
@@ -105,6 +106,79 @@ def test_kernel_checks_its_inputs(cuda):
                        (dict(q=c["q"][..., :-1].contiguous()), "features")):
         with pytest.raises(ValueError, match=match):
             pa.paged_attention(**dict(c, **bad))
+
+
+# (N, T, S, H, Hkv, causal, window, positions): top-left masks with
+# ragged tiles (T, S not multiples of 64), T != S without causality, and
+# the prefill's position form (FAR slots, a ragged chunk tail)
+FLASH_CASES = {
+    "causal": (2, 70, 70, 4, 2, True, 0, False),
+    "window": (1, 130, 130, 4, 1, True, 13, False),
+    "cross": (2, 33, 150, 4, 4, False, 0, False),
+    "prefill_ring": (2, 24, 40, 4, 1, True, 16, True),
+    "prefill_paged": (3, 16, 80, 2, 2, True, 0, True),
+}
+
+
+def flash_case(name, dh, dtype, dev, seed=0):
+    """Inputs of a FLASH_CASES entry; -> (kwargs, rows that have at least
+    one valid key (the plain version's uniform average elsewhere is not
+    part of the contract))."""
+    N, T, S, H, Hkv, causal, window, positions = FLASH_CASES[name]
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    q, k, v = (torch.randn(N, n, h, dh, generator=g, device=dev).to(dtype)
+               for n, h in ((T, H), (S, Hkv), (S, Hkv)))
+    kw = dict(q=q, k=k, v=v, causal=causal, window=window)
+    valid = torch.ones(N, T, dtype=torch.bool, device=dev)
+    if positions:
+        # S - T cache slots then the chunk; a chunk at row-dependent idx,
+        # cache slots past idx and the chunk's padded tail are FAR
+        idx = torch.tensor([S - T - 5 * i for i in range(N)], device=dev)
+        n_tok = torch.tensor([T - 3 * i for i in range(N)], device=dev)
+        t = torch.arange(T, device=dev)
+        q_pos = idx[:, None] + t
+        slots = torch.arange(S - T, device=dev).expand(N, -1)
+        c_pos = torch.where(t < n_tok[:, None], q_pos, -10 ** 9)
+        k_pos = torch.cat([torch.where(slots < idx[:, None], slots,
+                                       -10 ** 9), c_pos], 1)
+        kw.update(q_pos=q_pos.int(), k_pos=k_pos.int())
+        # the last row of the last chunk has no valid key at all
+        kw["k_pos"][-1] = -10 ** 9
+        valid[-1] = False
+    return kw, valid
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [32, 64, 128, 256])
+@pytest.mark.parametrize("name", sorted(FLASH_CASES))
+def test_flash_kernel_matches_plain_version(cuda, name, dh, dtype):
+    kw, valid = flash_case(name, dh, dtype, cuda)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(**kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    want = ref.attention(**kw)
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float()[valid], want.float()[valid],
+                               atol=tol, rtol=tol)
+
+
+def test_flash_kernel_checks_its_inputs(cuda):
+    kw, _ = flash_case("prefill_ring", 64, torch.float32, cuda)
+    for bad, match in ((dict(k=kw["k"].bfloat16()), "k dtype"),
+                       (dict(q_pos=kw["q_pos"].long()), "q_pos dtype"),
+                       (dict(k_pos=None), "both"),
+                       (dict(v=kw["v"][:, :-1]), "v has shape"),
+                       (dict(q=kw["q"][..., :48].contiguous(),
+                             k=kw["k"][..., :48].contiguous(),
+                             v=kw["v"][..., :48].contiguous()), "head dim"),
+                       (dict(q=kw["q"].transpose(1, 2).contiguous()
+                             .transpose(1, 2)), "contiguous"),
+                       (dict(q=kw["q"].cpu()), "CUDA tensors")):
+        with pytest.raises(ValueError, match=match):
+            fa.flash_attention(**dict(kw, **bad))
 
 
 def test_engine_on_card_matches_cpu(cuda):

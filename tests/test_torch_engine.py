@@ -203,14 +203,22 @@ def test_entry_points_without_device_raise_here(models, entry):
 
 
 def test_torch_init_has_the_jax_tree(models):
-    jcfg, tcfg, jp, _ = models
-    tp = ttf.init(tcfg, seed=0, device="cpu", members=K)
+    _, tcfg, jp, _ = models
+    check_init_has_the_jax_tree(tcfg, jp)
+
+
+def check_init_has_the_jax_tree(tcfg, jp):
+    """The port's torch-seeded init against a JAX-initialized member
+    stack: the same tree, shapes and dtypes, and init scales within
+    10%."""
+    tp = ttf.init(tcfg, seed=0, device="cpu", members=jp["embed"].shape[0])
     jl = jax.tree_util.tree_flatten_with_path(jp)[0]
     tl = jax.tree_util.tree_flatten_with_path(
         tp, is_leaf=lambda a: isinstance(a, torch.Tensor))[0]
     assert [p for p, _ in jl] == [p for p, _ in tl]
     for (path, j), (_, t) in zip(jl, tl):
         assert tuple(j.shape) == tuple(t.shape), path
+        assert str(j.dtype) == str(t.dtype).split(".")[-1], path
         # same init scale: std within 10% (norm scales are exactly 1)
         js, ts = float(np.std(np.asarray(j))), float(t.float().std())
         assert abs(js - ts) <= 0.1 * js + 1e-6, path

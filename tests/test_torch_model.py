@@ -43,13 +43,14 @@ def close(got: torch.Tensor, want) -> None:
 
 
 def test_configs_match_jax_package():
-    for reduced in (False, True):
-        j = jreg.get_config("gemma3-1b", reduced=reduced)
-        t = treg.get_config("gemma3-1b", reduced=reduced)
-        assert repr(j) == repr(t)
-        assert repr(j.segments()) == repr(t.segments())
+    for arch in ("gemma3-1b", "deepseek-7b"):
+        for reduced in (False, True):
+            j = jreg.get_config(arch, reduced=reduced)
+            t = treg.get_config(arch, reduced=reduced)
+            assert repr(j) == repr(t)
+            assert repr(j.segments()) == repr(t.segments())
     with pytest.raises(NotImplementedError, match="not ported"):
-        treg.get_config("deepseek-7b")
+        treg.get_config("rwkv6-7b")
 
 
 @pytest.mark.parametrize("layer", ["rmsnorm", "rope", "mlp", "embed",
@@ -126,6 +127,7 @@ def _run_both(models, max_seq, paged):
     """Prefill two slots in chunks, then decode past the local window
     (the rings wrap), asserting every call's logits agree."""
     jcfg, tcfg, jp, tp = models
+    K = tp["embed"].shape[0]
     B, page, C = 2, 4, 8
     rng = np.random.default_rng(2)
     toks = rng.integers(0, 512, (B, 40)).astype(np.int32)
