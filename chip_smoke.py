@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases, one JSON line each, in the order 0, 1, 7, 2, 8, 3, 4, 5, 6:
+Phases, one JSON line each, in the order 0, 1, 7, 10, 2, 8, 9, 3, 4, 5,
+6:
   0  the card's name and power limit; build every CUDA kernel from
      src/repro_torch/kernels/csrc (one nvcc per source, all at once);
   1  the paged-attention kernel against its plain PyTorch version on the
@@ -16,6 +17,11 @@ Phases, one JSON line each, in the order 0, 1, 7, 2, 8, 3, 4, 5, 6:
      ragged tail) and the full forward's (top-left causal, T = S =
      2048), beside one scaled_dot_product_attention call with the same
      boolean mask;
+ 10  the wkv6 kernel (the rwkv6 recurrence) likewise, f32, at rwkv6-7b's
+     shapes: the decode step (16 rows, one token, a strided state view),
+     a mid-prompt prefill chunk (4 rows, 128 tokens, a nonzero state and
+     a masked ragged tail) and apply (4 rows, 2048 tokens); no single
+     PyTorch call computes the recurrence, so it has no library time;
   2  the serving path at full width: gemma3-1b (bf16, 26 layers), K=4
      members, paged KV, 4 requests of 300-512 prompt tokens served
      through EnsembleEngine.generate for 32 new tokens; both kernels'
@@ -24,9 +30,12 @@ Phases, one JSON line each, in the order 0, 1, 7, 2, 8, 3, 4, 5, 6:
      time by the profiler beside its host seconds;
   8  the same for deepseek-7b at full width (bf16, 30 layers, every one
      paged), after an init that must peak below 60 GB;
-  3  the card against the CPU end to end on reduced gemma3-1b and
-     deepseek-7b at f32: identical greedy tokens and allclose fused
-     log-probs;
+  9  the same for rwkv6-7b at full width (bf16, 32 rwkv layers, none
+     paged): wkv6 once per layer per decode step and per prefill call,
+     the attention kernels never; init below 60 GB;
+  3  the card against the CPU end to end on reduced gemma3-1b,
+     deepseek-7b and rwkv6-7b at f32: identical greedy tokens and
+     allclose fused log-probs;
   4  the fused distillation-loss kernels (forward and backward) against
      their plain version on the card: the NiN training path's shape, a
      262k bf16 vocab, and f32 with padded labels; times as in phase 1,
@@ -369,7 +378,82 @@ def phase7(torch, flush, card):
 
 
 # ---------------------------------------------------------------------------
-# phases 2 and 8: the serving path at full width
+# phase 10: wkv6 against its plain version
+# ---------------------------------------------------------------------------
+
+# name: (members K, rows per member B, tokens T, valid tokens (the rest
+# masked as rwkv_prefill masks them), nonzero s0); H = 64, dh = 64
+WKV_CASES = {
+    "decode": (4, 4, 1, 1, True),           # a decode step, N = 16
+    "prefill_tail": (4, 1, 128, 44, True),  # last chunk of a 300 prompt
+    "apply_2048": (4, 1, 2048, 2048, False),
+}
+WKV_TOL = dict(atol=5e-4, rtol=1e-3)   # tests/test_kernels.py's
+
+
+def wkv_bound(N, T, H, dh, K):
+    """(bound_ms, bound_by): r, k, v, log_w, u and s0 read once, y and
+    s_T written once, over the memory rate, against 4 f32 operations per
+    state entry per token (r.S, the decay, k v and the add) over the f32
+    rate outside the tensor cores."""
+    nbytes = 4 * (5 * N * T * H * dh + K * H * dh + 2 * N * H * dh * dh)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * N * T * H * dh * dh / PEAK_OPS["float32"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase10(torch, flush, card):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import wkv6 as wk
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    H, dh, count = 64, 64, 2
+    rows = {}
+    for name, (K, B, T, n_tok, warm) in WKV_CASES.items():
+        N = K * B
+        f = lambda *s: torch.randn(*s, generator=gen,  # noqa: E731
+                                   device="cuda")
+        r, k, v = f(N, T, H, dh), f(N, T, H, dh), f(N, T, H, dh)
+        log_w = -torch.exp(f(N, T, H, dh).clamp(-3, 2))  # strong + weak
+        valid = (torch.arange(T, device="cuda") < n_tok)[None, :, None, None]
+        k = torch.where(valid, k, 0.0)
+        log_w = torch.where(valid, log_w, 0.0)
+        u = f(K, H, dh) * 0.3                     # a u per member
+        # the state as one layer's view of a cache pool, (K, count, B,
+        # ...)[:, 1], narrowed to the slot for one-slot rows
+        pool = f(K, count, 4, H, dh, dh) * (0.1 if warm else 0.0)
+        state = pool[:, 1].narrow(1, 0, B)
+        s0 = state.reshape(N, H, dh, dh).clone()
+        want_y, want_s = ref.wkv6(r, k, v, log_w, u, s0)
+        y = wk.wkv6(r, k, v, log_w, u, state)
+        torch.cuda.synchronize()
+        got_s = state.reshape(N, H, dh, dh)
+        for a, b in ((y, want_y), (got_s, want_s)):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"wkv6 {name}: non-finite output")
+            torch.testing.assert_close(a, b, **WKV_TOL,
+                                       msg=lambda m: f"wkv6 {name}: {m}")
+        err = max((y - want_y).abs().max().item(),
+                  (got_s - want_s).abs().max().item())
+        ms = time_ms(lambda: wk.wkv6(r, k, v, log_w, u, state), torch,
+                     flush)
+        plain_ms = time_ms(lambda: ref.wkv6(r, k, v, log_w, u, s0), torch,
+                           flush, iters=5 if T > 128 else 10, warmup=1)
+        bound_ms, bound_by = wkv_bound(N, T, H, dh, K)
+        row = {"phase": 10, "card": card, "kernel": "wkv6", "case": name,
+               "N": N, "K": K, "T": T, "n_tok": n_tok, "H": H, "dh": dh,
+               "nonzero_s0": warm, "max_abs_err": err, "tol": WKV_TOL,
+               "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        emit(row)
+        rows[name] = row
+        del r, k, v, log_w, u, pool, state, s0, y, want_y, want_s
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phases 2, 8 and 9: the serving path at full width
 # ---------------------------------------------------------------------------
 
 def n_paged_layers(cfg, max_seq, tf) -> int:
@@ -409,13 +493,15 @@ def serve_phase(torch, np, card, arch: str, phase: int,
                 init_limit: float = None) -> dict:
     """`arch` at full width, bf16, K=4 members, paged KV (page 16): 4
     requests of 300-512 prompt tokens through EnsembleEngine.generate for
-    32 new tokens, greedy.  Both kernels' launch counts must equal their
-    formulas: paged_attention once per paged layer per decode step after
+    32 new tokens, greedy.  Every kernel's launch count must equal its
+    formula: paged_attention once per paged layer per decode step after
     the first token (which prefill emits); flash_attention once per
-    attention layer per prefill call.  -> the kernels' launch counts."""
+    attention layer per prefill call; wkv6 once per rwkv layer per
+    decode step and per prefill call.  -> the kernels' launch counts."""
     from repro_torch.configs import registry
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import wkv6 as wk
     from repro_torch.models import transformer as tf
     from repro_torch.serving.engine import EnsembleEngine
     cfg = registry.get_config(arch)
@@ -439,26 +525,33 @@ def serve_phase(torch, np, card, arch: str, phase: int,
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in plens]
     eng.generate(prompts, max_new=2)            # warm-up (cuBLAS, kernel load)
     n_paged = n_paged_layers(cfg, eng.max_seq, tf)
-    n_attn = sum(count * len(specs) for count, specs in cfg.segments())
+    n_layers = lambda mixers: sum(  # noqa: E731
+        count for count, specs in cfg.segments() for sp in specs
+        if sp.mixer in mixers)
+    n_attn, n_rwkv = n_layers(("attn", "attn_local")), n_layers(("rwkv",))
     calls = sum(-(-n // eng.prefill_chunk) for n in plens)
     expected = {"paged_attention": n_paged * (n_new - 1),
-                "flash_attention": n_attn * calls}
+                "flash_attention": n_attn * calls,
+                "wkv6": n_rwkv * (n_new - 1 + calls)}
     formulas = {
         "paged_attention": f"{n_paged} paged layers x ({n_new} - 1) decode "
                            f"steps = {expected['paged_attention']}",
         "flash_attention": f"{n_attn} attention layers x {calls} prefill "
-                           f"calls = {expected['flash_attention']}"}
+                           f"calls = {expected['flash_attention']}",
+        "wkv6": f"{n_rwkv} rwkv layers x (({n_new} - 1) decode steps + "
+                f"{calls} prefill calls) = {expected['wkv6']}"}
+    kernels = {"paged_attention": pa.paged_attention,
+               "flash_attention": fa.flash_attention, "wkv6": wk.wkv6}
     torch.cuda.reset_peak_memory_stats()
-    pa.paged_attention.launches = 0
-    fa.flash_attention.launches = 0
+    for fn in kernels.values():
+        fn.launches = 0
     prefills0 = eng.prefills_run
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     outs = eng.generate(prompts, max_new=n_new)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
-    launches = {"paged_attention": pa.paged_attention.launches,
-                "flash_attention": fa.flash_attention.launches}
+    launches = {name: fn.launches for name, fn in kernels.items()}
     prefill_calls = eng.prefills_run - prefills0
     serve_peak = torch.cuda.max_memory_allocated()
     if prefill_calls != calls:
@@ -493,20 +586,26 @@ def serve_phase(torch, np, card, arch: str, phase: int,
         eng.step()
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
+    # the kernels read by name in the profiles: decode's and prefill's
+    dec, pre_k = (("wkv6", "wkv6") if n_rwkv else
+                  ("paged_attention", "flash_attention"))
+    symbol = {"paged_attention": "paged_kernel",
+              "flash_attention": "flash_kernel", "wkv6": "wkv6_kernel"}
     prof = profile_steps(torch, lambda: [eng.step() for _ in range(3)], 3,
-                         "paged_kernel")
+                         symbol[dec])
     admit()
-    pre = profile_steps(torch, prefill_all, 1, "flash_kernel")
+    pre = profile_steps(torch, prefill_all, 1, symbol[pre_k])
     emit({"phase": phase, "card": card, "arch": cfg.name, "dtype": cfg.dtype,
           "members": K, "slots": SERVE["slots"], "prompt_lens": plens,
           "new_tokens": n_new, "prefill_chunk": eng.prefill_chunk,
           "paged_layers": n_paged, "attention_layers": n_attn,
+          "rwkv_layers": n_rwkv,
           "prefill_calls": prefill_calls, "launch_formula": formulas,
           "launches": launches, "generate_s": gen_s,
           "tok_per_s": sum(len(o) for o in outs) / gen_s,
           "prefill_s": prefill_s,
           "prefill_device_busy_ms": pre["busy_ms"],
-          "flash_attention_ms_in_prefill": pre["name_ms"],
+          f"{pre_k}_ms_in_prefill": pre["name_ms"],
           "prefill_top_kernels_ms": pre["top"],
           "decode_ms_per_step": decode_s / (n_new - 1) * 1e3,
           "init_s": init_s, "init_peak_memory": init_peak,
@@ -514,7 +613,7 @@ def serve_phase(torch, np, card, arch: str, phase: int,
           "device_busy_ms_per_step": prof["busy_ms"],
           "device_idle_share": 1.0 - prof["busy_ms"] * (n_new - 1)
                                / (decode_s * 1e3),
-          "paged_attention_ms_per_step": prof["name_ms"],
+          f"{dec}_ms_per_step": prof["name_ms"],
           "top_kernels_ms_per_step": prof["top"],
           "sample": outs[0][:8].tolist()})
     del eng, params
@@ -924,10 +1023,13 @@ def main() -> int:
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     main_row = phase1(torch, flush, card)
     flash_row = phase7(torch, flush, card)
+    wkv_rows = phase10(torch, flush, card)
     del flush
     launches = {"gemma3-1b": serve_phase(torch, np, card, "gemma3-1b", 2),
                 "deepseek-7b": serve_phase(torch, np, card, "deepseek-7b", 8,
-                                           init_limit=60e9)}
+                                           init_limit=60e9),
+                "rwkv6-7b": serve_phase(torch, np, card, "rwkv6-7b", 9,
+                                        init_limit=60e9)}
     for arch in launches:
         phase3(torch, np, arch)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
@@ -967,7 +1069,15 @@ def main() -> int:
               distill_launches["fwd"], distill_rows["fwd"]),
         entry("distill_loss_bwd", dsrc,
               "src/repro/kernels/distill_loss.py:71",
-              distill_launches["bwd"], distill_rows["bwd"])]})
+              distill_launches["bwd"], distill_rows["bwd"]),
+        # the decode step's row; launches over decode and prefill both
+        dict(entry("wkv6", "src/repro_torch/kernels/csrc/wkv6.cu",
+                   "src/repro/kernels/wkv6.py:79",
+                   launches["rwkv6-7b"]["wkv6"], wkv_rows["decode"],
+                   serving("wkv6")),
+             by_shape={name: {key: row[key] for key in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+                 for name, row in wkv_rows.items()})]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -9,10 +9,11 @@ _MODULES = {
     "gemma3-1b": "repro_torch.configs.gemma3_1b",
     "deepseek-7b": "repro_torch.configs.deepseek_7b",
     "paper_nin": "repro_torch.configs.paper_nin",
+    "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
 }
 
 # archs the JAX package serves that this package does not run yet
-NOT_PORTED = ("llama3-405b", "starcoder2-7b", "jamba-v0.1-52b", "rwkv6-7b",
+NOT_PORTED = ("llama3-405b", "starcoder2-7b", "jamba-v0.1-52b",
               "deepseek-v2-236b", "arctic-480b", "qwen2-vl-2b",
               "whisper-tiny")
 

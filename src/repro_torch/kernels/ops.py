@@ -10,6 +10,7 @@ from repro_torch.kernels import distill_loss as dl
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
+from repro_torch.kernels import wkv6 as wk
 
 
 def paged_attention(q, k_pages, v_pages, table, lens, window: int = 0,
@@ -50,3 +51,19 @@ def fused_distill_loss(logits, labels, pseudo, lam):
         return ref.distill_loss(logits, labels, pseudo, lam)
     raise ValueError(f"fused_distill_loss: no implementation for "
                      f"{logits.device}")
+
+
+def wkv6(r, k, v, log_w, u, state):
+    """RWKV6 wkv recurrence, r/k/v/log_w (N, T, H, dh) f32 with N = K*B
+    rows folding K members, u (K, H, dh), state (K, B, H, dh, dh) read as
+    s0 and overwritten with s_T in place; -> y (N, T, H, dh).  See
+    kernels/ref.wkv6.  On the card one launch covers every row and
+    head."""
+    if r.is_cuda:
+        return wk.wkv6(r, k, v, log_w, u, state)
+    if r.device.type == "cpu":
+        N, _, H, dh = r.shape
+        y, s_t = ref.wkv6(r, k, v, log_w, u, state.reshape(N, H, dh, dh))
+        state.copy_(s_t.view(state.shape))
+        return y
+    raise ValueError(f"wkv6: no implementation for {r.device}")

@@ -137,3 +137,27 @@ def distill_loss(logits: torch.Tensor, labels: torch.Tensor,
     pseudo-labels that sum to 1 (the fused kernel's oracle)."""
     lse, gold, dot = distill_loss_parts(logits, labels, pseudo)
     return ((1.0 + lam) * lse - gold - lam * dot).mean()
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         log_w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RWKV6 wkv recurrence, sequential (the wkv6 kernel's oracle).
+
+    r/k/v/log_w (N, T, H, dh) f32; s0 (N, H, dh, dh) f32 in [key,
+    value] order; u (H, dh), or (K, H, dh) with K | N for rows that fold
+    K members (row n reads member n // (N / K)'s u).  Per token t:
+        y_t = r_t (S + u k_tᵀ v_t);  S <- exp(log_w_t) ∘ S + k_tᵀ v_t
+    -> (y (N, T, H, dh), s_T (N, H, dh, dh))."""
+    N, T, H, dh = r.shape
+    uf = u.float().reshape(-1, H, dh)
+    uf = uf.repeat_interleave(N // uf.shape[0], dim=0)[..., None]  # (N,H,dh,1)
+    S = s0.float().clone()
+    ys = []
+    for t in range(T):
+        rt, kt, vt = r[:, t].float(), k[:, t].float(), v[:, t].float()
+        kv = torch.einsum("nhk,nhv->nhkv", kt, vt)
+        ys.append(torch.einsum("nhk,nhkv->nhv", rt, S + uf * kv))
+        S = S * torch.exp(log_w[:, t].float())[..., None] + kv
+    y = torch.stack(ys, 1) if ys else r.new_zeros(N, 0, H, dh)
+    return y, S

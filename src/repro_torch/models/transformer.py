@@ -1,5 +1,7 @@
 """Transformer LM assembly for the serving path: pattern-driven blocks
-over the member-stacked params.
+over the member-stacked params.  A block is pre-norm attention (GQA,
+ring or paged) with a dense MLP, or rwkv6's time-mix (models/ssm.py)
+with its channel-mix.
 
 Params keep the JAX package's tree: {"embed", ["head"], "final_norm",
 "segments": [per-segment dict of "slot_<i>" blocks]}, every leaf with a
@@ -15,22 +17,28 @@ Entry points
   decode_step_slots / decode_step_paged     -> (logits (K,B,1,V), cache)
   prefill_slots / prefill_step_paged        -> (last logits (K,B,V), cache)
 
-Caches are updated in place (see models/attention.py); the returned
-cache dict shares every plane with the one passed in and carries the
-advanced `idx`.
+Caches are updated in place (see models/attention.py and
+models/ssm.py); the returned cache dict shares every plane with the one
+passed in and carries the advanced `idx`.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.common.device import DeviceLike, resolve_device, torch_dtype
 from repro_torch.common.types import LayerSpec, ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm
 from repro_torch.models.layers import (embed_init, embed_lookup, head_init,
                                        lm_logits, mlp_apply, mlp_init,
                                        rmsnorm)
+
+
+# (mixer, ffn) pairs of the ported layers
+_PORTED = {("attn", "dense"), ("attn_local", "dense"), ("rwkv", "rwkv_cmix")}
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -39,10 +47,10 @@ def _check_supported(cfg: ModelConfig) -> None:
                                   "yet; they come with a later slice")
     for _, specs in cfg.segments():
         for s in specs:
-            if s.mixer not in ("attn", "attn_local") or s.ffn != "dense":
+            if (s.mixer, s.ffn) not in _PORTED:
                 raise NotImplementedError(
-                    f"layer {s} is not ported yet (mamba, rwkv and MoE "
-                    f"layers come with later slices)")
+                    f"layer {s} is not ported yet (mamba and MoE layers, "
+                    f"jamba's, come with the next slice)")
 
 
 # ---------------------------------------------------------------------------
@@ -74,14 +82,20 @@ def init(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
     for count, specs in cfg.segments():
         lead = (members, count)
         seg = {}
-        for i, _ in enumerate(specs):
-            seg[f"slot_{i}"] = {
-                "norm_mix": _rmsnorm_init(lead, cfg.d_model, dev),
-                "attn": attn.attn_init(gen, lead, cfg, cfg.attn, dtype),
-                "norm_ffn": _rmsnorm_init(lead, cfg.d_model, dev),
-                "mlp": mlp_init(gen, lead, cfg.d_model, cfg.ffn.d_ff,
-                                cfg.ffn.mlp_type, dtype),
-            }
+        for i, spec in enumerate(specs):
+            p = {"norm_mix": _rmsnorm_init(lead, cfg.d_model, dev)}
+            if spec.mixer == "rwkv":
+                p["rwkv"] = ssm.rwkv_init(gen, lead, cfg, dtype)
+            else:
+                p["attn"] = attn.attn_init(gen, lead, cfg, cfg.attn, dtype)
+            p["norm_ffn"] = _rmsnorm_init(lead, cfg.d_model, dev)
+            if spec.ffn == "rwkv_cmix":
+                p["cmix"] = ssm.cmix_init(gen, lead, cfg, cfg.ffn.d_ff,
+                                          dtype)
+            else:
+                p["mlp"] = mlp_init(gen, lead, cfg.d_model, cfg.ffn.d_ff,
+                                    cfg.ffn.mlp_type, dtype)
+            seg[f"slot_{i}"] = p
         params["segments"].append(seg)
     return params
 
@@ -114,13 +128,19 @@ def apply(params, cfg: ModelConfig, tokens: torch.Tensor
         for c in range(count):
             for i, spec in enumerate(specs):
                 p = _layer(seg[f"slot_{i}"], c)
-                window, theta = _mixer_window(cfg, spec)
-                x = x + attn.gqa_apply(
-                    p["attn"], rmsnorm(p["norm_mix"], x, cfg.norm_eps),
-                    cfg.attn, cfg, pos, window, theta)
-                x = x + mlp_apply(p["mlp"],
-                                  rmsnorm(p["norm_ffn"], x, cfg.norm_eps),
-                                  cfg.ffn.mlp_type)
+                h_in = rmsnorm(p["norm_mix"], x, cfg.norm_eps)
+                if spec.mixer == "rwkv":
+                    x = x + ssm.rwkv_apply(p["rwkv"], h_in, cfg)
+                else:
+                    window, theta = _mixer_window(cfg, spec)
+                    x = x + attn.gqa_apply(p["attn"], h_in, cfg.attn, cfg,
+                                           pos, window, theta)
+                h_f = rmsnorm(p["norm_ffn"], x, cfg.norm_eps)
+                if spec.ffn == "rwkv_cmix":
+                    x_prev = F.pad(h_f, (0, 0, 1, 0))[:, :, :T]
+                    x = x + ssm.cmix_apply(p["cmix"], h_f, x_prev)
+                else:
+                    x = x + mlp_apply(p["mlp"], h_f, cfg.ffn.mlp_type)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return lm_logits(params, x, cfg), 0.0
 
@@ -151,9 +171,14 @@ def init_slot_cache(cfg: ModelConfig, batch: int, max_seq: int,
       paged planes   (K, count, n_pages, page_size, Hkv, dh)
       page_table     (K, B, ceil(max_seq / page_size)) int32, all
                      sentinel (n_pages = unallocated)
+      recurrent      rwkv "shift" (K, count, B, 1, d), "wkv" (K, count,
+      planes         B, H, dh, dh) f32; channel-mix "cmix_shift" (K,
+                     count, B, 1, d)
 
     With page_size > 0 the full-attention layers (layer_pages) get the
-    shared paged pool; the other layers keep per-slot planes."""
+    shared paged pool; the other layers keep per-slot planes (a model
+    with no full-attention layer, rwkv6, pages nothing and keeps only
+    the page table)."""
     _check_supported(cfg)
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
@@ -163,12 +188,18 @@ def init_slot_cache(cfg: ModelConfig, batch: int, max_seq: int,
         seg = {}
         for i, spec in enumerate(specs):
             window, _ = _mixer_window(cfg, spec)
-            if page_size > 0 and layer_pages(cfg, spec, max_seq):
-                seg[f"slot_{i}"] = attn.gqa_paged_cache_init(
-                    cfg.attn, lead, n_pages, page_size, dtype, dev)
+            if spec.mixer == "rwkv":
+                c = ssm.rwkv_cache_init(cfg, lead, batch, dtype, dev)
+            elif page_size > 0 and layer_pages(cfg, spec, max_seq):
+                c = attn.gqa_paged_cache_init(cfg.attn, lead, n_pages,
+                                              page_size, dtype, dev)
             else:
-                seg[f"slot_{i}"] = attn.gqa_cache_init(
-                    cfg.attn, lead, batch, max_seq, window, dtype, dev)
+                c = attn.gqa_cache_init(cfg.attn, lead, batch, max_seq,
+                                        window, dtype, dev)
+            if spec.ffn == "rwkv_cmix":
+                c["cmix_shift"] = torch.zeros(*lead, batch, 1, cfg.d_model,
+                                              dtype=dtype, device=dev)
+            seg[f"slot_{i}"] = c
         segments.append(seg)
     cache = {"idx": torch.zeros((members, batch), dtype=torch.int32,
                                 device=dev),
@@ -214,6 +245,25 @@ def _layer_cache(lc: dict, c: int, count: int,
 # per-slot decode and prefill (contiguous or paged)
 # ---------------------------------------------------------------------------
 
+def _ffn_step(p, spec: LayerSpec, cfg: ModelConfig, lc: dict,
+              h_f: torch.Tensor, n_tok: Optional[torch.Tensor]):
+    """The block's FFN over the normed input h_f (K, B, C, d).  The rwkv
+    channel-mix reads the cached shift tail and advances it in place: by
+    one token (decode, n_tok None) or to each row's n_tok-th chunk
+    position (prefill)."""
+    if spec.ffn != "rwkv_cmix":
+        return mlp_apply(p["mlp"], h_f, cfg.ffn.mlp_type)
+    tail = lc["cmix_shift"].to(h_f.dtype)
+    if n_tok is None:
+        h = ssm.cmix_apply(p["cmix"], h_f, tail)
+        lc["cmix_shift"].copy_(h_f)
+        return h
+    ctx = torch.cat([tail, h_f], 2)
+    h = ssm.cmix_apply(p["cmix"], h_f, ctx[:, :, :h_f.shape[2]])
+    lc["cmix_shift"].copy_(ssm.shift_at(ctx, n_tok))
+    return h
+
+
 def _decode(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor):
     pos = cache["idx"][0]
     table = cache.get("page_table")
@@ -227,7 +277,9 @@ def _decode(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor):
                                        table)
                 window, theta = _mixer_window(cfg, spec)
                 h_in = rmsnorm(p["norm_mix"], x, cfg.norm_eps)
-                if tbl is not None:
+                if spec.mixer == "rwkv":
+                    h = ssm.rwkv_decode(p["rwkv"], h_in, lc, cfg)
+                elif tbl is not None:
                     h = attn.gqa_decode_paged(p["attn"], h_in, lc, pos,
                                               *tbl, cfg.attn, cfg, window,
                                               theta)
@@ -235,9 +287,9 @@ def _decode(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor):
                     h = attn.gqa_decode(p["attn"], h_in, lc, pos, cfg.attn,
                                         cfg, window, theta)
                 x = x + h
-                x = x + mlp_apply(p["mlp"],
+                x = x + _ffn_step(p, spec, cfg, lc,
                                   rmsnorm(p["norm_ffn"], x, cfg.norm_eps),
-                                  cfg.ffn.mlp_type)
+                                  None)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     out = dict(cache)
     out["idx"] = cache["idx"] + 1
@@ -279,7 +331,9 @@ def _prefill(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
                                        table)
                 window, theta = _mixer_window(cfg, spec)
                 h_in = rmsnorm(p["norm_mix"], x, cfg.norm_eps)
-                if tbl is not None:
+                if spec.mixer == "rwkv":
+                    h = ssm.rwkv_prefill(p["rwkv"], h_in, lc, n_tok, cfg)
+                elif tbl is not None:
                     h = attn.gqa_prefill_paged(p["attn"], h_in, lc, idx,
                                                n_tok, *tbl, cfg.attn, cfg,
                                                window, theta)
@@ -287,9 +341,9 @@ def _prefill(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
                     h = attn.gqa_prefill(p["attn"], h_in, lc, idx, n_tok,
                                          cfg.attn, cfg, window, theta)
                 x = x + h
-                x = x + mlp_apply(p["mlp"],
+                x = x + _ffn_step(p, spec, cfg, lc,
                                   rmsnorm(p["norm_ffn"], x, cfg.norm_eps),
-                                  cfg.ffn.mlp_type)
+                                  n_tok)
     B = tokens.shape[0]
     last = (n_tok.long() - 1).clamp_min(0)             # last valid position
     xl = x[:, torch.arange(B, device=x.device), last][:, :, None]

@@ -261,7 +261,9 @@ class EnsembleEngine:
 
     def step(self) -> SlotState:
         """Advance every slot one token: all K members score the step,
-        fuse, sample, and the slot state advances in place."""
+        fuse, sample, and the slot state advances in place.  Rows that
+        do not advance keep their position and recurrent state
+        (kv_cache.snapshot / keep_frozen)."""
         if self.paged:
             starved = self.reserve_decode_pages()
             if starved:
@@ -277,7 +279,7 @@ class EnsembleEngine:
         adv = st.active & ~st.done
         if self.prefill_chunk > 0:
             adv &= st.pos >= st.prompt_len
-        old = self.cache
+        old = kv_cache.snapshot(self.cache)
         logits, cache = self._member_logits(st.tok)
         self.cache = kv_cache.keep_frozen(cache, old, adv)
         sampled = self._sample(self._fuse(logits), slice(None))

@@ -4,16 +4,19 @@ One pool holds the caches of all K members for all B batch slots:
 
   idx            (K, B)                per-member, per-slot position
   ring leaves    (K, count, B, S, ...) per-slot K/V planes
+  recurrent      (K, count, B, ...)    per-slot state (rwkv's shift and
+  leaves                               wkv, the channel-mix's cmix_shift)
   paged leaves   (K, count, n_pages, page_size, ...)
   page_table     (K, B, ceil(max_seq/page_size))  logical -> physical
 
 The pool is allocated once and recycled: finishing a request frees
-nothing, `reset_slots` rewinds the slot's position, and the next request
-overwrites the K/V entries as it decodes (stale entries are masked by
-position bookkeeping).  The model code updates the planes IN PLACE,
-where the JAX package returns new planes into a donated buffer; the
-helpers below say where that changes their contract.  The page table is
-host policy (PageAllocator, sentinel id n_pages = unallocated).
+nothing, `reset_slots` rewinds the slot's position and zeroes its
+recurrent state, and the next request overwrites the K/V entries as it
+decodes (stale entries are masked by position bookkeeping).  The model
+code updates the planes IN PLACE, where the JAX package returns new
+planes into a donated buffer; the helpers below say where that changes
+their contract.  The page table is host policy (PageAllocator, sentinel
+id n_pages = unallocated).
 """
 from __future__ import annotations
 
@@ -110,18 +113,50 @@ def write_slot_row(pool: dict, row: dict, b: int) -> dict:
     return pool
 
 
-def keep_frozen(new: dict, old: dict, advance: torch.Tensor) -> dict:
-    """Undo a decode step's position advance for rows where advance (B,)
-    is False (inactive, finished, or mid-prompt while prefill owns the
-    prompt path), so an idle slot never walks past max_seq.
+def _map2(a, b, fn, name: str = ""):
+    if isinstance(a, dict):
+        return {k: _map2(a[k], b[k], fn, k) for k in a}
+    if isinstance(a, list):
+        return [_map2(x, y, fn, name) for x, y in zip(a, b)]
+    return fn(name, a, b)
 
-    Only idx is restored, as in the JAX package: the positional and
-    paged planes keep the step's write, which lands at the frozen
-    position, stays invisible under the position bookkeeping and is
-    overwritten before a later occupant can see it.  The ported layers
-    keep no recurrent state, so there is nothing else to restore."""
+
+def snapshot(pool: dict) -> dict:
+    """What keep_frozen restores, taken before a decode step: the
+    pool's idx and a copy of every recurrent plane (those
+    _skip_slot_update does not skip: rwkv's shift and wkv, the
+    channel-mix's cmix_shift).  The step updates the planes in place
+    and replaces idx, so positional and paged planes are not copied; a
+    model with no recurrent plane copies nothing."""
+    def keep(name, x):
+        return None if _skip_slot_update(name) else x.clone()
+
+    return {"idx": pool["idx"], "segments": _map(pool["segments"], keep)}
+
+
+def keep_frozen(new: dict, old: dict, advance: torch.Tensor) -> dict:
+    """Undo a decode step's cache mutation for rows where advance (B,) is
+    False (inactive, finished, or mid-prompt while prefill owns the
+    prompt path): a frozen slot must neither walk its position forward
+    (an idle slot would march past max_seq) nor move its recurrent
+    state (a mid-prompt slot's next prefill chunk continues from it).
+
+    `old` is snapshot(pool) from before the step.  idx and every
+    recurrent plane are restored bit for bit in frozen rows, in place,
+    as in the JAX package.  The positional and paged planes keep the
+    step's write: it lands at the frozen position, stays invisible
+    under the position bookkeeping and is overwritten before a later
+    occupant can see it."""
     out = dict(new)
     out["idx"] = torch.where(advance[None, :], new["idx"], old["idx"])
+
+    def sel(name, n, o):  # leaves are (K, count, B, ...)
+        if o is not None:
+            m = advance.reshape((1, 1, -1) + (1,) * (n.dim() - 3))
+            n.copy_(torch.where(m, n, o))
+        return n
+
+    _map2(new["segments"], old["segments"], sel)
     return out
 
 

@@ -1,9 +1,10 @@
 """Tests of the PyTorch port that need the card (marker `cuda`).
 
 The hand-written CUDA kernels (paged attention; flash attention; the
-fused distillation loss, forward and backward) against their plain
-PyTorch versions in every option, their input checks, and the engine
-and the trainer on the card against the CPU.  Each test skips where there is no CUDA device.
+fused distillation loss, forward and backward; the rwkv6 wkv
+recurrence) against their plain PyTorch versions in every option, their
+input checks, and the engine and the trainer on the card against the
+CPU.  Each test skips where there is no CUDA device.
 No JAX import, so the file runs on a machine without JAX:
 
     python -m pytest tests/test_torch_cuda.py -q
@@ -17,6 +18,7 @@ from repro_torch.kernels import distill_loss as dl
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
+from repro_torch.kernels import wkv6 as wk
 from repro_torch.models import transformer as tf
 from repro_torch.serving.engine import EnsembleEngine
 
@@ -285,3 +287,81 @@ def test_distill_kernels_check_their_inputs(cuda):
         dl.distill_loss_fwd(z.cpu(), y.cpu(), p.cpu())
     with pytest.raises(ValueError, match="lam is on"):
         dl.fused_distill_loss(z, y, p, lam.cpu())
+
+
+# wkv6: atol 5e-4, rtol 1e-3, tests/test_kernels.py's for the Pallas
+# kernel against its sequential oracle
+WKV_TOL = dict(atol=5e-4, rtol=1e-3)
+
+
+def wkv_case(dev, K, B, T, H, dh, seed=0, count=3):
+    """Strong and weak decays, a distinct u per member, and the state as
+    a layer's view of a (K, count, B + 1, H, dh, dh) pool narrowed to B
+    slots (strided, updated in place).  -> (r, k, v, log_w, u, pool,
+    state view)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    f = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+    N = K * B
+    r, k, v = f(N, T, H, dh), f(N, T, H, dh), f(N, T, H, dh)
+    log_w = -torch.exp(f(N, T, H, dh).clamp(-3, 2))
+    u = f(K, H, dh) * 0.3
+    pool = f(K, count, B + 1, H, dh, dh) * 0.1
+    return r, k, v, log_w, u, pool, pool[:, 1].narrow(1, 1, B)
+
+
+@pytest.mark.parametrize("T", [1, 37, 128])
+@pytest.mark.parametrize("dh", [8, 32, 64, 100, 128])
+def test_wkv6_kernel_matches_plain_version(cuda, dh, T):
+    K, B, H = 4, 2, 3
+    r, k, v, log_w, u, pool, state = wkv_case(cuda, K, B, T, H, dh)
+    before = pool.clone()
+    want_y, want_s = ref.wkv6(r, k, v, log_w, u,
+                              state.reshape(K * B, H, dh, dh))
+    n0 = wk.wkv6.launches
+    y = wk.wkv6(r, k, v, log_w, u, state)
+    torch.cuda.synchronize()
+    assert wk.wkv6.launches == n0 + 1
+    torch.testing.assert_close(y, want_y, **WKV_TOL)
+    torch.testing.assert_close(state.reshape(K * B, H, dh, dh), want_s,
+                               **WKV_TOL)
+    # nothing outside the state view moved
+    pool[:, 1, 1:B + 1] = before[:, 1, 1:B + 1]
+    assert torch.equal(pool, before)
+
+
+def test_wkv6_kernel_checks_its_inputs(cuda):
+    r, k, v, log_w, u, pool, state = wkv_case(cuda, 2, 2, 5, 2, 16)
+    args = dict(r=r, k=k, v=v, log_w=log_w, u=u, state=state)
+    for bad, match in ((dict(k=k.double()), "k dtype"),
+                       (dict(u=u[:1]), "state folds|u has shape"),
+                       (dict(v=v[:, :-1]), "v has shape"),
+                       (dict(r=r.transpose(2, 3).contiguous()
+                             .transpose(2, 3)), "contiguous"),
+                       (dict(state=state.transpose(3, 4)), "contiguous"),
+                       (dict(state=pool[:, 0, :1].expand(2, 2, 2, 16, 16)),
+                        "overlap"),
+                       (dict(r=r.cpu()), "CUDA tensors"),
+                       (dict(log_w=log_w.cpu()), "log_w is on")):
+        with pytest.raises(ValueError, match=match):
+            wk.wkv6(**dict(args, **bad))
+    wide = torch.zeros(2, 1, 2, 160, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        wk.wkv6(wide, wide, wide, wide, torch.zeros(2, 2, 160, device=cuda),
+                torch.zeros(2, 1, 2, 160, 160, device=cuda))
+
+
+def test_rwkv_engine_on_card_matches_cpu(cuda):
+    cfg = registry.get_config("rwkv6-7b", reduced=True).with_(
+        dtype="float32")
+    params = tf.init(cfg, seed=0, device="cpu", members=2)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (3, 11, 16)]
+    outs = []
+    for dev in (cuda, "cpu"):
+        eng = EnsembleEngine(cfg, params, n_slots=3, max_prompt=16,
+                             max_out=12, paged=True, page_size=4,
+                             prefill_chunk=4, device=dev)
+        outs.append(eng.generate(prompts, 10))
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
