@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases, one JSON line each, in the order 0, 1, 7, 10, 2, 8, 9, 3, 4, 5,
-6:
+Phases, one JSON line each, in the order 0, 1, 7, 10, 11, 2, 8, 9, 12,
+3, 4, 5, 6:
   0  the card's name and power limit; build every CUDA kernel from
      src/repro_torch/kernels/csrc (one nvcc per source, all at once);
   1  the paged-attention kernel against its plain PyTorch version on the
@@ -22,6 +22,12 @@ Phases, one JSON line each, in the order 0, 1, 7, 10, 2, 8, 9, 3, 4, 5,
      a mid-prompt prefill chunk (4 rows, 128 tokens, a nonzero state and
      a masked ragged tail) and apply (4 rows, 2048 tokens); no single
      PyTorch call computes the recurrence, so it has no library time;
+ 11  the ssm_scan kernel (Mamba's selective scan) likewise, f32, at
+     jamba's shapes (d_inner 8192, d_state 16, K = 2): the decode step (8
+     rows, one token, a strided state view), a mid-prompt prefill chunk
+     (2 rows, 128 tokens, a nonzero state) and apply (2 rows, 2048
+     tokens); no single PyTorch call computes a first-order recurrence
+     with per-step coefficients, so it has no library time either;
   2  the serving path at full width: gemma3-1b (bf16, 26 layers), K=4
      members, paged KV, 4 requests of 300-512 prompt tokens served
      through EnsembleEngine.generate for 32 new tokens; both kernels'
@@ -33,9 +39,15 @@ Phases, one JSON line each, in the order 0, 1, 7, 10, 2, 8, 9, 3, 4, 5,
   9  the same for rwkv6-7b at full width (bf16, 32 rwkv layers, none
      paged): wkv6 once per layer per decode step and per prefill call,
      the attention kernels never; init below 60 GB;
+ 12  the same for jamba-v0.1-52b at full width, cut to one published
+     period (8 layers: 7 Mamba, 1 attention, 4 MoE) and K = 2 members
+     (the 32-layer model does not fit one card): ssm_scan once per Mamba
+     layer per decode step and per 128-token piece of a prefill call,
+     paged attention on the attention layer per decode step, flash
+     attention per prefill call, wkv6 never; init below 60 GB;
   3  the card against the CPU end to end on reduced gemma3-1b,
-     deepseek-7b and rwkv6-7b at f32: identical greedy tokens and
-     allclose fused log-probs;
+     deepseek-7b, rwkv6-7b and jamba-v0.1-52b at f32: identical greedy
+     tokens and allclose fused log-probs;
   4  the fused distillation-loss kernels (forward and backward) against
      their plain version on the card: the NiN training path's shape, a
      262k bf16 vocab, and f32 with padded labels; times as in phase 1,
@@ -453,7 +465,79 @@ def phase10(torch, flush, card):
 
 
 # ---------------------------------------------------------------------------
-# phases 2, 8 and 9: the serving path at full width
+# phase 11: ssm_scan against its plain version
+# ---------------------------------------------------------------------------
+
+# name: (members K, rows per member B, tokens T, nonzero h0); jamba's
+# d_inner 8192 and d_state 16
+SCAN_CASES = {
+    "decode": (2, 4, 1, True),           # a decode step, N = 8
+    "prefill_chunk": (2, 1, 128, True),  # a mid-prompt chunk, one slot
+    "apply_2048": (2, 1, 2048, False),
+}
+SCAN_TOL = dict(atol=1e-5, rtol=1e-5)   # tests/test_kernels.py's
+
+
+def scan_bound(N, T, D, Ns):
+    """(bound_ms, bound_by): a and b read once, hs written once, h0 read
+    and h_T written once, over the memory rate, against one FMA (2
+    operations) per state element per step at the f32 rate outside the
+    tensor cores."""
+    nbytes = 4 * (3 * N * T * D * Ns + 2 * N * D * Ns)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * N * T * D * Ns / PEAK_OPS["float32"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase11(torch, flush, card):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as ssk
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    D, Ns, count = 8192, 16, 2
+    rows = {}
+    for name, (K, B, T, warm) in SCAN_CASES.items():
+        N = K * B
+        f = lambda *s: torch.randn(*s, generator=gen,  # noqa: E731
+                                   device="cuda")
+        a = torch.exp(-f(N, T, D, Ns).abs())
+        b = f(N, T, D, Ns) * 0.2
+        # the state as one Mamba layer's view of a cache pool, (K, count,
+        # 4, D, Ns)[:, 1], narrowed to the slot for one-slot rows
+        pool = f(K, count, 4, D, Ns) * (0.1 if warm else 0.0)
+        state = pool[:, 1].narrow(1, 0, B)
+        h0 = state.reshape(N, D, Ns).clone()
+        want_hs, want_h = ref.ssm_scan(a, b, h0)
+        hs = ssk.ssm_scan(a, b, state)
+        torch.cuda.synchronize()
+        got_h = state.reshape(N, D, Ns)
+        for x, y in ((hs, want_hs), (got_h, want_h)):
+            if not torch.isfinite(x).all():
+                raise AssertionError(f"ssm_scan {name}: non-finite output")
+            torch.testing.assert_close(x, y, **SCAN_TOL,
+                                       msg=lambda m: f"ssm_scan {name}: {m}")
+        err = max((hs - want_hs).abs().max().item(),
+                  (got_h - want_h).abs().max().item())
+        del want_hs, hs
+        ms = time_ms(lambda: ssk.ssm_scan(a, b, state), torch, flush)
+        plain_ms = time_ms(lambda: ref.ssm_scan(a, b, h0), torch, flush,
+                           iters=5 if T > 128 else 10, warmup=1)
+        bound_ms, bound_by = scan_bound(N, T, D, Ns)
+        row = {"phase": 11, "card": card, "kernel": "ssm_scan", "case": name,
+               "N": N, "K": K, "T": T, "D": D, "Ns": Ns, "nonzero_h0": warm,
+               "max_abs_err": err, "tol": SCAN_TOL, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": None,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "gb_per_s": 4 * (3 * N * T + 2 * N) * D * Ns / ms / 1e6}
+        emit(row)
+        rows[name] = row
+        del a, b, pool, state, h0, want_h
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phases 2, 8, 9 and 12: the serving path at full width
 # ---------------------------------------------------------------------------
 
 def n_paged_layers(cfg, max_seq, tf) -> int:
@@ -461,10 +545,11 @@ def n_paged_layers(cfg, max_seq, tf) -> int:
                if tf.layer_pages(cfg, s, max_seq))
 
 
-def profile_steps(torch, run, n: int, name: str) -> dict:
+def profile_steps(torch, run, n: int, names=()) -> dict:
     """Device time per step by kernel, from torch.profiler around run(),
-    which takes n steps; `name_ms` sums the kernels whose name holds
-    `name`, `wall_ms` is the host clock of the profiled window per step.
+    which takes n steps; `name_ms` sums, for each of `names`, the kernels
+    whose name holds it, `wall_ms` is the host clock of the profiled
+    window per step.
     The profiler slows the host, so for a host-bound step the idle share
     is taken against the unprofiled step time instead."""
     from torch.autograd import DeviceType
@@ -481,32 +566,42 @@ def profile_steps(torch, run, n: int, name: str) -> dict:
     ms = lambda e: e.self_device_time_total / n / 1e3  # noqa: E731
     top = sorted(kern, key=ms, reverse=True)[:6]
     return {"busy_ms": sum(ms(e) for e in kern), "wall_ms": wall_ms,
-            "name_ms": sum(ms(e) for e in kern if name in e.key),
+            "name_ms": {name: sum(ms(e) for e in kern if name in e.key)
+                        for name in names},
             "top": [[e.key[:60], ms(e)] for e in top]}
 
 
-SERVE = dict(members=4, slots=4, max_prompt=512, max_out=64, page=16,
+SERVE = dict(slots=4, max_prompt=512, max_out=64, page=16,
              prompt_lens=[300, 377, 451, 512], new_tokens=32)
+# kernel wrapper -> the symbol of its kernel in a profile
+SYMBOL = {"paged_attention": "paged_kernel",
+          "flash_attention": "flash_kernel", "wkv6": "wkv6_kernel",
+          "ssm_scan": "ssm_scan_kernel"}
 
 
-def serve_phase(torch, np, card, arch: str, phase: int,
-                init_limit: float = None) -> dict:
-    """`arch` at full width, bf16, K=4 members, paged KV (page 16): 4
-    requests of 300-512 prompt tokens through EnsembleEngine.generate for
-    32 new tokens, greedy.  Every kernel's launch count must equal its
-    formula: paged_attention once per paged layer per decode step after
-    the first token (which prefill emits); flash_attention once per
-    attention layer per prefill call; wkv6 once per rwkv layer per
-    decode step and per prefill call.  -> the kernels' launch counts."""
+def serve_phase(torch, np, card, arch: str, phase: int, members: int = 4,
+                n_layers: int = None, init_limit: float = None) -> dict:
+    """`arch` at full width, bf16, `members` members, paged KV (page 16),
+    its depth cut to `n_layers` where given: 4 requests of 300-512 prompt
+    tokens through EnsembleEngine.generate for 32 new tokens, greedy.
+    Every kernel's launch count must equal its formula: paged_attention
+    once per paged layer per decode step after the first token (which
+    prefill emits); flash_attention once per attention layer per prefill
+    call; wkv6 once per rwkv layer, and ssm_scan once per Mamba layer
+    and 128-token piece, per decode step and per prefill call.  -> the
+    kernels' launch counts."""
     from repro_torch.configs import registry
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ssm_scan as ssk
     from repro_torch.kernels import wkv6 as wk
+    from repro_torch.models import ssm
     from repro_torch.models import transformer as tf
     from repro_torch.serving.engine import EnsembleEngine
     cfg = registry.get_config(arch)
-    K, n_new, plens = SERVE["members"], SERVE["new_tokens"], \
-        SERVE["prompt_lens"]
+    if n_layers is not None:
+        cfg = cfg.with_(n_layers=n_layers)
+    K, n_new, plens = members, SERVE["new_tokens"], SERVE["prompt_lens"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -529,19 +624,26 @@ def serve_phase(torch, np, card, arch: str, phase: int,
         count for count, specs in cfg.segments() for sp in specs
         if sp.mixer in mixers)
     n_attn, n_rwkv = n_layers(("attn", "attn_local")), n_layers(("rwkv",))
+    n_mamba = n_layers(("mamba",))
     calls = sum(-(-n // eng.prefill_chunk) for n in plens)
+    pieces = -(-eng.prefill_chunk // ssm.MAMBA_CHUNK)
     expected = {"paged_attention": n_paged * (n_new - 1),
                 "flash_attention": n_attn * calls,
-                "wkv6": n_rwkv * (n_new - 1 + calls)}
+                "wkv6": n_rwkv * (n_new - 1 + calls),
+                "ssm_scan": n_mamba * (n_new - 1 + pieces * calls)}
     formulas = {
         "paged_attention": f"{n_paged} paged layers x ({n_new} - 1) decode "
                            f"steps = {expected['paged_attention']}",
         "flash_attention": f"{n_attn} attention layers x {calls} prefill "
                            f"calls = {expected['flash_attention']}",
         "wkv6": f"{n_rwkv} rwkv layers x (({n_new} - 1) decode steps + "
-                f"{calls} prefill calls) = {expected['wkv6']}"}
+                f"{calls} prefill calls) = {expected['wkv6']}",
+        "ssm_scan": f"{n_mamba} mamba layers x (({n_new} - 1) decode steps "
+                    f"+ {pieces} piece(s) x {calls} prefill calls) = "
+                    f"{expected['ssm_scan']}"}
     kernels = {"paged_attention": pa.paged_attention,
-               "flash_attention": fa.flash_attention, "wkv6": wk.wkv6}
+               "flash_attention": fa.flash_attention, "wkv6": wk.wkv6,
+               "ssm_scan": ssk.ssm_scan}
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
         fn.launches = 0
@@ -586,26 +688,24 @@ def serve_phase(torch, np, card, arch: str, phase: int,
         eng.step()
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
-    # the kernels read by name in the profiles: decode's and prefill's
-    dec, pre_k = (("wkv6", "wkv6") if n_rwkv else
-                  ("paged_attention", "flash_attention"))
-    symbol = {"paged_attention": "paged_kernel",
-              "flash_attention": "flash_kernel", "wkv6": "wkv6_kernel"}
+    # the path's kernels, read by name in the decode and prefill profiles
+    used = [SYMBOL[k] for k, n in expected.items() if n]
     prof = profile_steps(torch, lambda: [eng.step() for _ in range(3)], 3,
-                         symbol[dec])
+                         used)
     admit()
-    pre = profile_steps(torch, prefill_all, 1, symbol[pre_k])
+    pre = profile_steps(torch, prefill_all, 1, used)
     emit({"phase": phase, "card": card, "arch": cfg.name, "dtype": cfg.dtype,
-          "members": K, "slots": SERVE["slots"], "prompt_lens": plens,
+          "members": K, "n_layers": cfg.n_layers, "slots": SERVE["slots"],
+          "prompt_lens": plens,
           "new_tokens": n_new, "prefill_chunk": eng.prefill_chunk,
           "paged_layers": n_paged, "attention_layers": n_attn,
-          "rwkv_layers": n_rwkv,
+          "rwkv_layers": n_rwkv, "mamba_layers": n_mamba,
           "prefill_calls": prefill_calls, "launch_formula": formulas,
           "launches": launches, "generate_s": gen_s,
           "tok_per_s": sum(len(o) for o in outs) / gen_s,
           "prefill_s": prefill_s,
           "prefill_device_busy_ms": pre["busy_ms"],
-          f"{pre_k}_ms_in_prefill": pre["name_ms"],
+          "kernel_ms_in_prefill": pre["name_ms"],
           "prefill_top_kernels_ms": pre["top"],
           "decode_ms_per_step": decode_s / (n_new - 1) * 1e3,
           "init_s": init_s, "init_peak_memory": init_peak,
@@ -613,7 +713,7 @@ def serve_phase(torch, np, card, arch: str, phase: int,
           "device_busy_ms_per_step": prof["busy_ms"],
           "device_idle_share": 1.0 - prof["busy_ms"] * (n_new - 1)
                                / (decode_s * 1e3),
-          f"{dec}_ms_per_step": prof["name_ms"],
+          "kernel_ms_per_step": prof["name_ms"],
           "top_kernels_ms_per_step": prof["top"],
           "sample": outs[0][:8].tolist()})
     del eng, params
@@ -626,6 +726,8 @@ def serve_phase(torch, np, card, arch: str, phase: int,
 # ---------------------------------------------------------------------------
 
 def phase3(torch, np, arch: str):
+    """Reduced `arch`, f32, K = 4, paged: greedy tokens identical on the
+    card and the CPU, fused log-probs within 1e-4."""
     from repro_torch.configs import registry
     from repro_torch.core import ensemble as ens
     from repro_torch.models import transformer as tf
@@ -936,7 +1038,7 @@ def phase5(torch, np, card):
     # adds to the kernels' sum, which is read against step["device_ms"])
     prof = profile_steps(torch, lambda: (
         run_on(tr, step_inputs(tr, 3, False), lam),
-        run_on(tr, step_inputs(tr, 3, True), lam)), 6, "distill_")
+        run_on(tr, step_inputs(tr, 3, True), lam)), 6, ["distill_"])
     emit({"phase": 5, "card": card, "arch": cfg.name, "dtype": "float32",
           "tf32": False, "members": K, "batch_per_member": B,
           "per_member": per_member, "img": 32, "tau": ec.tau,
@@ -953,7 +1055,8 @@ def phase5(torch, np, card):
           "relabel_s": relabel_s, "max_memory_allocated": peak,
           "profiler_kernel_ms_per_step": prof["busy_ms"],
           "profiled_step_ms": prof["wall_ms"],
-          "distill_kernels_ms_per_distill_step": prof["name_ms"] * 2,
+          "distill_kernels_ms_per_distill_step":
+              prof["name_ms"]["distill_"] * 2,
           "top_kernels_ms_per_step": prof["top"]})
     del tr, train, test
     torch.cuda.empty_cache()
@@ -1024,12 +1127,19 @@ def main() -> int:
     main_row = phase1(torch, flush, card)
     flash_row = phase7(torch, flush, card)
     wkv_rows = phase10(torch, flush, card)
+    scan_rows = phase11(torch, flush, card)
     del flush
     launches = {"gemma3-1b": serve_phase(torch, np, card, "gemma3-1b", 2),
                 "deepseek-7b": serve_phase(torch, np, card, "deepseek-7b", 8,
                                            init_limit=60e9),
                 "rwkv6-7b": serve_phase(torch, np, card, "rwkv6-7b", 9,
-                                        init_limit=60e9)}
+                                        init_limit=60e9),
+                # one published period (8 of 32 layers) at K = 2: the whole
+                # model's 103 GB of bf16 weights a member do not fit
+                "jamba-v0.1-52b": serve_phase(torch, np, card,
+                                              "jamba-v0.1-52b", 12,
+                                              members=2, n_layers=8,
+                                              init_limit=60e9)}
     for arch in launches:
         phase3(torch, np, arch)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
@@ -1051,6 +1161,11 @@ def main() -> int:
 
     def serving(kernel):
         return {f"{arch} serve": n[kernel] for arch, n in launches.items()}
+
+    def by_shape(rows):
+        return {name: {key: row[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+            for name, row in rows.items()}
 
     dsrc = "src/repro_torch/kernels/csrc/distill_loss.cu"
     emit({"kernels": [
@@ -1075,9 +1190,12 @@ def main() -> int:
                    "src/repro/kernels/wkv6.py:79",
                    launches["rwkv6-7b"]["wkv6"], wkv_rows["decode"],
                    serving("wkv6")),
-             by_shape={name: {key: row[key] for key in (
-                 "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
-                 for name, row in wkv_rows.items()})]})
+             by_shape=by_shape(wkv_rows)),
+        dict(entry("ssm_scan", "src/repro_torch/kernels/csrc/ssm_scan.cu",
+                   "src/repro/kernels/ssm_scan.py:52",
+                   launches["jamba-v0.1-52b"]["ssm_scan"],
+                   scan_rows["decode"], serving("ssm_scan")),
+             by_shape=by_shape(scan_rows))]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -10,12 +10,12 @@ _MODULES = {
     "deepseek-7b": "repro_torch.configs.deepseek_7b",
     "paper_nin": "repro_torch.configs.paper_nin",
     "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
+    "jamba-v0.1-52b": "repro_torch.configs.jamba_52b",
 }
 
 # archs the JAX package serves that this package does not run yet
-NOT_PORTED = ("llama3-405b", "starcoder2-7b", "jamba-v0.1-52b",
-              "deepseek-v2-236b", "arctic-480b", "qwen2-vl-2b",
-              "whisper-tiny")
+NOT_PORTED = ("llama3-405b", "starcoder2-7b", "deepseek-v2-236b",
+              "arctic-480b", "qwen2-vl-2b", "whisper-tiny")
 
 ARCH_IDS = tuple(_MODULES)
 

@@ -10,6 +10,7 @@ from repro_torch.kernels import distill_loss as dl
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssm_scan as ss
 from repro_torch.kernels import wkv6 as wk
 
 
@@ -67,3 +68,19 @@ def wkv6(r, k, v, log_w, u, state):
         state.copy_(s_t.view(state.shape))
         return y
     raise ValueError(f"wkv6: no implementation for {r.device}")
+
+
+def ssm_scan(a, b, state):
+    """Mamba selective scan h_t = a_t * h_{t-1} + b_t, a/b (N, T, D, Ns)
+    f32 with N = K*B rows folding K members, state (K, B, D, Ns) f32
+    read as h0 and overwritten with h_T in place; -> hs (N, T, D, Ns).
+    See kernels/ref.ssm_scan.  On the card one launch covers every row
+    and state element."""
+    if a.is_cuda:
+        return ss.ssm_scan(a, b, state)
+    if a.device.type == "cpu":
+        N, _, D, Ns = a.shape
+        hs, h_t = ref.ssm_scan(a, b, state.reshape(N, D, Ns))
+        state.copy_(h_t.view(state.shape))
+        return hs
+    raise ValueError(f"ssm_scan: no implementation for {a.device}")

@@ -161,3 +161,17 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         S = S * torch.exp(log_w[:, t].float())[..., None] + kv
     y = torch.stack(ys, 1) if ys else r.new_zeros(N, 0, H, dh)
     return y, S
+
+
+def ssm_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba selective scan h_t = a_t * h_{t-1} + b_t, sequential (the
+    ssm_scan kernel's oracle).  a/b (N, T, D, Ns), h0 (N, D, Ns).
+    -> (hs (N, T, D, Ns) in a's dtype, h_T (N, D, Ns) f32)."""
+    h = h0.float()
+    hs = []
+    for t in range(a.shape[1]):
+        h = a[:, t].float() * h + b[:, t].float()
+        hs.append(h)
+    out = torch.stack(hs, 1) if hs else a.new_zeros(a.shape)
+    return out.to(a.dtype), h

@@ -1,22 +1,25 @@
-"""RWKV6 (finch): the time-mix with data-dependent decay and the
-channel-mix, over the member-stacked layout.
+"""State-space mixers over the member-stacked layout: Mamba's selective
+scan (jamba) and RWKV6 (finch), its time-mix with data-dependent decay
+and its channel-mix.
 
 Params keep the JAX package's leaf names; every leaf has a leading
-member axis K and activations are (K, B, T, d).  The wkv recurrence goes
-through kernels/ops.wkv6 in apply, prefill and decode alike (decode is a
-chunk of one token), with the K members folded into the kernel's rows:
-one launch per layer covers every member, slot and head.  Decode and
-prefill update the cache planes in place (see models/attention.py).
+member axis K and activations are (K, B, T, d).  The recurrences go
+through kernels/ops.ssm_scan and kernels/ops.wkv6 in apply, prefill and
+decode alike (decode is a chunk of one token), with the K members folded
+into the kernels' rows: one launch per layer (per 128-token Mamba piece)
+covers every member and slot.  Decode and prefill update the cache
+planes in place (see models/attention.py).
 
 Per layer and slot the decode state is O(1) in sequence length:
-  shift (K, B, 1, d)  the last mixer input (token shift)
-  wkv   (K, B, H, dh, dh) f32  the recurrent [key, value] state
+  mamba: conv (K, B, conv_w-1, d_inner)  the last conv inputs
+         ssm  (K, B, d_inner, d_state) f32  the selective-scan state
+  rwkv6: shift (K, B, 1, d)  the last mixer input (token shift)
+         wkv   (K, B, H, dh, dh) f32  the recurrent [key, value] state
 (the channel-mix's own `cmix_shift` lives in models/transformer.py).
-Mamba, the other state-space mixer of the JAX package's ssm module,
-comes with a later slice.
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -26,17 +29,179 @@ from repro_torch.common.types import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init, member_view, mm
 
+MAMBA_CHUNK = 128    # the JAX package's: one scan launch per piece
 GROUPNORM_EPS = 1e-5  # the JAX package's _rwkv_groupnorm, not cfg.norm_eps
-
-
-def rwkv_dims(cfg: ModelConfig) -> Tuple[int, int]:
-    dh = cfg.ssm.rwkv_head_dim
-    return cfg.d_model // dh, dh  # (n_heads, head_dim)
 
 
 def _full(lead, shape, value: float, device) -> torch.Tensor:
     return torch.full((*lead, *shape), value, dtype=torch.float32,
                       device=device)
+
+
+# ===========================================================================
+# Mamba
+# ===========================================================================
+
+def mamba_dims(cfg: ModelConfig) -> Tuple[int, int]:
+    d_inner = cfg.ssm.expand * cfg.d_model
+    dt_rank = cfg.ssm.dt_rank or max(1, cfg.d_model // 16)
+    return d_inner, dt_rank
+
+
+def mamba_init(gen, lead, cfg: ModelConfig, dtype) -> dict:
+    s = cfg.ssm
+    d = cfg.d_model
+    d_inner, dt_rank = mamba_dims(cfg)
+    dev = gen.device
+    A = torch.arange(1, s.d_state + 1, dtype=torch.float32, device=dev)
+    return {
+        # in_proj packs [x, z]
+        "mamba_in": dense_init(gen, lead, (d, 2 * d_inner), dtype),
+        "mamba_conv": dense_init(gen, lead, (s.conv_width, d_inner), dtype,
+                                 scale=1.0 / math.sqrt(s.conv_width)),
+        # x_proj packs [dt, B, C]
+        "mamba_dt_x": dense_init(gen, lead, (d_inner, dt_rank + 2 * s.d_state),
+                                 dtype),
+        "mamba_dt_w": dense_init(gen, lead, (dt_rank, d_inner), dtype),
+        "mamba_dt_b": _full(lead, (d_inner,), -4.6, dev),  # softplus: ~0.01
+        "mamba_A_log": torch.log(A).expand(*lead, d_inner, s.d_state)
+                            .contiguous(),
+        "mamba_D": _full(lead, (d_inner,), 1.0, dev),
+        "mamba_out": dense_init(gen, lead, (d_inner, d), dtype),
+    }
+
+
+def _mamba_conv_full(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Causal depthwise conv by shifted adds, x (K, B, T, di), w (K, W,
+    di).  Accumulates in f32 (as decode does: both stay bit-aligned
+    through the silu when params are bf16); -> f32."""
+    W, T = w.shape[1], x.shape[2]
+    xf, wf = x.float(), w.float()
+    out = xf * member_view(wf[:, -1], xf)
+    for i in range(1, W):
+        shifted = F.pad(xf, (0, 0, i, 0))[:, :, :T]
+        out = out + shifted * member_view(wf[:, -1 - i], xf)
+    return out
+
+
+def _mamba_inner(params, xz: torch.Tensor, cfg: ModelConfig,
+                 state: torch.Tensor, valid: torch.Tensor = None
+                 ) -> torch.Tensor:
+    """The scan core over conv'd x, xz (K, B, T, di); state (K, B, di,
+    Ns) f32 is read as h0 and left holding h_T.  -> y (K, B, T, di) f32.
+
+    The sequence is walked in MAMBA_CHUNK pieces: each forms a = exp(dt
+    A) and b = dt x B in f32, (K*B, CH, di, Ns) (the live set), runs one
+    ops.ssm_scan launch on it carrying the state, and contracts the
+    states with C.  valid (B, T) marks real positions; elsewhere dt is
+    0, so the step is the identity (a = 1, b = 0) and the state passes
+    through padding untouched."""
+    s = cfg.ssm
+    d_inner, dt_rank = mamba_dims(cfg)
+    K, B, T, _ = xz.shape
+    Ns = s.d_state
+    proj = mm(xz, params["mamba_dt_x"])
+    dt_lo = proj[..., :dt_rank]
+    Bm = proj[..., dt_rank: dt_rank + Ns].float()
+    Cm = proj[..., dt_rank + Ns:].float()
+    dt = F.softplus(mm(dt_lo, params["mamba_dt_w"]).float()
+                    + member_view(params["mamba_dt_b"], proj))  # (K,B,T,di)
+    if valid is not None:
+        dt = torch.where(valid[None, :, :, None], dt, 0.0)
+    A = -torch.exp(params["mamba_A_log"])[:, None, None]    # (K,1,1,di,Ns)
+    xf = xz.float()
+    dtx = dt * xf
+    ys = []
+    for t0 in range(0, T, MAMBA_CHUNK):
+        sl = slice(t0, min(t0 + MAMBA_CHUNK, T))
+        a = torch.exp(dt[:, :, sl, :, None] * A)           # (K,B,CH,di,Ns)
+        b = dtx[:, :, sl, :, None] * Bm[:, :, sl, None, :]
+        CH = a.shape[2]
+        hs = ops.ssm_scan(a.reshape(K * B, CH, d_inner, Ns),
+                          b.reshape(K * B, CH, d_inner, Ns), state)
+        ys.append(torch.einsum("nlds,nls->nld", hs,
+                               Cm[:, :, sl].reshape(K * B, CH, Ns)))
+    y = torch.cat(ys, 1).reshape(K, B, T, d_inner)
+    return y + xf * member_view(params["mamba_D"], xf)
+
+
+def _mamba_out(params, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    return mm(y.to(z.dtype) * F.silu(z), params["mamba_out"])
+
+
+def mamba_apply(params: dict, x: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    """x (K, B, T, d) from position 0 -> (K, B, T, d)."""
+    K, B = x.shape[:2]
+    d_inner, _ = mamba_dims(cfg)
+    xz = mm(x, params["mamba_in"])
+    xs, z = xz[..., :d_inner], xz[..., d_inner:]
+    xs = F.silu(_mamba_conv_full(xs, params["mamba_conv"])).to(xs.dtype)
+    state = torch.zeros(K, B, d_inner, cfg.ssm.d_state, dtype=torch.float32,
+                        device=x.device)
+    return _mamba_out(params, _mamba_inner(params, xs, cfg, state), z)
+
+
+def mamba_cache_init(cfg: ModelConfig, lead, batch: int, dtype,
+                     device) -> dict:
+    s = cfg.ssm
+    d_inner, _ = mamba_dims(cfg)
+    return {
+        "conv": torch.zeros(*lead, batch, s.conv_width - 1, d_inner,
+                            dtype=dtype, device=device),
+        "ssm": torch.zeros(*lead, batch, d_inner, s.d_state,
+                           dtype=torch.float32, device=device),
+    }
+
+
+def mamba_decode(params: dict, x: torch.Tensor, cache: dict,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """One token per row: x (K, B, 1, d); cache {"conv", "ssm"} views of
+    one layer, advanced in place.  -> (K, B, 1, d)."""
+    d_inner, _ = mamba_dims(cfg)
+    xz = mm(x, params["mamba_in"])
+    xs, z = xz[..., :d_inner], xz[..., d_inner:]
+    window = torch.cat([cache["conv"].to(xs.dtype), xs], 2)   # (K,B,W,di)
+    conv = torch.einsum("kbwd,kwd->kbd", window.float(),
+                        params["mamba_conv"].float())
+    xc = F.silu(conv)[:, :, None].to(xs.dtype)
+    y = _mamba_inner(params, xc, cfg, cache["ssm"])
+    cache["conv"].copy_(window[:, :, 1:])
+    return _mamba_out(params, y, z)
+
+
+def mamba_prefill(params: dict, x: torch.Tensor, cache: dict,
+                  n_tok: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Chunk prefill: x (K, B, C, d); n_tok (B,) valid tokens per row.
+
+    The conv window is seeded from the cached tail and the scan starts
+    from the cached state with padded positions masked to identity
+    steps, so the new state equals stepping mamba_decode over exactly
+    the n_tok valid tokens.  New tails are cut at offset n_tok, so a row
+    with n_tok == 0 is a bit-exact no-op.  -> (K, B, C, d); the cache
+    advances in place."""
+    C = x.shape[2]
+    W = cfg.ssm.conv_width
+    d_inner, _ = mamba_dims(cfg)
+    xz = mm(x, params["mamba_in"])
+    xs, z = xz[..., :d_inner], xz[..., d_inner:]
+    ctx = torch.cat([cache["conv"].to(xs.dtype), xs], 2)    # (K,B,W-1+C,di)
+    conv = _mamba_conv_full(ctx, params["mamba_conv"])[:, :, W - 1:]
+    xc = F.silu(conv).to(xs.dtype)
+    valid = (torch.arange(C, device=x.device)[None, :]
+             < n_tok.long()[:, None])                       # (B, C)
+    y = _mamba_inner(params, xc, cfg, cache["ssm"], valid)
+    cache["conv"].copy_(tail_at(ctx, n_tok, W - 1))
+    return _mamba_out(params, y, z)
+
+
+# ===========================================================================
+# RWKV6 (finch) — data-dependent per-channel decay
+# ===========================================================================
+
+def rwkv_dims(cfg: ModelConfig) -> Tuple[int, int]:
+    dh = cfg.ssm.rwkv_head_dim
+    return cfg.d_model // dh, dh  # (n_heads, head_dim)
 
 
 def rwkv_init(gen, lead, cfg: ModelConfig, dtype) -> dict:
@@ -158,13 +323,15 @@ def rwkv_decode(params: dict, x: torch.Tensor, cache: dict,
     return _rwkv_out(params, y, g, H, dh)
 
 
-def shift_at(ctx: torch.Tensor, n_tok: torch.Tensor) -> torch.Tensor:
-    """ctx (K, B, C+1, d) = [cached tail, chunk]: each row's new tail,
-    ctx[:, b, n_tok[b]] -> (K, B, 1, d).  n_tok == 0 keeps the old
-    tail."""
+def tail_at(ctx: torch.Tensor, n_tok: torch.Tensor,
+            width: int) -> torch.Tensor:
+    """ctx (K, B, width+C, d) = [cached tail, chunk]: each row's new
+    tail, ctx[:, b, n_tok[b]:n_tok[b] + width] -> (K, B, width, d).
+    n_tok == 0 keeps the old tail."""
     B = ctx.shape[1]
-    rows = torch.arange(B, device=ctx.device)
-    return ctx[:, rows, n_tok.long()][:, :, None]
+    rows = torch.arange(B, device=ctx.device)[:, None]
+    cols = n_tok.long()[:, None] + torch.arange(width, device=ctx.device)
+    return ctx[:, rows, cols]
 
 
 def rwkv_prefill(params: dict, x: torch.Tensor, cache: dict,
@@ -186,7 +353,7 @@ def rwkv_prefill(params: dict, x: torch.Tensor, cache: dict,
                                           device=k.device))
     log_w = torch.where(valid, log_w, 0.0)
     y = _wkv(params, r, k, v, log_w, cache["wkv"], H, dh)
-    cache["shift"].copy_(shift_at(ctx, n_tok))
+    cache["shift"].copy_(tail_at(ctx, n_tok, 1))
     return _rwkv_out(params, y, g, H, dh)
 
 

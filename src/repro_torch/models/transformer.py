@@ -1,7 +1,7 @@
 """Transformer LM assembly for the serving path: pattern-driven blocks
-over the member-stacked params.  A block is pre-norm attention (GQA,
-ring or paged) with a dense MLP, or rwkv6's time-mix (models/ssm.py)
-with its channel-mix.
+over the member-stacked params.  A block is a pre-norm mixer, attention
+(GQA, ring or paged), Mamba or rwkv6's time-mix (models/ssm.py), then a
+pre-norm FFN: a dense MLP, a MoE (models/moe.py) or rwkv6's channel-mix.
 
 Params keep the JAX package's tree: {"embed", ["head"], "final_norm",
 "segments": [per-segment dict of "slot_<i>" blocks]}, every leaf with a
@@ -12,7 +12,7 @@ run batched inside every op.
 
 Entry points
   init(cfg, seed, device, members)          -> stacked params
-  apply(params, cfg, tokens)                -> (logits (K,B,T,V), aux)
+  apply(params, cfg, tokens)                -> (logits (K,B,T,V), aux (K,))
   init_slot_cache(cfg, batch, max_seq, ...) -> slot-addressable cache
   decode_step_slots / decode_step_paged     -> (logits (K,B,1,V), cache)
   prefill_slots / prefill_step_paged        -> (last logits (K,B,V), cache)
@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from repro_torch.common.device import DeviceLike, resolve_device, torch_dtype
 from repro_torch.common.types import LayerSpec, ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe
 from repro_torch.models import ssm
 from repro_torch.models.layers import (embed_init, embed_lookup, head_init,
                                        lm_logits, mlp_apply, mlp_init,
@@ -38,7 +39,8 @@ from repro_torch.models.layers import (embed_init, embed_lookup, head_init,
 
 
 # (mixer, ffn) pairs of the ported layers
-_PORTED = {("attn", "dense"), ("attn_local", "dense"), ("rwkv", "rwkv_cmix")}
+_PORTED = {("attn", "dense"), ("attn_local", "dense"), ("rwkv", "rwkv_cmix"),
+           ("mamba", "dense"), ("mamba", "moe"), ("attn", "moe")}
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -48,9 +50,7 @@ def _check_supported(cfg: ModelConfig) -> None:
     for _, specs in cfg.segments():
         for s in specs:
             if (s.mixer, s.ffn) not in _PORTED:
-                raise NotImplementedError(
-                    f"layer {s} is not ported yet (mamba and MoE layers, "
-                    f"jamba's, come with the next slice)")
+                raise NotImplementedError(f"layer {s} is not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -86,12 +86,17 @@ def init(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
             p = {"norm_mix": _rmsnorm_init(lead, cfg.d_model, dev)}
             if spec.mixer == "rwkv":
                 p["rwkv"] = ssm.rwkv_init(gen, lead, cfg, dtype)
+            elif spec.mixer == "mamba":
+                p["mamba"] = ssm.mamba_init(gen, lead, cfg, dtype)
             else:
                 p["attn"] = attn.attn_init(gen, lead, cfg, cfg.attn, dtype)
             p["norm_ffn"] = _rmsnorm_init(lead, cfg.d_model, dev)
             if spec.ffn == "rwkv_cmix":
                 p["cmix"] = ssm.cmix_init(gen, lead, cfg, cfg.ffn.d_ff,
                                           dtype)
+            elif spec.ffn == "moe":
+                p["moe"] = moe.moe_init(gen, lead, cfg.d_model, cfg.ffn,
+                                        dtype)
             else:
                 p["mlp"] = mlp_init(gen, lead, cfg.d_model, cfg.ffn.d_ff,
                                     cfg.ffn.mlp_type, dtype)
@@ -117,13 +122,27 @@ def _mixer_window(cfg: ModelConfig, spec: LayerSpec) -> Tuple[int, float]:
 # forward (full sequence)
 # ---------------------------------------------------------------------------
 
-def apply(params, cfg: ModelConfig, tokens: torch.Tensor
-          ) -> Tuple[torch.Tensor, float]:
-    """tokens (B, T) -> (logits (K, B, T, V), aux 0.0)."""
+def _moe(p, cfg: ModelConfig, h: torch.Tensor, per_row: bool):
+    """The MoE FFN over h (K, B, S, d), every member routing its own
+    tokens with one capacity per pool: each row's S tokens (per_row, as
+    the JAX package's row-vmapped prefill and contiguous decode see
+    them) or all B*S tokens of the call (apply, paged decode).
+    -> (out (K, B, S, d), aux (K,) summed over the pools)."""
+    K, B, S, d = h.shape
+    y, aux = moe.moe_apply(p["moe"], h if per_row else
+                           h.reshape(K, 1, B * S, d), cfg.ffn)
+    return y.reshape(K, B, S, d), aux.sum(1)
+
+
+def apply(params, cfg: ModelConfig, tokens: torch.Tensor):
+    """tokens (B, T) -> (logits (K, B, T, V), aux): aux is the MoE
+    layers' summed load-balance loss per member, (K,), or 0.0 for a
+    model without MoE, as the JAX package's apply returns it."""
     _check_supported(cfg)
     x = embed_lookup(params, tokens, cfg)
     B, T = tokens.shape
     pos = torch.arange(T, device=x.device).expand(B, T)
+    aux = 0.0
     for seg, (count, specs) in zip(params["segments"], cfg.segments()):
         for c in range(count):
             for i, spec in enumerate(specs):
@@ -131,6 +150,8 @@ def apply(params, cfg: ModelConfig, tokens: torch.Tensor
                 h_in = rmsnorm(p["norm_mix"], x, cfg.norm_eps)
                 if spec.mixer == "rwkv":
                     x = x + ssm.rwkv_apply(p["rwkv"], h_in, cfg)
+                elif spec.mixer == "mamba":
+                    x = x + ssm.mamba_apply(p["mamba"], h_in, cfg)
                 else:
                     window, theta = _mixer_window(cfg, spec)
                     x = x + attn.gqa_apply(p["attn"], h_in, cfg.attn, cfg,
@@ -139,10 +160,13 @@ def apply(params, cfg: ModelConfig, tokens: torch.Tensor
                 if spec.ffn == "rwkv_cmix":
                     x_prev = F.pad(h_f, (0, 0, 1, 0))[:, :, :T]
                     x = x + ssm.cmix_apply(p["cmix"], h_f, x_prev)
+                elif spec.ffn == "moe":
+                    h, a = _moe(p, cfg, h_f, per_row=False)
+                    x, aux = x + h, aux + a
                 else:
                     x = x + mlp_apply(p["mlp"], h_f, cfg.ffn.mlp_type)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return lm_logits(params, x, cfg), 0.0
+    return lm_logits(params, x, cfg), aux
 
 
 # ---------------------------------------------------------------------------
@@ -171,9 +195,10 @@ def init_slot_cache(cfg: ModelConfig, batch: int, max_seq: int,
       paged planes   (K, count, n_pages, page_size, Hkv, dh)
       page_table     (K, B, ceil(max_seq / page_size)) int32, all
                      sentinel (n_pages = unallocated)
-      recurrent      rwkv "shift" (K, count, B, 1, d), "wkv" (K, count,
-      planes         B, H, dh, dh) f32; channel-mix "cmix_shift" (K,
-                     count, B, 1, d)
+      recurrent      mamba "conv" (K, count, B, conv_w-1, d_inner), "ssm"
+      planes         (K, count, B, d_inner, d_state) f32; rwkv "shift"
+                     (K, count, B, 1, d), "wkv" (K, count, B, H, dh, dh)
+                     f32; channel-mix "cmix_shift" (K, count, B, 1, d)
 
     With page_size > 0 the full-attention layers (layer_pages) get the
     shared paged pool; the other layers keep per-slot planes (a model
@@ -190,6 +215,8 @@ def init_slot_cache(cfg: ModelConfig, batch: int, max_seq: int,
             window, _ = _mixer_window(cfg, spec)
             if spec.mixer == "rwkv":
                 c = ssm.rwkv_cache_init(cfg, lead, batch, dtype, dev)
+            elif spec.mixer == "mamba":
+                c = ssm.mamba_cache_init(cfg, lead, batch, dtype, dev)
             elif page_size > 0 and layer_pages(cfg, spec, max_seq):
                 c = attn.gqa_paged_cache_init(cfg.attn, lead, n_pages,
                                               page_size, dtype, dev)
@@ -246,11 +273,15 @@ def _layer_cache(lc: dict, c: int, count: int,
 # ---------------------------------------------------------------------------
 
 def _ffn_step(p, spec: LayerSpec, cfg: ModelConfig, lc: dict,
-              h_f: torch.Tensor, n_tok: Optional[torch.Tensor]):
+              h_f: torch.Tensor, n_tok: Optional[torch.Tensor],
+              moe_per_row: bool = True):
     """The block's FFN over the normed input h_f (K, B, C, d).  The rwkv
     channel-mix reads the cached shift tail and advances it in place: by
     one token (decode, n_tok None) or to each row's n_tok-th chunk
-    position (prefill)."""
+    position (prefill).  A MoE routes per row or over the batch (_moe);
+    its aux loss is dropped, as in the JAX package's serving steps."""
+    if spec.ffn == "moe":
+        return _moe(p, cfg, h_f, moe_per_row)[0]
     if spec.ffn != "rwkv_cmix":
         return mlp_apply(p["mlp"], h_f, cfg.ffn.mlp_type)
     tail = lc["cmix_shift"].to(h_f.dtype)
@@ -260,7 +291,7 @@ def _ffn_step(p, spec: LayerSpec, cfg: ModelConfig, lc: dict,
         return h
     ctx = torch.cat([tail, h_f], 2)
     h = ssm.cmix_apply(p["cmix"], h_f, ctx[:, :, :h_f.shape[2]])
-    lc["cmix_shift"].copy_(ssm.shift_at(ctx, n_tok))
+    lc["cmix_shift"].copy_(ssm.tail_at(ctx, n_tok, 1))
     return h
 
 
@@ -279,6 +310,8 @@ def _decode(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor):
                 h_in = rmsnorm(p["norm_mix"], x, cfg.norm_eps)
                 if spec.mixer == "rwkv":
                     h = ssm.rwkv_decode(p["rwkv"], h_in, lc, cfg)
+                elif spec.mixer == "mamba":
+                    h = ssm.mamba_decode(p["mamba"], h_in, lc, cfg)
                 elif tbl is not None:
                     h = attn.gqa_decode_paged(p["attn"], h_in, lc, pos,
                                               *tbl, cfg.attn, cfg, window,
@@ -287,9 +320,11 @@ def _decode(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor):
                     h = attn.gqa_decode(p["attn"], h_in, lc, pos, cfg.attn,
                                         cfg, window, theta)
                 x = x + h
+                # the JAX package's paged step routes the batch as one
+                # pool, its contiguous step (a row vmap) each row alone
                 x = x + _ffn_step(p, spec, cfg, lc,
                                   rmsnorm(p["norm_ffn"], x, cfg.norm_eps),
-                                  None)
+                                  None, moe_per_row=table is None)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     out = dict(cache)
     out["idx"] = cache["idx"] + 1
@@ -333,6 +368,8 @@ def _prefill(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
                 h_in = rmsnorm(p["norm_mix"], x, cfg.norm_eps)
                 if spec.mixer == "rwkv":
                     h = ssm.rwkv_prefill(p["rwkv"], h_in, lc, n_tok, cfg)
+                elif spec.mixer == "mamba":
+                    h = ssm.mamba_prefill(p["mamba"], h_in, lc, n_tok, cfg)
                 elif tbl is not None:
                     h = attn.gqa_prefill_paged(p["attn"], h_in, lc, idx,
                                                n_tok, *tbl, cfg.attn, cfg,

@@ -4,8 +4,9 @@ One pool holds the caches of all K members for all B batch slots:
 
   idx            (K, B)                per-member, per-slot position
   ring leaves    (K, count, B, S, ...) per-slot K/V planes
-  recurrent      (K, count, B, ...)    per-slot state (rwkv's shift and
-  leaves                               wkv, the channel-mix's cmix_shift)
+  recurrent      (K, count, B, ...)    per-slot state (Mamba's conv and
+  leaves                               ssm, rwkv's shift and wkv, the
+                                       channel-mix's cmix_shift)
   paged leaves   (K, count, n_pages, page_size, ...)
   page_table     (K, B, ceil(max_seq/page_size))  logical -> physical
 
@@ -124,8 +125,8 @@ def _map2(a, b, fn, name: str = ""):
 def snapshot(pool: dict) -> dict:
     """What keep_frozen restores, taken before a decode step: the
     pool's idx and a copy of every recurrent plane (those
-    _skip_slot_update does not skip: rwkv's shift and wkv, the
-    channel-mix's cmix_shift).  The step updates the planes in place
+    _skip_slot_update does not skip: Mamba's conv and ssm, rwkv's shift
+    and wkv, the channel-mix's cmix_shift).  The step updates the planes in place
     and replaces idx, so positional and paged planes are not copied; a
     model with no recurrent plane copies nothing."""
     def keep(name, x):

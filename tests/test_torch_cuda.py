@@ -2,9 +2,9 @@
 
 The hand-written CUDA kernels (paged attention; flash attention; the
 fused distillation loss, forward and backward; the rwkv6 wkv
-recurrence) against their plain PyTorch versions in every option, their
-input checks, and the engine and the trainer on the card against the
-CPU.  Each test skips where there is no CUDA device.
+recurrence; Mamba's selective scan) against their plain PyTorch
+versions in every option, their input checks, and the engine and the
+trainer on the card against the CPU.  Each test skips where there is no CUDA device.
 No JAX import, so the file runs on a machine without JAX:
 
     python -m pytest tests/test_torch_cuda.py -q
@@ -18,6 +18,7 @@ from repro_torch.kernels import distill_loss as dl
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssm_scan as ssk
 from repro_torch.kernels import wkv6 as wk
 from repro_torch.models import transformer as tf
 from repro_torch.serving.engine import EnsembleEngine
@@ -99,6 +100,25 @@ def test_kernel_matches_plain_version(cuda, name):
                                rtol=tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_at_jamba_attention_shape(cuda, dtype):
+    """H 32 over Hkv 8 (g = 4) with dh 128, no rope: jamba's attention
+    layer at full width."""
+    c = make_case("f32", cuda, seed=3, B=4, H=32, page=16, P=5)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(4)
+    n_pages = c["k_pages"].shape[0]
+    c["q"] = torch.randn(4, 32, 128, generator=g, device=cuda).to(dtype)
+    c["k_pages"], c["v_pages"] = (
+        torch.randn(n_pages, 16, 8, 128, generator=g, device=cuda).to(dtype)
+        for _ in range(2))
+    got = pa.paged_attention(**c)
+    torch.cuda.synchronize()
+    want = ref.paged_attention(**c)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
 def test_kernel_checks_its_inputs(cuda):
     c = make_case("f32", cuda)
     for bad, match in ((dict(table=c["table"].long()), "table dtype"),
@@ -119,6 +139,7 @@ FLASH_CASES = {
     "cross": (2, 33, 150, 4, 4, False, 0, False),
     "prefill_ring": (2, 24, 40, 4, 1, True, 16, True),
     "prefill_paged": (3, 16, 80, 2, 2, True, 0, True),
+    "prefill_jamba_gqa": (2, 24, 72, 32, 8, True, 0, True),  # g = 4
 }
 
 
@@ -353,6 +374,79 @@ def test_wkv6_kernel_checks_its_inputs(cuda):
 
 def test_rwkv_engine_on_card_matches_cpu(cuda):
     cfg = registry.get_config("rwkv6-7b", reduced=True).with_(
+        dtype="float32")
+    params = tf.init(cfg, seed=0, device="cpu", members=2)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (3, 11, 16)]
+    outs = []
+    for dev in (cuda, "cpu"):
+        eng = EnsembleEngine(cfg, params, n_slots=3, max_prompt=16,
+                             max_out=12, paged=True, page_size=4,
+                             prefill_chunk=4, device=dev)
+        outs.append(eng.generate(prompts, 10))
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+
+
+# ssm_scan: atol = rtol = 1e-5, tests/test_kernels.py's for the Pallas
+# kernel against its sequential oracle
+SCAN_TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def scan_case(dev, K, B, T, D, Ns, seed=0, count=3):
+    """a = exp(-|x|), small b, and the state as a layer's view of a (K,
+    count, B + 1, D, Ns) pool narrowed to B slots (strided, updated in
+    place).  -> (a, b, pool, state view)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    f = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+    N = K * B
+    a = torch.exp(-f(N, T, D, Ns).abs())
+    b = f(N, T, D, Ns) * 0.2
+    pool = f(K, count, B + 1, D, Ns) * 0.1
+    return a, b, pool, pool[:, 1].narrow(1, 1, B)
+
+
+@pytest.mark.parametrize("T", [1, 37, 128])
+@pytest.mark.parametrize("D,Ns", [(64, 16), (100, 16), (37, 3)])
+def test_ssm_scan_kernel_matches_plain_version(cuda, D, Ns, T):
+    """(64, 16): whole 256-thread blocks of 16-byte vectors; (100, 16):
+    a ragged last block; (37, 3): the scalar variant (D * Ns is odd)."""
+    K, B = 2, 3
+    a, b, pool, state = scan_case(cuda, K, B, T, D, Ns)
+    before = pool.clone()
+    want_hs, want_h = ref.ssm_scan(a, b, state.reshape(K * B, D, Ns))
+    n0 = ssk.ssm_scan.launches
+    hs = ssk.ssm_scan(a, b, state)
+    torch.cuda.synchronize()
+    assert ssk.ssm_scan.launches == n0 + 1
+    torch.testing.assert_close(hs, want_hs, **SCAN_TOL)
+    torch.testing.assert_close(state.reshape(K * B, D, Ns), want_h,
+                               **SCAN_TOL)
+    # nothing outside the state view moved
+    pool[:, 1, 1:B + 1] = before[:, 1, 1:B + 1]
+    assert torch.equal(pool, before)
+
+
+def test_ssm_scan_kernel_checks_its_inputs(cuda):
+    a, b, pool, state = scan_case(cuda, 2, 2, 5, 8, 8)
+    args = dict(a=a, b=b, state=state)
+    for bad, match in ((dict(b=b.double()), "b dtype"),
+                       (dict(b=b[:, :-1]), "b has shape"),
+                       (dict(state=pool[:, 1, :1]), "state folds"),
+                       (dict(a=a.transpose(2, 3).contiguous()
+                             .transpose(2, 3)), "contiguous"),
+                       (dict(state=state.transpose(2, 3)), "contiguous"),
+                       (dict(state=pool[:, 0, :1].expand(2, 2, 8, 8)),
+                        "overlap"),
+                       (dict(a=a.cpu()), "CUDA tensors"),
+                       (dict(b=b.cpu()), "b is on")):
+        with pytest.raises(ValueError, match=match):
+            ssk.ssm_scan(**dict(args, **bad))
+
+
+def test_jamba_engine_on_card_matches_cpu(cuda):
+    cfg = registry.get_config("jamba-v0.1-52b", reduced=True).with_(
         dtype="float32")
     params = tf.init(cfg, seed=0, device="cpu", members=2)
     rng = np.random.default_rng(0)

@@ -43,14 +43,15 @@ def close(got: torch.Tensor, want, tol=TOL) -> None:
 
 
 def test_configs_match_jax_package():
-    for arch in ("gemma3-1b", "deepseek-7b", "rwkv6-7b"):
+    for arch in ("gemma3-1b", "deepseek-7b", "rwkv6-7b", "jamba-v0.1-52b"):
         for reduced in (False, True):
             j = jreg.get_config(arch, reduced=reduced)
             t = treg.get_config(arch, reduced=reduced)
             assert repr(j) == repr(t)
             assert repr(j.segments()) == repr(t.segments())
-    with pytest.raises(NotImplementedError, match="not ported"):
-        treg.get_config("jamba-v0.1-52b")
+    for arch in ("deepseek-v2-236b", "whisper-tiny"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            treg.get_config(arch)
 
 
 @pytest.mark.parametrize("layer", ["rmsnorm", "rope", "mlp", "embed",

@@ -20,7 +20,7 @@ from repro.models import ssm as jssm
 from repro.models import transformer as jtf
 from repro.serving import EnsembleEngine as JaxEngine
 from repro_torch.bridge import params_from_numpy
-from repro_torch.common.types import LayerSpec
+from repro_torch.common.types import AttnConfig, LayerSpec
 from repro_torch.configs import registry as treg
 from repro_torch.models import ssm as tssm
 from repro_torch.models import transformer as ttf
@@ -192,8 +192,16 @@ def test_torch_init_has_the_jax_tree(models):
     check_init_has_the_jax_tree(tcfg, jp)
 
 
-@pytest.mark.parametrize("layer", [("mamba", "dense"), ("rwkv", "moe")])
+@pytest.mark.parametrize("layer", ["mla_attention", "enc_dec"])
 def test_jamba_layers_are_still_refused(models, layer):
-    cfg = models[1].with_(pattern=(LayerSpec(*layer),))
-    with pytest.raises(NotImplementedError, match="next slice"):
+    """What the port still refuses, at rwkv's reduced widths: MLA
+    attention (deepseek-v2-236b's) and an encoder-decoder (whisper-tiny's)."""
+    cfg = models[1]
+    if layer == "mla_attention":
+        cfg = cfg.with_(attn=AttnConfig(kind="mla", n_heads=4, n_kv_heads=4,
+                                        head_dim=32),
+                        pattern=(LayerSpec("attn", "dense"),))
+    else:
+        cfg = cfg.with_(enc_dec=True)
+    with pytest.raises(NotImplementedError, match="not ported"):
         ttf.init(cfg, device="cpu")
