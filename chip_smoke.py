@@ -7,16 +7,20 @@ Phases, one JSON line each, in the order 0, 1, 7, 10, 11, 2, 8, 9, 12,
 3, 4, 5, 6:
   0  the card's name and power limit; build every CUDA kernel from
      src/repro_torch/kernels/csrc (one nvcc per source, all at once);
+     every kernel function's registers and spills (ptxas) and each
+     library's count of tensor-core instructions (cuobjdump);
   1  the paged-attention kernel against its plain PyTorch version on the
-     card, at the decode path's shapes and in every variant it takes,
-     with its time (cold L2), the plain version's, one library call's
-     and the bound;
+     card, at the decode path's shapes (gemma3-1b's in every variant it
+     takes, deepseek-7b's and jamba's in bf16), with its time (cold L2),
+     the plain version's, one library call's, the bound and the number
+     of blocks each row's pages are split over;
   7  the flash-attention kernel likewise, f32 and bf16, at the prefill's
      shapes (gemma3-1b over a 512 ring and over 576 gathered positions,
      deepseek-7b over 576, each plus a 128-token chunk, mid-prompt and
      ragged tail) and the full forward's (top-left causal, T = S =
      2048), beside one scaled_dot_product_attention call with the same
-     boolean mask;
+     boolean mask, and the share of key tiles the kernel skips (its
+     predicate's twin, kernels/ref.flash_tile_live);
  10  the wkv6 kernel (the rwkv6 recurrence) likewise, f32, at rwkv6-7b's
      shapes: the decode step (16 rows, one token, a strided state view),
      a mid-prompt prefill chunk (4 rows, 128 tokens, a nonzero state and
@@ -67,6 +71,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -78,6 +83,12 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_OPS = {"float32": 67e12,      # f32 outside the tensor cores
             "bfloat16": 989e12}    # bf16 tensor cores, dense
 MAIN = dict(rows=16, H=4, Hkv=1, d=256, page=16, max_len=576)
+# the other decode shapes: deepseek-7b (K = 4 x 4 slots, every head its
+# own kv head) and jamba (K = 2 x 4 slots, g = 4), prompts of 300-512
+# plus 32 new tokens
+DEEPSEEK = dict(rows=16, H=32, Hkv=32, d=128, page=16, min_len=300,
+                max_len=544)
+JAMBA = dict(rows=8, H=32, Hkv=8, d=128, page=16, min_len=300, max_len=544)
 FLUSH_BYTES = 64 << 20             # > the 50 MB L2: each timed call starts cold
 SLEEP_CYCLES = 5_000_000           # ~2.5 ms of GPU clock: outlasts any enqueue
 
@@ -91,6 +102,42 @@ def card_line() -> str:
                         "--format=csv,noheader"], capture_output=True,
                        text=True, check=True, timeout=60)
     return r.stdout.strip().splitlines()[0]
+
+
+def ptxas_report(build) -> dict:
+    """Registers and spill bytes of every kernel function, from the
+    ptxas report beside each built library, and the count of tensor-core
+    instructions (HMMA / HGMMA) in each library's SASS."""
+    import re
+    pat = re.compile(r"Function properties for (\S+)\n\s*(\d+) bytes stack "
+                     r"frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                     r"loads\n.*?Used (\d+) registers")
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    out = {}
+    for name in build.KERNELS:
+        lib = build.lib_path(name)
+        log = lib.with_name(lib.name + ".log").read_text()
+        found = pat.findall(log)
+        names = [fn for fn, *_ in found]
+        if shutil.which("c++filt"):     # readable names where it exists
+            names = subprocess.run(["c++filt"], input="\n".join(names),
+                                   capture_output=True, text=True,
+                                   check=True).stdout.splitlines()
+        fns = {}
+        for fn, (_, _, st, ld, regs) in zip(names, found):
+            fn = fn.replace("(anonymous namespace)::", "").split("(")[0] \
+                .removeprefix("void ")
+            fns[fn] = {"registers": int(regs), "spill_stores": int(st),
+                       "spill_loads": int(ld)}
+        out[name] = {"functions": fns, "hmma": None, "hgmma": None}
+        if os.path.exists(tool):
+            sass = subprocess.run([tool, "-sass", str(lib)],
+                                  capture_output=True, text=True,
+                                  timeout=300, check=True).stdout.splitlines()
+            out[name]["hmma"] = sum("HMMA" in ln for ln in sass)
+            out[name]["hgmma"] = sum("HGMMA" in ln for ln in sass)
+    return out
 
 
 def time_ms(fn, torch, flush, iters: int = 30, warmup: int = 3) -> float:
@@ -119,17 +166,18 @@ def time_ms(fn, torch, flush, iters: int = 30, warmup: int = 3) -> float:
 # phase 1: paged_attention against its plain version
 # ---------------------------------------------------------------------------
 
-def paged_case(torch, gen, *, qdt, kvdt, dk, dv, dr=0, window=0):
-    """Main-path-shaped inputs: ragged lens in 1..576, each row's live
-    pages scattered over the pool, sentinel (>= n_pages) entries past
-    them."""
-    m = MAIN
+def paged_case(torch, gen, *, qdt, kvdt, dk, dv, dr=0, window=0, shape=None):
+    """Main-path-shaped inputs: ragged lens in 1..576 (or the shape's
+    range), each row's live pages scattered over the pool, sentinel (>=
+    n_pages) entries past them."""
+    m = shape or MAIN
     B, H, Hkv, page = m["rows"], m["H"], m["Hkv"], m["page"]
     P = -(-m["max_len"] // page)
     dev = "cuda"
-    lens = torch.randint(1, m["max_len"] + 1, (B,), generator=gen,
-                         device=dev)
-    lens[0], lens[1] = 1, m["max_len"]
+    lens = torch.randint(m.get("min_len", 1), m["max_len"] + 1, (B,),
+                         generator=gen, device=dev)
+    if shape is None:
+        lens[0], lens[1] = 1, m["max_len"]
     live = (lens + page - 1) // page
     n_pages = int(live.sum()) + 8
     perm = torch.randperm(n_pages, generator=gen, device=dev).int()
@@ -206,14 +254,20 @@ def sdpa_call(case, torch):
 
 
 def phase1(torch, flush, card):
+    """-> {case: row}; "bf16" is the main path's (gemma3-1b's decode)."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     f32, bf16 = torch.float32, torch.bfloat16
     d = MAIN["d"]
+    n_sm = pa.sm_count(torch.device("cuda"))
     cases = [  # name, case kwargs, tolerance (atol = rtol)
         ("bf16", dict(qdt=bf16, kvdt=bf16, dk=d, dv=d), 2e-2),
+        ("bf16_deepseek_7b", dict(qdt=bf16, kvdt=bf16, dk=128, dv=128,
+                                  shape=DEEPSEEK), 2e-2),
+        ("bf16_jamba", dict(qdt=bf16, kvdt=bf16, dk=128, dv=128,
+                            shape=JAMBA), 2e-2),
         ("f32", dict(qdt=f32, kvdt=f32, dk=d, dv=d), 2e-5),
         ("f32_window512", dict(qdt=f32, kvdt=f32, dk=d, dv=d, window=512),
          2e-5),
@@ -228,10 +282,12 @@ def phase1(torch, flush, card):
     ]
     # tolerances are those of the JAX package's kernel tests: the kernel
     # sums an online softmax page by page, the plain version all at once
-    main = None
+    rows = {}
     for name, kw, tol in cases:
         case = paged_case(torch, gen, **kw)
         args = {k: v for k, v in case.items()}
+        B, P = case["table"].shape
+        splits = pa.n_splits(B, case["k_pages"].shape[2], P, n_sm)
         got = pa.paged_attention(**args)
         want = ref.paged_attention(**args)
         torch.cuda.synchronize()
@@ -248,15 +304,17 @@ def phase1(torch, flush, card):
             lib_ms = time_ms(sdpa_call(case, torch), torch, flush)
         bound_ms, bound_by = paged_bound(case, torch)
         row = {"phase": 1, "card": card, "kernel": "paged_attention",
-               "case": name,
-               "rows": MAIN["rows"], "lens_sum": int(case["lens"].sum()),
+               "case": name, "rows": B, "H": case["q"].shape[1],
+               "Hkv": case["k_pages"].shape[2], "P": P, "splits": splits,
+               "lens_sum": int(case["lens"].sum()),
                "max_abs_err": err, "tol": tol, "ms": ms,
                "plain_ms": plain_ms, "library_ms": lib_ms,
                "bound_ms": bound_ms, "bound_by": bound_by}
         emit(row)
-        if name == "bf16":  # the main path's type
-            main = row
-    return main
+        rows[name] = row
+    emit({"phase": 1, "paged_attention_splits": {
+        name: row["splits"] for name, row in rows.items()}, "sms": n_sm})
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -329,12 +387,16 @@ def flash_bound(q, k, v, q_pos, k_pos, ok):
 
 
 def phase7(torch, flush, card):
+    """-> {(case, dtype): row}; deepseek_paged_mid at bf16 is the main
+    path's row."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
-    main = None
+    n_sm = pa.sm_count(torch.device("cuda"))
+    out = {}
     for name, (N, T, S0, H, Hkv, dh, window, idx, n_tok) in \
             FLASH_CASES.items():
         for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
@@ -371,22 +433,32 @@ def phase7(torch, flush, card):
                 enable_gqa=H != Hkv), torch, flush, iters=10)
             bound_ms, bound_by = flash_bound(q, k, v, kw.get("q_pos"),
                                              kw.get("k_pos"), ok)
+            # the key tiles the kernel reads, by its predicate's twin
+            bq, bk = fa.tiles(dh, dt)
+            live = ref.flash_tile_live(N, T, S, H // Hkv, bq, bk, True,
+                                       window, kw.get("q_pos"),
+                                       kw.get("k_pos"))
             row = {"phase": 7, "card": card, "kernel": "flash_attention",
                    "case": name, "dtype": str(dt).split(".")[-1],
                    "N": N, "T": T, "S": S, "H": H, "Hkv": Hkv, "dh": dh,
                    "window": window, "idx": idx, "n_tok": n_tok,
+                   "splits": fa.n_splits(N, T, H, Hkv, S, bk, n_sm),
+                   "key_tiles": [int(live.sum()), live.numel()],
+                   "tiles_skipped_share": 1.0 - live.float().mean().item(),
                    "max_abs_err": err, "tol": tol, "ms": ms,
                    "plain_ms": plain_ms, "library_ms": lib_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
-                   # the kernel's rate over every (query head, key) pair,
-                   # masked ones included (it skips no tile)
+                   # the rate over every (query head, key) pair, masked
+                   # and skipped ones included
                    "full_tflop_per_s": 4 * N * H * T * S * dh / ms / 1e9}
             emit(row)
-            if name == "deepseek_paged_mid" and dt == torch.bfloat16:
-                main = row
+            out[name, row["dtype"]] = row
             del q, k, v, got, want, qt, kt, vt, mask
         torch.cuda.empty_cache()
-    return main
+    emit({"phase": 7, "key_tiles_skipped_share": {
+        f"{name} {dt}": round(row["tiles_skipped_share"], 4)
+        for (name, dt), row in out.items()}})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1123,9 +1195,10 @@ def main() -> int:
     emit({"phase": 0, "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": time.perf_counter() - t0,
           "built": built})
+    emit({"phase": 0, "ptxas": ptxas_report(build)})
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    main_row = phase1(torch, flush, card)
-    flash_row = phase7(torch, flush, card)
+    paged_rows = phase1(torch, flush, card)
+    flash_rows = phase7(torch, flush, card)
     wkv_rows = phase10(torch, flush, card)
     scan_rows = phase11(torch, flush, card)
     del flush
@@ -1164,21 +1237,29 @@ def main() -> int:
 
     def by_shape(rows):
         return {name: {key: row[key] for key in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err")}
             for name, row in rows.items()}
 
     dsrc = "src/repro_torch/kernels/csrc/distill_loss.cu"
     emit({"kernels": [
-        entry("paged_attention",
-              "src/repro_torch/kernels/csrc/paged_attention.cu",
-              "src/repro/kernels/paged_attention.py:117",
-              launches["gemma3-1b"]["paged_attention"], main_row,
-              serving("paged_attention")),
-        entry("flash_attention",
-              "src/repro_torch/kernels/csrc/flash_attention.cu",
-              "src/repro/kernels/flash_attention.py:93",
-              launches["deepseek-7b"]["flash_attention"], flash_row,
-              serving("flash_attention")),
+        # gemma3-1b's decode row; the deepseek-7b and jamba shapes too
+        dict(entry("paged_attention",
+                   "src/repro_torch/kernels/csrc/paged_attention.cu",
+                   "src/repro/kernels/paged_attention.py:117",
+                   launches["gemma3-1b"]["paged_attention"],
+                   paged_rows["bf16"], serving("paged_attention")),
+             by_shape=by_shape({k: paged_rows[k] for k in (
+                 "bf16", "bf16_deepseek_7b", "bf16_jamba")})),
+        # deepseek-7b's bf16 chunk; every bf16 case too
+        dict(entry("flash_attention",
+                   "src/repro_torch/kernels/csrc/flash_attention.cu",
+                   "src/repro/kernels/flash_attention.py:93",
+                   launches["deepseek-7b"]["flash_attention"],
+                   flash_rows["deepseek_paged_mid", "bfloat16"],
+                   serving("flash_attention")),
+             by_shape=by_shape({name: row for (name, dt), row in
+                                flash_rows.items() if dt == "bfloat16"})),
         entry("distill_loss_fwd", dsrc,
               "src/repro/kernels/distill_loss.py:35",
               distill_launches["fwd"], distill_rows["fwd"]),

@@ -8,8 +8,11 @@ launches on the current stream and raises if the launch is refused.
 CPU tensors are kernels/ops.py's business (it routes them to
 kernels/ref.py).
 
-`flash_attention.launches` counts launches: the prefill path's use of
+`flash_attention.launches` counts wrapper calls that launched the kernel
+(one per attention layer per prefill call): the prefill path's use of
 the kernel is proven by reading it around a run.
+`flash_attention.combine_launches` counts the calls whose key tiles were
+split over several blocks (`n_splits`) and so also launched the combine.
 """
 from __future__ import annotations
 
@@ -19,8 +22,10 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.paged_attention import sm_count
 
 HEAD_DIMS = (32, 64, 128, 256)
+BQ = 64            # group-major query rows per block
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lib: Optional[ctypes.CDLL] = None
@@ -32,10 +37,30 @@ def _library() -> ctypes.CDLL:
         lib = build.load("flash_attention")
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_attention_launch.argtypes = (
-            [P] * 6 + [I] * 8 + [F, I, P])
+            [P] * 7 + [I] * 9 + [F, I, P])
         lib.flash_attention_launch.restype = I
+        lib.flash_attention_key_tile.argtypes = [I, I]
+        lib.flash_attention_key_tile.restype = I
         _lib = lib
     return _lib
+
+
+def tiles(dh: int, dtype: torch.dtype) -> tuple:
+    """(query rows, keys) of the kernel's tiles, as csrc/flash_attention.cu
+    sets them (`flash_attention_key_tile`): 64 keys, 32 for bf16 at dh
+    256 (the tensor-core path's register budget)."""
+    return BQ, 32 if (dtype == torch.bfloat16 and dh >= 256) else 64
+
+
+def n_splits(N: int, T: int, H: int, Hkv: int, S: int, bk: int,
+             n_sm: int) -> int:
+    """Blocks a query tile's key tiles are divided over: 1 when the
+    (row, kv head, query tile) blocks already fill the SMs, else enough
+    to fill them, at most one per key tile."""
+    blocks = N * Hkv * -(-(H // Hkv) * T // BQ)
+    if blocks == 0 or blocks >= n_sm:
+        return 1
+    return max(1, min(-(-S // bk), -(-n_sm // blocks)))
 
 
 def _check(name: str, x: torch.Tensor, device, shape, dtypes) -> None:
@@ -91,19 +116,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if N == 0 or T == 0:
         return out
     lib = _library()
+    split = n_splits(N, T, H, Hkv, S, tiles(dh, q.dtype)[1], sm_count(dev))
+    part = (torch.empty((N * T * H, split, dh + 2), dtype=torch.float32,
+                        device=dev) if split > 1 else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if q_pos is None else q_pos.data_ptr(),
             None if k_pos is None else k_pos.data_ptr(), out.data_ptr(),
-            N, T, S, H, Hkv, dh, int(bool(causal)), int(window), scale,
-            _CODES[q.dtype], stream)
+            None if part is None else part.data_ptr(),
+            N, T, S, H, Hkv, dh, int(bool(causal)), int(window), split,
+            scale, _CODES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error "
                            f"{err}")
     flash_attention.launches += 1
+    if split > 1:
+        flash_attention.combine_launches += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.combine_launches = 0

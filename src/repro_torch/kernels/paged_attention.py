@@ -7,8 +7,13 @@ shape and contiguity, allocates the output, launches on the current
 stream and raises if the launch is refused.  CPU tensors are
 kernels/ops.py's business (it routes them to kernels/ref.py).
 
-`paged_attention.launches` counts launches: the serving path's use of
+`paged_attention.launches` counts wrapper calls that launched the
+kernel (one per paged layer per decode step): the serving path's use of
 the kernel is proven by reading it around a run.
+`paged_attention.combine_launches` counts the calls that split their
+rows' pages over several blocks and so also launched the combine.
+The split count comes from `n_splits`, on shapes the host knows: the
+wrapper never reads `lens` back, so a call makes no device-to-host copy.
 """
 from __future__ import annotations
 
@@ -25,7 +30,11 @@ _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
              torch.float8_e4m3fn: 3}
 
+TILE_TOKENS = 32   # tokens staged a step (whole pages; fewer if smem is short)
+WAVES = 2          # blocks the split rule aims for, in SM counts
+
 _lib: Optional[ctypes.CDLL] = None
+_sm_count = {}
 
 
 def _library() -> ctypes.CDLL:
@@ -34,12 +43,30 @@ def _library() -> ctypes.CDLL:
         lib = build.load("paged_attention")
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.paged_attention_launch.argtypes = (
-            [P] * 9 + [I] * 10 + [F, I, I, P])
+            [P] * 10 + [I] * 12 + [F, I, I, P])
         lib.paged_attention_launch.restype = I
-        lib.paged_attention_smem.argtypes = [I] * 5
+        lib.paged_attention_smem.argtypes = [I] * 10
         lib.paged_attention_smem.restype = ctypes.c_longlong
         _lib = lib
     return _lib
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's SM count, read once per device."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _sm_count:
+        _sm_count[idx] = torch.cuda.get_device_properties(idx) \
+            .multi_processor_count
+    return _sm_count[idx]
+
+
+def n_splits(rows: int, Hkv: int, P: int, n_sm: int) -> int:
+    """Blocks a (row, kv head) pair's live pages are divided over: enough
+    for about WAVES blocks per SM, at most one per page of the table.
+    Only shapes the host knows enter, never `lens`."""
+    pairs = max(rows * Hkv, 1)
+    return max(1, min(P, -(-WAVES * n_sm // pairs)))
 
 
 def _check(name: str, x: torch.Tensor, device, shape, dtypes) -> None:
@@ -103,28 +130,39 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"q has {dkq} features, pages give dk={dk} + "
                          f"dr={dr}")
     lib = _library()
-    smem = lib.paged_attention_smem(H, Hkv, dkq, dv, page)
-    if smem > SMEM_MAX:
-        raise ValueError(f"paged_attention needs {smem} B of shared memory "
-                         f"for g={H // Hkv}, dk={dkq}, dv={dv}, page={page};"
-                         f" a block has {SMEM_MAX}")
+    qc, kvc = _Q_CODES[q.dtype], _KV_CODES[k_pages.dtype]
+    ppt = max(1, TILE_TOKENS // page)
+    P = table.shape[1]
+    smem = lambda n: lib.paged_attention_smem(  # noqa: E731
+        H, Hkv, dk, dv, dr, page, P, n, qc, kvc)
+    while ppt > 1 and smem(ppt) > SMEM_MAX:
+        ppt //= 2
+    if smem(ppt) > SMEM_MAX:
+        raise ValueError(f"paged_attention needs {smem(ppt)} B of shared "
+                         f"memory for g={H // Hkv}, dk={dkq}, dv={dv}, "
+                         f"page={page}; a block has {SMEM_MAX}")
     scale = float(scale) if scale is not None else dkq ** -0.5
     out = torch.empty((B, H, dv), dtype=q.dtype, device=dev)
     if B == 0:
         return out
+    split = n_splits(B, Hkv, P, sm_count(dev))
+    part = (torch.empty((B * H, split, dv + 2), dtype=torch.float32,
+                        device=dev) if split > 1 else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.paged_attention_launch(
             _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(table), _ptr(lens),
             _ptr(k_scale), _ptr(v_scale), _ptr(k_extra), _ptr(out),
-            B, H, Hkv, dk, dv, dr, n_pages, page, table.shape[1],
-            int(window), scale, _Q_CODES[q.dtype], _KV_CODES[k_pages.dtype],
-            stream)
+            _ptr(part), B, H, Hkv, dk, dv, dr, n_pages, page, P,
+            int(window), ppt, split, scale, qc, kvc, stream)
     if err != 0:
         raise RuntimeError(f"paged_attention launch failed: CUDA error "
                            f"{err}")
     paged_attention.launches += 1
+    if split > 1:
+        paged_attention.combine_launches += 1
     return out
 
 
 paged_attention.launches = 0
+paged_attention.combine_launches = 0

@@ -31,26 +31,95 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with no valid key gets the uniform average of all S values (every
     score is NEG_INF); callers discard such rows.
     """
-    N, T, H, dh = q.shape
-    S, Hkv = k.shape[1], k.shape[2]
-    g = H // Hkv
-    scale = scale if scale is not None else dh ** -0.5
+    ok = attention_mask(q.shape[0], q.shape[1], k.shape[1], causal, window,
+                        q_pos, k_pos, q.device)
+    return _masked_attention(q, k, v, ok[:, None, None], scale)
+
+
+def attention_mask(N: int, T: int, S: int, causal: bool = True,
+                   window: int = 0, q_pos: Optional[torch.Tensor] = None,
+                   k_pos: Optional[torch.Tensor] = None,
+                   device=None) -> torch.Tensor:
+    """(N, T, S) bool: the (query, key) pairs ref.attention keeps."""
     if q_pos is None:
-        q_pos = torch.arange(T, device=q.device).expand(N, T)
+        q_pos = torch.arange(T, device=device).expand(N, T)
     if k_pos is None:
-        k_pos = torch.arange(S, device=q.device).expand(N, S)
+        k_pos = torch.arange(S, device=device).expand(N, S)
     qp, kp = q_pos.long()[:, :, None], k_pos.long()[:, None, :]
     ok = kp >= 0
     if causal:
         ok = ok & (kp <= qp)
     if window > 0:
         ok = ok & (kp > qp - window)
+    return ok.expand(N, T, S)
+
+
+def _masked_attention(q, k, v, ok, scale):
+    """Softmax attention, q (N, T, H, dh) over k/v (N, S, Hkv, dh) where
+    ok (N, Hkv or 1, g or 1, T, S) keeps a pair; all math in f32."""
+    N, T, H, dh = q.shape
+    Hkv = k.shape[2]
+    g = H // Hkv
+    scale = scale if scale is not None else dh ** -0.5
     qf = q.float().reshape(N, T, Hkv, g, dh)
     s = torch.einsum("nqhgd,nkhd->nhgqk", qf, k.float()) * scale
-    s = torch.where(ok[:, None, None], s, NEG_INF)
+    s = torch.where(ok, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("nhgqk,nkhd->nqhgd", p, v.float())
     return o.reshape(N, T, H, v.shape[-1]).to(q.dtype)
+
+
+def flash_tile_live(N: int, T: int, S: int, g: int, bq: int, bk: int,
+                    causal: bool = True, window: int = 0,
+                    q_pos: Optional[torch.Tensor] = None,
+                    k_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Twin of the flash kernel's tile-skip predicate (`tile_live` in
+    csrc/flash_attention.cu).  The kernel's block holds bq of a kv
+    head's g*T group-major query rows (row r is time r % T) and walks the
+    keys in tiles of bk.  -> (N, ceil(g*T / bq), ceil(S / bk)) bool: False
+    where the kernel skips the tile, because no key of it is at a
+    position >= 0 with (causal) position <= the block's largest query
+    position and (window) position > its smallest minus the window."""
+    dev = q_pos.device if q_pos is not None else None
+    if q_pos is None:
+        q_pos = torch.arange(T).expand(N, T)
+        k_pos = torch.arange(S).expand(N, S)
+    rows = g * T
+    nq, nk = -(-rows // bq), -(-S // bk)
+    t = torch.arange(nq * bq, device=dev) % T
+    t[rows:] = t[0]              # rows past the end add nothing
+    qp = q_pos.long()[:, t].reshape(N, nq, bq)
+    qmin, qmax = qp.min(-1).values, qp.max(-1).values
+    kp = torch.full((N, nk * bk), -1, dtype=torch.long, device=dev)
+    kp[:, :S] = k_pos.long()
+    kp = kp.reshape(N, 1, nk, bk)
+    ok = kp >= 0
+    if causal:
+        ok = ok & (kp <= qmax[:, :, None, None])
+    if window > 0:
+        ok = ok & (kp > qmin[:, :, None, None] - window)
+    return ok.any(-1)
+
+
+def attention_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bq: int, bk: int, causal: bool = True, window: int = 0,
+                    scale: Optional[float] = None,
+                    q_pos: Optional[torch.Tensor] = None,
+                    k_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """ref.attention with the keys of every tile the flash kernel skips
+    (flash_tile_live) masked out of each query row of that block; a
+    row's result must not change wherever it has a valid key."""
+    N, T, H, _ = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    ok = attention_mask(N, T, S, causal, window, q_pos, k_pos, q.device)
+    live = flash_tile_live(N, T, S, g, bq, bk, causal, window, q_pos,
+                           k_pos).to(q.device)
+    r = torch.arange(g * T, device=q.device)
+    keys = torch.arange(S, device=q.device)
+    keep = live[:, r // bq][:, :, keys // bk]       # (N, g*T, S)
+    keep = keep.reshape(N, 1, g, T, S)
+    return _masked_attention(q, k, v, ok[:, None, None] & keep, scale)
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -111,6 +180,78 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     s = s + bias[:, None, None]
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgk,bkhd->bhgd", p, v)
+    return o.reshape(B, H, dv).to(q.dtype)
+
+
+def paged_split_pages(lens: torch.Tensor, page: int, window: int,
+                      n_split: int) -> torch.Tensor:
+    """Twin of the paged kernel's division of a row's live pages over
+    its n_split blocks.  Live pages are [first, ceil(len / page)), first
+    the page of the window's oldest position; split s takes [first + s *
+    n // n_split, first + (s + 1) * n // n_split) with n the live count.
+    -> (B, n_split, 2) int64 [lo, hi) page ranges (lo == hi: no page)."""
+    ln = lens.long()
+    live = (ln + page - 1) // page
+    first = torch.zeros_like(ln)
+    if window > 0:
+        first = torch.where(ln - window > 0, (ln - window) // page, first)
+    n = (live - first).clamp(min=0)
+    s = torch.arange(n_split + 1, device=ln.device)
+    edge = first[:, None] + s[None] * n[:, None] // n_split
+    return torch.stack([edge[:, :-1], edge[:, 1:]], -1)
+
+
+def paged_attention_split(q: torch.Tensor, k_pages: torch.Tensor,
+                          v_pages: torch.Tensor, table: torch.Tensor,
+                          lens: torch.Tensor, n_split: int, window: int = 0,
+                          scale: Optional[float] = None,
+                          k_scale: Optional[torch.Tensor] = None,
+                          v_scale: Optional[torch.Tensor] = None,
+                          k_extra: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Plain two-pass twin of the split paged kernel (for tests): each
+    split's partial (m, l, acc) over its pages (paged_split_pages), in
+    f32, then the combine of csrc/attention_combine.cuh.  Same contract
+    and result as paged_attention."""
+    B, H, dkq = q.shape
+    n_pages, page, Hkv, dk = k_pages.shape
+    dv = v_pages.shape[-1]
+    g = H // Hkv
+    scale = scale if scale is not None else dkq ** -0.5
+    t = table.long().clamp(0, n_pages - 1)
+    S = t.shape[1] * page
+    k = k_pages[t].reshape(B, S, Hkv, dk).float()
+    v = v_pages[t].reshape(B, S, Hkv, dv).float()
+    if k_scale is not None:
+        k = k * k_scale[t].reshape(B, S, Hkv)[..., None].float()
+    if v_scale is not None:
+        v = v * v_scale[t].reshape(B, S, Hkv)[..., None].float()
+    if k_extra is not None:
+        k = torch.cat([k, k_extra[t].reshape(B, S, Hkv, -1).float()], -1)
+    qf = q.float().reshape(B, Hkv, g, dkq)
+    s = torch.einsum("bhgd,bkhd->bhgk", qf, k) * scale
+    pos = torch.arange(S, device=q.device)
+    ln = lens.long()[:, None]
+    ok = pos[None] < ln
+    if window > 0:
+        ok &= pos[None] > ln - 1 - window
+    rng = paged_split_pages(lens, page, window, n_split)   # (B, ns, 2)
+    pg = (pos // page)[None, None]
+    mine = (pg >= rng[..., :1]) & (pg < rng[..., 1:])        # (B, ns, S)
+    m = torch.full((B, n_split, Hkv, g), NEG_INF, device=q.device)
+    l = torch.zeros(B, n_split, Hkv, g, device=q.device)
+    acc = torch.zeros(B, n_split, Hkv, g, dv, device=q.device)
+    for i in range(n_split):          # pass 1: each split's partial
+        if not mine[:, i].any():
+            continue
+        sc = torch.where((ok & mine[:, i])[:, None, None], s, -float("inf"))
+        mi = torch.maximum(sc.amax(-1), torch.tensor(NEG_INF))
+        p = torch.exp(sc - mi[..., None])
+        m[:, i], l[:, i] = mi, p.sum(-1)
+        acc[:, i] = torch.einsum("bhgk,bkhd->bhgd", p, v)
+    big = m.amax(1, keepdim=True)     # pass 2: the combine
+    w = torch.exp(m - big)
+    o = (acc * w[..., None]).sum(1) / (l * w).sum(1).clamp(min=1e-30)[..., None]
     return o.reshape(B, H, dv).to(q.dtype)
 
 

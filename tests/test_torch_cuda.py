@@ -130,6 +130,90 @@ def test_kernel_checks_its_inputs(cuda):
             pa.paged_attention(**dict(c, **bad))
 
 
+def _n_sm(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+@pytest.mark.parametrize("splits", ["several", "one"])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_split_kernel_matches_plain_version(cuda, name, splits):
+    """Every variant with the rows' pages split over several blocks (6
+    rows of 6 pages: one block per page, so the row of length 1 has
+    five splits with no page) and with one block per row (enough rows
+    to fill two waves of the card, 24 pages of 4: three 32-token tiles
+    a row through the double buffer); the combine runs only when
+    split."""
+    Hkv = CASES[name][2]
+    B, P = (6, 6) if splits == "several" else \
+        (-(-pa.WAVES * _n_sm(cuda) // Hkv), 24)
+    assert (pa.n_splits(B, Hkv, P, _n_sm(cuda)) > 1) == (splits == "several")
+    c = make_case(name, cuda, seed=5, B=B, P=P)
+    before = (pa.paged_attention.launches, pa.paged_attention.combine_launches)
+    got = pa.paged_attention(**c)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == before[0] + 1
+    assert pa.paged_attention.combine_launches == \
+        before[1] + (splits == "several")
+    want = ref.paged_attention(**c)
+    tol = TOL[c["q"].dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("window", [6, 10, 23])
+def test_split_kernel_window_across_split_boundaries(cuda, window):
+    """Windows whose first live page falls inside a split's range, rows
+    of every length 1 .. P*page (bf16, page 4, P 6)."""
+    c = make_case("bf16", cuda, seed=6, B=24)
+    c["lens"] = torch.arange(1, 25, dtype=torch.int32, device=cuda)
+    c["window"] = window
+    got = pa.paged_attention(**c)
+    torch.cuda.synchronize()
+    want = ref.paged_attention(**c)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_split_kernel_at_decode_shapes(cuda):
+    """gemma3-1b's decode (16 rows, Hkv 1, dh 256: many splits) and
+    deepseek-7b's (16 rows, Hkv 32, dh 128: one split), bf16, page 16,
+    lens up to P * page."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(7)
+    for H, Hkv, d, P in ((4, 1, 256, 36), (32, 32, 128, 34)):
+        B, page = 16, 16
+        lens = torch.randint(1, P * page + 1, (B,), generator=g, device=cuda)
+        lens[0], lens[1] = 1, P * page
+        n_pages = B * P
+        table = torch.randperm(n_pages, generator=g, device=cuda).int() \
+            .reshape(B, P)
+        q = torch.randn(B, H, d, generator=g, device=cuda).bfloat16()
+        kp, vp = (torch.randn(n_pages, page, Hkv, d, generator=g,
+                              device=cuda).bfloat16() for _ in range(2))
+        got = pa.paged_attention(q, kp, vp, table, lens.int())
+        torch.cuda.synchronize()
+        want = ref.paged_attention(q, kp, vp, table, lens.int())
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+
+
+def test_attention_wrappers_make_no_device_to_host_copy(cuda):
+    """The split counts come from shapes alone: under sync debug mode
+    "error" a call that synchronised with the host would raise."""
+    c = make_case("bf16", cuda, seed=8)
+    kw, _ = flash_case("prefill_ring", 64, torch.bfloat16, cuda)
+    pa.paged_attention(**c)                 # load the libraries first
+    fa.flash_attention(**kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pa.paged_attention(**c)
+        fa.flash_attention(**kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
 # (N, T, S, H, Hkv, causal, window, positions): top-left masks with
 # ragged tiles (T, S not multiples of 64), T != S without causality, and
 # the prefill's position form (FAR slots, a ragged chunk tail)
@@ -202,6 +286,82 @@ def test_flash_kernel_checks_its_inputs(cuda):
                        (dict(q=kw["q"].cpu()), "CUDA tensors")):
         with pytest.raises(ValueError, match=match):
             fa.flash_attention(**dict(kw, **bad))
+
+
+def ring_chunk_case(dh, dtype, dev, seed=0):
+    """A 37-token chunk over a 512-slot ring with window 512, as the
+    gemma3 local layers' prefill builds it (models/attention
+    `_chunk_pos`, `_cache_entry_pos`): rows at wrapped idx (non-monotone
+    key positions), a ragged tail, and a last row whose keys are all
+    empty (no valid key: only finite).  -> (kwargs, valid rows)."""
+    from repro_torch.models import attention as attn
+    N, C, S0, H, Hkv, window = 4, 37, 512, 4, 1, 512
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    idx = torch.tensor([0, 300, 700, 1500], device=dev)
+    n_tok = torch.tensor([37, 30, 37, 5], device=dev)
+    q_pos, c_pos = attn._chunk_pos(idx, n_tok, C)
+    k_pos = torch.cat([attn._cache_entry_pos(S0, idx, window), c_pos], 1)
+    k_pos[-1] = -10 ** 9
+    S = S0 + C
+    q, k, v = (torch.randn(N, n, h, dh, generator=g, device=dev).to(dtype)
+               for n, h in ((C, H), (S, Hkv), (S, Hkv)))
+    kw = dict(q=q, k=k, v=v, causal=True, window=window,
+              q_pos=q_pos.int().contiguous(), k_pos=k_pos.int().contiguous())
+    valid = ref.attention_mask(N, C, S, True, window, kw["q_pos"],
+                               kw["k_pos"]).any(-1)
+    assert not valid[-1].any() and valid[:-1].any()
+    return kw, valid
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [32, 64, 128, 256])
+def test_flash_kernel_on_a_wrapped_ring(cuda, dh, dtype):
+    kw, valid = ring_chunk_case(dh, dtype, cuda)
+    got = fa.flash_attention(**kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    want = ref.attention(**kw)
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float()[valid], want.float()[valid],
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_tiles_match_python(cuda, dtype, dh):
+    """The wrapper's tile sizes (used by the split rule and the skip
+    predicate's twin) are the library's."""
+    lib = fa._library()
+    assert lib.flash_attention_key_tile(dh, fa._CODES[dtype]) == \
+        fa.tiles(dh, dtype)[1]
+
+
+@pytest.mark.parametrize("T,S,H,Hkv", [(130, 130, 4, 1), (2048, 2048, 4, 1),
+                                       (128, 704, 4, 1)])
+def test_flash_kernel_split_and_skip_counts(cuda, T, S, H, Hkv):
+    """bf16 at dh 256: the combine runs exactly when the rule splits, and
+    the result holds on every row with a valid key."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(9)
+    q, k, v = (torch.randn(1, n, h, 256, generator=g, device=cuda).bfloat16()
+               for n, h in ((T, H), (S, Hkv), (S, Hkv)))
+    kw = dict(causal=True, window=512 if S > 1000 else 0)
+    if T != S:
+        kw["q_pos"] = (torch.arange(T, device=cuda) + 300)[None].int()
+        kp = torch.arange(S, device=cuda)
+        kp = torch.where(kp < 300, kp, -10 ** 9)
+        kp[S - T:] = kw["q_pos"][0]
+        kw["k_pos"] = kp[None].int().contiguous()
+    split = fa.n_splits(1, T, H, Hkv, S, fa.tiles(256, torch.bfloat16)[1],
+                        _n_sm(cuda))
+    before = fa.flash_attention.combine_launches
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.combine_launches == before + (split > 1)
+    want = ref.attention(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
 
 
 def test_engine_on_card_matches_cpu(cuda):
