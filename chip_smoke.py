@@ -24,13 +24,16 @@ Phases, one JSON line each, in the order 0, 1, 7, 10, 11, 2, 8, 9, 12,
  10  the wkv6 kernel (the rwkv6 recurrence) likewise, f32, at rwkv6-7b's
      shapes: the decode step (16 rows, one token, a strided state view),
      a mid-prompt prefill chunk (4 rows, 128 tokens, a nonzero state and
-     a masked ragged tail) and apply (4 rows, 2048 tokens); no single
+     a masked ragged tail), apply (4 rows, 2048 tokens) and a prefill
+     chunk with decays down to the models' clamp (-e^4 a token); each
+     with its launch's path, blocks, chunk and column tile; no single
      PyTorch call computes the recurrence, so it has no library time;
  11  the ssm_scan kernel (Mamba's selective scan) likewise, f32, at
      jamba's shapes (d_inner 8192, d_state 16, K = 2): the decode step (8
      rows, one token, a strided state view), a mid-prompt prefill chunk
      (2 rows, 128 tokens, a nonzero state) and apply (2 rows, 2048
-     tokens); no single PyTorch call computes a first-order recurrence
+     tokens), each with its launch's variant (short or long T) and
+     blocks; no single PyTorch call computes a first-order recurrence
      with per-step coefficients, so it has no library time either;
   2  the serving path at full width: gemma3-1b (bf16, 26 layers), K=4
      members, paged KV, 4 requests of 300-512 prompt tokens served
@@ -48,7 +51,9 @@ Phases, one JSON line each, in the order 0, 1, 7, 10, 11, 2, 8, 9, 12,
      (the 32-layer model does not fit one card): ssm_scan once per Mamba
      layer per decode step and per 128-token piece of a prefill call,
      paged attention on the attention layer per decode step, flash
-     attention per prefill call, wkv6 never; init below 60 GB;
+     attention per prefill call, wkv6 never; init below 60 GB.
+     Phases 2, 8, 9 and 12 give each kernel's device time per launch in
+     situ (profiler sum over launches, decode and prefill apart);
   3  the card against the CPU end to end on reduced gemma3-1b,
      deepseek-7b, rwkv6-7b and jamba-v0.1-52b at f32: identical greedy
      tokens and allclose fused log-probs;
@@ -466,13 +471,40 @@ def phase7(torch, flush, card):
 # ---------------------------------------------------------------------------
 
 # name: (members K, rows per member B, tokens T, valid tokens (the rest
-# masked as rwkv_prefill masks them), nonzero s0); H = 64, dh = 64
+# masked as rwkv_prefill masks them), nonzero s0, decays down to the
+# models' clamp); H = 64, dh = 64
 WKV_CASES = {
-    "decode": (4, 4, 1, 1, True),           # a decode step, N = 16
-    "prefill_tail": (4, 1, 128, 44, True),  # last chunk of a 300 prompt
-    "apply_2048": (4, 1, 2048, 2048, False),
+    "decode": (4, 4, 1, 1, True, False),           # a decode step, N = 16
+    "prefill_tail": (4, 1, 128, 44, True, False),  # last chunk of a 300 prompt
+    "apply_2048": (4, 1, 2048, 2048, False, False),
+    # log_w = -exp(clip(x, -20, 4)) as the models clamp it, some tokens
+    # at -e^4: a separable factorisation of the decays would overflow
+    "prefill_strong_decay": (4, 1, 128, 128, True, True),
 }
 WKV_TOL = dict(atol=5e-4, rtol=1e-3)   # tests/test_kernels.py's
+WKV_HEADS = dict(H=64, dh=64)          # rwkv6-7b
+
+
+def wkv_inputs(torch, gen, K, B, T, n_tok, warm, strong, H=64, dh=64,
+               count=2):
+    """Phase 10's inputs for one case: r, k, v, log_w (K*B, T, H, dh), u
+    (K, H, dh), the pool (K, count, 4, H, dh, dh) and the state, one
+    layer's view of it, (K, count, ...)[:, 1], narrowed to the slot for
+    one-slot rows."""
+    N = K * B
+    f = lambda *s: torch.randn(*s, generator=gen,  # noqa: E731
+                               device="cuda")
+    r, k, v = f(N, T, H, dh), f(N, T, H, dh), f(N, T, H, dh)
+    if strong:
+        log_w = -torch.exp((3 * f(N, T, H, dh)).clamp(-20, 4))
+    else:
+        log_w = -torch.exp(f(N, T, H, dh).clamp(-3, 2))  # strong + weak
+    valid = (torch.arange(T, device="cuda") < n_tok)[None, :, None, None]
+    k = torch.where(valid, k, 0.0)
+    log_w = torch.where(valid, log_w, 0.0)
+    u = f(K, H, dh) * 0.3                     # a u per member
+    pool = f(K, count, 4, H, dh, dh) * (0.1 if warm else 0.0)
+    return r, k, v, log_w, u, pool, pool[:, 1].narrow(1, 0, B)
 
 
 def wkv_bound(N, T, H, dh, K):
@@ -491,26 +523,18 @@ def phase10(torch, flush, card):
     from repro_torch.kernels import wkv6 as wk
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
-    H, dh, count = 64, 64, 2
+    H, dh = WKV_HEADS["H"], WKV_HEADS["dh"]
     rows = {}
-    for name, (K, B, T, n_tok, warm) in WKV_CASES.items():
+    for name, (K, B, T, n_tok, warm, strong) in WKV_CASES.items():
         N = K * B
-        f = lambda *s: torch.randn(*s, generator=gen,  # noqa: E731
-                                   device="cuda")
-        r, k, v = f(N, T, H, dh), f(N, T, H, dh), f(N, T, H, dh)
-        log_w = -torch.exp(f(N, T, H, dh).clamp(-3, 2))  # strong + weak
-        valid = (torch.arange(T, device="cuda") < n_tok)[None, :, None, None]
-        k = torch.where(valid, k, 0.0)
-        log_w = torch.where(valid, log_w, 0.0)
-        u = f(K, H, dh) * 0.3                     # a u per member
-        # the state as one layer's view of a cache pool, (K, count, B,
-        # ...)[:, 1], narrowed to the slot for one-slot rows
-        pool = f(K, count, 4, H, dh, dh) * (0.1 if warm else 0.0)
-        state = pool[:, 1].narrow(1, 0, B)
+        r, k, v, log_w, u, pool, state = wkv_inputs(
+            torch, gen, K, B, T, n_tok, warm, strong, H, dh)
         s0 = state.reshape(N, H, dh, dh).clone()
         want_y, want_s = ref.wkv6(r, k, v, log_w, u, s0)
+        n0 = wk.wkv6.launches
         y = wk.wkv6(r, k, v, log_w, u, state)
         torch.cuda.synchronize()
+        per_call, plan = wk.wkv6.launches - n0, wk.plan()
         got_s = state.reshape(N, H, dh, dh)
         for a, b in ((y, want_y), (got_s, want_s)):
             if not torch.isfinite(a).all():
@@ -526,9 +550,13 @@ def phase10(torch, flush, card):
         bound_ms, bound_by = wkv_bound(N, T, H, dh, K)
         row = {"phase": 10, "card": card, "kernel": "wkv6", "case": name,
                "N": N, "K": K, "T": T, "n_tok": n_tok, "H": H, "dh": dh,
-               "nonzero_s0": warm, "max_abs_err": err, "tol": WKV_TOL,
+               "nonzero_s0": warm, "min_log_w": log_w.min().item(),
+               "max_abs_err": err, "tol": WKV_TOL,
                "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-               "bound_ms": bound_ms, "bound_by": bound_by}
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "path": plan["path"], "blocks": plan["blocks"],
+               "threads": plan["threads"], "chunk": plan["chunk"],
+               "col_tile": plan["col_tile"], "launches_per_call": per_call}
         emit(row)
         rows[name] = row
         del r, k, v, log_w, u, pool, state, s0, y, want_y, want_s
@@ -548,6 +576,21 @@ SCAN_CASES = {
     "apply_2048": (2, 1, 2048, False),
 }
 SCAN_TOL = dict(atol=1e-5, rtol=1e-5)   # tests/test_kernels.py's
+SCAN_DIMS = dict(D=8192, Ns=16)         # jamba
+
+
+def scan_inputs(torch, gen, K, B, T, warm, D=8192, Ns=16, count=2):
+    """Phase 11's inputs for one case: a = exp(-|x|), small b (K*B, T, D,
+    Ns), the pool (K, count, 4, D, Ns) and the state, one Mamba layer's
+    view of it, (K, count, ...)[:, 1], narrowed to the slot for one-slot
+    rows."""
+    N = K * B
+    f = lambda *s: torch.randn(*s, generator=gen,  # noqa: E731
+                               device="cuda")
+    a = torch.exp(-f(N, T, D, Ns).abs())
+    b = f(N, T, D, Ns) * 0.2
+    pool = f(K, count, 4, D, Ns) * (0.1 if warm else 0.0)
+    return a, b, pool, pool[:, 1].narrow(1, 0, B)
 
 
 def scan_bound(N, T, D, Ns):
@@ -566,22 +609,17 @@ def phase11(torch, flush, card):
     from repro_torch.kernels import ssm_scan as ssk
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
-    D, Ns, count = 8192, 16, 2
+    D, Ns = SCAN_DIMS["D"], SCAN_DIMS["Ns"]
     rows = {}
     for name, (K, B, T, warm) in SCAN_CASES.items():
         N = K * B
-        f = lambda *s: torch.randn(*s, generator=gen,  # noqa: E731
-                                   device="cuda")
-        a = torch.exp(-f(N, T, D, Ns).abs())
-        b = f(N, T, D, Ns) * 0.2
-        # the state as one Mamba layer's view of a cache pool, (K, count,
-        # 4, D, Ns)[:, 1], narrowed to the slot for one-slot rows
-        pool = f(K, count, 4, D, Ns) * (0.1 if warm else 0.0)
-        state = pool[:, 1].narrow(1, 0, B)
+        a, b, pool, state = scan_inputs(torch, gen, K, B, T, warm, D, Ns)
         h0 = state.reshape(N, D, Ns).clone()
         want_hs, want_h = ref.ssm_scan(a, b, h0)
+        n0 = ssk.ssm_scan.launches
         hs = ssk.ssm_scan(a, b, state)
         torch.cuda.synchronize()
+        per_call, plan = ssk.ssm_scan.launches - n0, ssk.plan()
         got_h = state.reshape(N, D, Ns)
         for x, y in ((hs, want_hs), (got_h, want_h)):
             if not torch.isfinite(x).all():
@@ -600,7 +638,10 @@ def phase11(torch, flush, card):
                "max_abs_err": err, "tol": SCAN_TOL, "ms": ms,
                "plain_ms": plain_ms, "library_ms": None,
                "bound_ms": bound_ms, "bound_by": bound_by,
-               "gb_per_s": 4 * (3 * N * T + 2 * N) * D * Ns / ms / 1e6}
+               "gb_per_s": 4 * (3 * N * T + 2 * N) * D * Ns / ms / 1e6,
+               "small_t_path": plan["small_t"], "blocks": plan["blocks"],
+               "threads": plan["threads"], "ahead": plan["ahead"],
+               "launches_per_call": per_call}
         emit(row)
         rows[name] = row
         del a, b, pool, state, h0, want_h
@@ -647,8 +688,8 @@ SERVE = dict(slots=4, max_prompt=512, max_out=64, page=16,
              prompt_lens=[300, 377, 451, 512], new_tokens=32)
 # kernel wrapper -> the symbol of its kernel in a profile
 SYMBOL = {"paged_attention": "paged_kernel",
-          "flash_attention": "flash_kernel", "wkv6": "wkv6_kernel",
-          "ssm_scan": "ssm_scan_kernel"}
+          "flash_attention": "flash_kernel", "wkv6": "wkv6_",
+          "ssm_scan": "ssm_scan_"}
 
 
 def serve_phase(torch, np, card, arch: str, phase: int, members: int = 4,
@@ -766,6 +807,19 @@ def serve_phase(torch, np, card, arch: str, phase: int, members: int = 4,
                          used)
     admit()
     pre = profile_steps(torch, prefill_all, 1, used)
+    # each kernel's device time per launch in situ (inputs just written,
+    # in L2): a decode step launches it once per layer that runs it, the
+    # prefill once per layer and call (ssm_scan: and 128-token piece)
+    per_step = {"paged_attention": n_paged, "flash_attention": 0,
+                "wkv6": n_rwkv, "ssm_scan": n_mamba}
+    per_prefill = {"paged_attention": 0, "flash_attention": n_attn * calls,
+                   "wkv6": n_rwkv * calls,
+                   "ssm_scan": n_mamba * pieces * calls}
+    per_launch = {k: {"decode": prof["name_ms"][SYMBOL[k]] / per_step[k]
+                      if per_step[k] else None,
+                      "prefill": pre["name_ms"][SYMBOL[k]] / per_prefill[k]
+                      if per_prefill[k] else None}
+                  for k, n in expected.items() if n}
     emit({"phase": phase, "card": card, "arch": cfg.name, "dtype": cfg.dtype,
           "members": K, "n_layers": cfg.n_layers, "slots": SERVE["slots"],
           "prompt_lens": plens,
@@ -786,6 +840,7 @@ def serve_phase(torch, np, card, arch: str, phase: int, members: int = 4,
           "device_idle_share": 1.0 - prof["busy_ms"] * (n_new - 1)
                                / (decode_s * 1e3),
           "kernel_ms_per_step": prof["name_ms"],
+          "kernel_ms_per_launch": per_launch,
           "top_kernels_ms_per_step": prof["top"],
           "sample": outs[0][:8].tolist()})
     del eng, params

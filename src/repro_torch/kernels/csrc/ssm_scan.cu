@@ -30,7 +30,18 @@
 //     (they do not depend on h): 128 bytes in flight per thread, with
 //     registers capped for three 256-thread blocks on each SM;
 //   - the grid covers N * D * Ns / 4 threads: 262k at decode, 65k at a
-//     prefill chunk; T is not split.
+//     prefill chunk; T is not split;
+//   - short T (decode is T = 1; below kSmallT = 8) has its own variant:
+//     the look-ahead arrays buy nothing there, and their registers held
+//     the long-T kernel to three blocks an SM, so the decode's 262k
+//     threads ran in about 2.6 waves with 48 bytes in flight each.  The
+//     variant walks T one step at a time with 32-bit indexing and
+//     registers capped for eight blocks an SM (the whole SM's threads),
+//     so a decode step runs in one wave with all of a, b and h0 in
+//     flight at once.  It does not replace the long-T kernel: with one
+//     step of a and b in flight a thread instead of four, it is 7-10%
+//     slower at a prefill chunk and at T 2048 (PERF.md).  kSmallT is
+//     where the two tie at the decode shape.
 // The TPU kernel's VMEM chunking and padding of T are not carried over:
 // the time loop inside a thread takes the place of its sequential grid
 // axis, and the thread masks its own ragged end of T.
@@ -40,7 +51,9 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBlocksPerSM = 3;
+constexpr int kSmallT = 8;            // T below this takes the short-T kernel
+constexpr int kBlocksPerSM = 3;       // T >= kSmallT
+constexpr int kSmallBlocksPerSM = 8;  // T < kSmallT: 2048 threads an SM
 
 template <int V>
 struct Vec;
@@ -106,17 +119,66 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) ssm_scan_kernel(
   *h_out = h;
 }
 
+// The short-T variant: the same recurrence one step at a time, with
+// 32-bit indexing (n_vec < 2^31) so that it fits the 32 registers of
+// eight blocks an SM.
+template <int V>
+__global__ void __launch_bounds__(kThreads, kSmallBlocksPerSM)
+    ssm_scan_small_kernel(const float* __restrict__ a,
+                          const float* __restrict__ b, const float* h0,
+                          float* hT, float* __restrict__ hs, int n_vec, int B,
+                          int T, int row_vecs, long long h0_k, long long h0_b,
+                          long long hT_k, long long hT_b) {
+  using V_ = Vec<V>;
+  using vec = typename V_::T;
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  if (e >= n_vec) return;
+  const int n = e / row_vecs, j = e - n * row_vecs;
+  const int member = n / B, slot = n - member * B;
+  const vec h_in = *(reinterpret_cast<const vec*>(h0 + member * h0_k +
+                                                  slot * h0_b) + j);
+  const long long base = static_cast<long long>(n) * T * row_vecs + j;
+  const vec* av = reinterpret_cast<const vec*>(a) + base;
+  const vec* bv = reinterpret_cast<const vec*>(b) + base;
+  vec* hv = reinterpret_cast<vec*>(hs) + base;
+  vec h = h_in;
+#pragma unroll 1
+  for (int t = 0; t < T; ++t) {
+    const long long off = static_cast<long long>(t) * row_vecs;
+    h = V_::fma(av[off], h, bv[off]);
+    hv[off] = h;
+  }
+  *(reinterpret_cast<vec*>(hT + member * hT_k + slot * hT_b) + j) = h;
+}
+
+// plan: {small-T variant (1) or not (0), blocks, threads, floats a
+// vector, steps loaded ahead}
+constexpr int kPlanInts = 5;
+
 template <int V>
 cudaError_t launch(const float* a, const float* b, const float* h0,
                    float* hT, float* hs, int K, int B, int T, int D, int Ns,
                    long long h0_k, long long h0_b, long long hT_k,
-                   long long hT_b, cudaStream_t stream) {
+                   long long hT_b, int* plan, cudaStream_t stream) {
   const int row_vecs = D * Ns / V;
   const long long n_vec = static_cast<long long>(K) * B * row_vecs;
   const long long blocks = (n_vec + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  ssm_scan_kernel<V><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      a, b, h0, hT, hs, n_vec, B, T, row_vecs, h0_k, h0_b, hT_k, hT_b);
+  const bool small = T < kSmallT && n_vec <= 0x7fffffffLL;
+  if (plan) {
+    const int p[kPlanInts] = {small ? 1 : 0, static_cast<int>(blocks),
+                              kThreads, V, small ? 1 : 16 / V};
+    for (int i = 0; i < kPlanInts; ++i) plan[i] = p[i];
+  }
+  if (small)
+    ssm_scan_small_kernel<V>
+        <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+            a, b, h0, hT, hs, static_cast<int>(n_vec), B, T, row_vecs, h0_k,
+            h0_b, hT_k, hT_b);
+  else
+    ssm_scan_kernel<V><<<static_cast<unsigned>(blocks), kThreads, 0,
+                         stream>>>(a, b, h0, hT, hs, n_vec, B, T, row_vecs,
+                                   h0_k, h0_b, hT_k, hT_b);
   return cudaGetLastError();
 }
 
@@ -128,12 +190,14 @@ bool aligned16(const void* p) {
 
 // Launches on `stream`; returns cudaGetLastError() (0 = launched).
 // Strides are in floats.  Takes the 16-byte path when every pointer is
-// 16-byte aligned and D * Ns and the state's strides are multiples of 4.
+// 16-byte aligned and D * Ns and the state's strides are multiples of 4,
+// and the small-T variant when T < kSmallT.  `plan`, if not null,
+// receives kPlanInts ints describing the launch.
 extern "C" int ssm_scan_launch(const float* a, const float* b,
                                const float* h0, float* hT, float* hs, int K,
                                int B, int T, int D, int Ns, long long h0_k,
                                long long h0_b, long long hT_k,
-                               long long hT_b, void* stream) {
+                               long long hT_b, int* plan, void* stream) {
   if (K <= 0 || B <= 0 || T <= 0 || D <= 0 || Ns <= 0 ||
       static_cast<long long>(D) * Ns > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -144,8 +208,8 @@ extern "C" int ssm_scan_launch(const float* a, const float* b,
                     aligned16(h0) && aligned16(hT) && aligned16(hs);
   cudaError_t e =
       vec4 ? launch<4>(a, b, h0, hT, hs, K, B, T, D, Ns, h0_k, h0_b, hT_k,
-                       hT_b, s)
+                       hT_b, plan, s)
            : launch<1>(a, b, h0, hT, hs, K, B, T, D, Ns, h0_k, h0_b, hT_k,
-                       hT_b, s);
+                       hT_b, plan, s);
   return static_cast<int>(e);
 }

@@ -304,6 +304,87 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y, S
 
 
+def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 log_w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
+                 chunk: int = 16, sub: int = 8
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of the chunked wkv6 kernel (for tests): ref.wkv6's
+    contract and result, computed as csrc/wkv6.cu computes it.
+
+    T is cut into chunks of `chunk` tokens (the last padded with r = k =
+    v = log_w = 0, which are state no-ops), each chunk into sub-blocks of
+    `sub`.  With w = exp(log_w) <= 1 the decay between two tokens is a
+    product of w's, so nothing overflows whatever the decays: with m[s]
+    the sum of log_w before sub-block s, the factors exp(la_p[t] - m[s])
+    and exp(m[s+1] - la[j]) through the sub-block's ends are the
+    products of w inside it before t and after j:
+      Q[t]  = r[t] prod_{s0 <= q < t} w[q]      Rin[t] = Q[t] E[s(t)]
+      Kf[j] = k[j] prod_{j < q < s0 + sub} w[q]  (s0: the sub-block's
+      G[s]  = prod of w over sub-block s          first token)
+      E[s]  = G[0] ... G[s - 1]                  (E[0] = 1)
+      A[t, j] = Q[t] . (G[s(j)+1] ... G[s(t)-1] Kf[j])    s(j) < s(t)
+      A[t, j] = sum_i r[t] k[j] prod_{j < q < t} w[q]     j < t, one
+                sub-block (the diagonal blocks' pairwise decays)
+      A[t, t] = r[t] . (u k[t])                           (the bonus)
+      y  = A v + Rin S
+      S <- (... (S G[0] + Kf[b0]ᵀ v[b0]) G[1] + ...) + Kf[bl]ᵀ v[bl]
+    (b0 ... bl the sub-blocks).  -> (y (N, T, H, dh), s_T (N, H, dh,
+    dh))."""
+    N, T, H, dh = r.shape
+    if chunk % sub:
+        raise ValueError(f"chunk {chunk} is not a multiple of sub {sub}")
+    uf = u.float().reshape(-1, H, dh)
+    uf = uf.repeat_interleave(N // uf.shape[0], dim=0)      # (N, H, dh)
+    nc = -(-T // chunk)
+    pad = nc * chunk - T
+
+    def heads(x):       # (N, T, H, dh) -> (N, H, nc, chunk, dh), f32
+        x = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, pad))
+        return x.reshape(N, nc, chunk, H, dh).permute(0, 3, 1, 2, 4)
+
+    rc, kc, vc, lwc = map(heads, (r, k, v, log_w))
+    ns = chunk // sub
+    S = s0.float().clone()                                   # (N, H, dh, dh)
+    ys = []
+    for c in range(nc):
+        rb, kb, vb = rc[:, :, c], kc[:, :, c], vc[:, :, c]
+        w = torch.exp(lwc[:, :, c]).reshape(N, H, ns, sub, dh)
+        one = torch.ones_like(w[:, :, :, :1])
+        pre = torch.cumprod(torch.cat([one, w[:, :, :, :-1]], 3), 3)
+        suf = torch.cumprod(torch.cat([one, w.flip(3)[:, :, :, :-1]], 3),
+                            3).flip(3)
+        G = pre[:, :, :, -1] * w[:, :, :, -1]               # (N, H, ns, dh)
+        E = torch.cumprod(torch.cat([one[:, :, :1, 0], G[:, :, :-1]], 2), 2)
+        Q = rb * pre.reshape(rb.shape)
+        Rin = Q * E.repeat_interleave(sub, 2)
+        Kf = kb * suf.reshape(kb.shape)
+        w = w.reshape(rb.shape)
+        A = rb.new_zeros(N, H, chunk, chunk)
+        for tb in range(ns):
+            rows = slice(tb * sub, (tb + 1) * sub)
+            for b in range(tb):
+                cols = slice(b * sub, (b + 1) * sub)
+                cf = torch.prod(G[:, :, b + 1:tb], 2)[:, :, None]
+                A[:, :, rows, cols] = torch.einsum(
+                    "nhtd,nhjd->nhtj", Q[:, :, rows], Kf[:, :, cols] * cf)
+            for t in range(tb * sub, (tb + 1) * sub):
+                A[:, :, t, t] = (rb[:, :, t] * uf * kb[:, :, t]).sum(-1)
+                g = rb[:, :, t]
+                for j in range(t - 1, tb * sub - 1, -1):
+                    A[:, :, t, j] = (g * kb[:, :, j]).sum(-1)
+                    g = g * w[:, :, j]
+        ys.append(torch.einsum("nhtj,nhjv->nhtv", A, vb)
+                  + torch.einsum("nhtk,nhkv->nhtv", Rin, S))
+        for s in range(ns):
+            cols = slice(s * sub, (s + 1) * sub)
+            S = S * G[:, :, s, :, None] + torch.einsum(
+                "nhjk,nhjv->nhkv", Kf[:, :, cols], vb[:, :, cols])
+    if not ys:
+        return r.new_zeros(N, 0, H, dh), S
+    y = torch.stack(ys, 2).reshape(N, H, nc * chunk, dh)[:, :, :T]
+    return y.permute(0, 2, 1, 3), S
+
+
 def ssm_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mamba selective scan h_t = a_t * h_{t-1} + b_t, sequential (the

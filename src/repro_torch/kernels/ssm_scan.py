@@ -10,8 +10,9 @@ place through its (member, slot) strides, so a Mamba layer's view of
 the serving cache pool needs no copy.  CPU tensors are kernels/ops.py's
 business (it routes them to kernels/ref.py).
 
-`ssm_scan.launches` counts launches: the Mamba path's use of the kernel
-is proven by reading it around a run.
+`ssm_scan.launches` counts launches (one a call): the Mamba path's use
+of the kernel is proven by reading it around a run.  `plan()` describes
+the last launch.
 """
 from __future__ import annotations
 
@@ -22,7 +23,10 @@ import torch
 
 from repro_torch.kernels import build
 
+PLAN_KEYS = ("small_t", "blocks", "threads", "floats_a_thread", "ahead")
+
 _lib: Optional[ctypes.CDLL] = None
+_plan = (ctypes.c_int * len(PLAN_KEYS))()
 
 
 def _library() -> ctypes.CDLL:
@@ -30,10 +34,20 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = build.load("ssm_scan")
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.ssm_scan_launch.argtypes = [P] * 5 + [I] * 5 + [L] * 4 + [P]
+        lib.ssm_scan_launch.argtypes = ([P] * 5 + [I] * 5 + [L] * 4
+                                        + [ctypes.POINTER(I), P])
         lib.ssm_scan_launch.restype = I
         _lib = lib
     return _lib
+
+
+def plan() -> dict:
+    """The last launch: whether it took the small-T variant (T below 8),
+    blocks, threads a block, floats a thread holds (4: 16-byte accesses), and
+    steps of a and b loaded ahead of use."""
+    out = dict(zip(PLAN_KEYS, _plan))
+    out["small_t"] = bool(out["small_t"])
+    return out
 
 
 def _check(name: str, x: torch.Tensor, device, shape) -> None:
@@ -83,7 +97,7 @@ def ssm_scan(a: torch.Tensor, b: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ssm_scan_launch(
             a.data_ptr(), b.data_ptr(), state.data_ptr(), state.data_ptr(),
-            hs.data_ptr(), K, B, T, D, Ns, sk, sb, sk, sb, stream)
+            hs.data_ptr(), K, B, T, D, Ns, sk, sb, sk, sb, _plan, stream)
     if err != 0:
         raise RuntimeError(f"ssm_scan launch failed: CUDA error {err}")
     ssm_scan.launches += 1

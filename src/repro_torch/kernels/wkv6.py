@@ -2,15 +2,18 @@
 
 The kernel (csrc/wkv6.cu) replaces the Pallas TPU kernel of the JAX
 package's `wkv6`; its source note says what bounds it and how it is
-laid out.  This wrapper takes CUDA tensors only: it checks device,
-dtype, shape and layout, allocates the output, launches on the current
-stream and raises if the launch is refused.  The state is updated in
+laid out: chunks of tokens computed at once, the value columns split
+across blocks, and a kernel of its own for the T = 1 decode step.  This
+wrapper takes CUDA tensors only: it checks device, dtype, shape and
+layout, allocates the output, launches on the current stream and raises
+if the launch is refused.  The state is updated in
 place through its (member, slot) strides, so a layer's view of the
 serving cache pool needs no copy.  CPU tensors are kernels/ops.py's
 business (it routes them to kernels/ref.py).
 
-`wkv6.launches` counts launches: the rwkv path's use of the kernel is
-proven by reading it around a run.
+`wkv6.launches` counts launches (one a call): the rwkv path's use of the
+kernel is proven by reading it around a run.  `plan()` describes the
+last launch.
 """
 from __future__ import annotations
 
@@ -22,8 +25,13 @@ import torch
 from repro_torch.kernels import build
 
 MAX_HEAD_DIM = 128
+CHUNK, SUB = 16, 8     # the kernel's chunk and sub-block (ref.wkv6_chunked)
+PLAN_KEYS = ("path", "blocks", "threads", "chunk", "col_tile", "smem_bytes",
+             "vec16")
+PATHS = ("step", "chunked")
 
 _lib: Optional[ctypes.CDLL] = None
+_plan = (ctypes.c_int * len(PLAN_KEYS))()
 
 
 def _library() -> ctypes.CDLL:
@@ -31,10 +39,22 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = build.load("wkv6")
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.wkv6_launch.argtypes = [P] * 8 + [I] * 5 + [L] * 4 + [P]
+        lib.wkv6_launch.argtypes = ([P] * 8 + [I] * 5 + [L] * 4
+                                    + [ctypes.POINTER(I), P])
         lib.wkv6_launch.restype = I
         _lib = lib
     return _lib
+
+
+def plan() -> dict:
+    """The last launch: path ("step" at T = 1, else "chunked"), blocks,
+    threads a block, chunk (0 on the step path), value-column tile (64
+    at dh 33-64 on the 16-byte path, 32 below it or on the 4-byte path,
+    16 above dh 64; 0 on the step path), dynamic shared bytes, and whether it took 16-byte accesses."""
+    out = dict(zip(PLAN_KEYS, _plan))
+    out["path"] = PATHS[out["path"]]
+    out["vec16"] = bool(out["vec16"])
+    return out
 
 
 def _check(name: str, x: torch.Tensor, device, shape) -> None:
@@ -92,7 +112,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.wkv6_launch(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
             u.data_ptr(), state.data_ptr(), state.data_ptr(), y.data_ptr(),
-            K, B, T, H, dh, sk, sb, sk, sb, stream)
+            K, B, T, H, dh, sk, sb, sk, sb, _plan, stream)
     if err != 0:
         raise RuntimeError(f"wkv6 launch failed: CUDA error {err}")
     wkv6.launches += 1

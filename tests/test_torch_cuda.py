@@ -2,9 +2,10 @@
 
 The hand-written CUDA kernels (paged attention; flash attention; the
 fused distillation loss, forward and backward; the rwkv6 wkv
-recurrence; Mamba's selective scan) against their plain PyTorch
-versions in every option, their input checks, and the engine and the
-trainer on the card against the CPU.  Each test skips where there is no CUDA device.
+recurrence, chunked and single-step; Mamba's selective scan, short-T
+and long-T) against their plain PyTorch versions in every option, their
+input checks, and the engine and the trainer on the card against the
+CPU.  Each test skips where there is no CUDA device.
 No JAX import, so the file runs on a machine without JAX:
 
     python -m pytest tests/test_torch_cuda.py -q
@@ -511,6 +512,100 @@ def test_wkv6_kernel_matches_plain_version(cuda, dh, T):
     assert torch.equal(pool, before)
 
 
+def strong_decay(log_w, seed=1):
+    """log_w as the models clamp it, -exp(clip(x, -20, 4)), x drawn wide
+    enough that some tokens decay by e^-54.6."""
+    g = torch.Generator(device=log_w.device)
+    g.manual_seed(seed)
+    x = 3 * torch.randn(log_w.shape, generator=g, device=log_w.device)
+    return -torch.exp(x.clamp(-20, 4))
+
+
+def check_wkv6(cuda, K, B, T, H, dh, seed=0, n_valid=None, strong=True):
+    """One kernel call on a strided state view against ref.wkv6; nothing
+    outside the view moves.  -> the launch's plan."""
+    r, k, v, log_w, u, pool, state = wkv_case(cuda, K, B, T, H, dh, seed)
+    if strong:
+        log_w = strong_decay(log_w, seed + 1)
+    if n_valid is not None:   # masked as rwkv_prefill masks them
+        valid = (torch.arange(T, device=cuda) < n_valid)[None, :, None, None]
+        k = torch.where(valid, k, 0.0)
+        log_w = torch.where(valid, log_w, 0.0)
+    before = pool.clone()
+    s0 = state.reshape(K * B, H, dh, dh).clone()
+    want_y, want_s = ref.wkv6(r, k, v, log_w, u, s0)
+    n0 = wk.wkv6.launches
+    y = wk.wkv6(r, k, v, log_w, u, state)
+    torch.cuda.synchronize()
+    assert wk.wkv6.launches == n0 + 1
+    assert torch.isfinite(y).all()
+    torch.testing.assert_close(y, want_y, **WKV_TOL)
+    torch.testing.assert_close(state.reshape(K * B, H, dh, dh), want_s,
+                               **WKV_TOL)
+    if n_valid is not None:
+        _, s_valid = ref.wkv6(r[:, :n_valid], k[:, :n_valid],
+                              v[:, :n_valid], log_w[:, :n_valid], u, s0)
+        torch.testing.assert_close(state.reshape(K * B, H, dh, dh), s_valid,
+                                   **WKV_TOL)
+    pool[:, 1, 1:B + 1] = before[:, 1, 1:B + 1]
+    assert torch.equal(pool, before)
+    return wk.plan()
+
+
+@pytest.mark.parametrize("T", [1, 16, 17, 37, 128, 300])
+@pytest.mark.parametrize("dh", [8, 32, 64, 100, 128])
+def test_wkv6_kernel_with_strong_decay(cuda, dh, T):
+    """Decays down to -e^4 a token, where a separable factorisation of
+    the chunk's decays would overflow; the step path at T = 1, the
+    chunked path (16-token chunks, a ragged last one) above."""
+    p = check_wkv6(cuda, 2, 2, T, 3, dh)
+    assert p["path"] == ("step" if T == 1 else "chunked")
+    if T > 1:
+        assert p["chunk"] == wk.CHUNK
+        assert p["blocks"] == 2 * 2 * 3 * -(-dh // p["col_tile"])
+
+
+def test_wkv6_kernel_masked_tail(cuda):
+    """A prefill chunk's ragged tail: y at every position, and s_T the
+    state after the valid tokens alone."""
+    check_wkv6(cuda, 4, 1, 128, 4, 64, n_valid=44)
+
+
+@pytest.mark.parametrize("T", [1, 37])
+@pytest.mark.parametrize("dh", [7, 30, 101])
+def test_wkv6_kernel_four_byte_path(cuda, dh, T):
+    """dh not a multiple of 4: both paths' 4-byte variants, in each dh
+    bucket."""
+    p = check_wkv6(cuda, 2, 2, T, 3, dh)
+    assert not p["vec16"]
+
+
+@pytest.mark.parametrize("T", [1, 37])
+def test_wkv6_kernel_state_in_place_or_not(cuda, T):
+    """s0 aliasing s_T (the wrapper's in-place update) and separate s0
+    and s_T buffers give the same y and s_T, and s0 is left as it was in
+    the second."""
+    K, B, H, dh = 2, 2, 3, 64
+    r, k, v, log_w, u, pool, state = wkv_case(cuda, K, B, T, H, dh)
+    log_w = strong_decay(log_w)
+    s0 = state.clone()
+    y_in = wk.wkv6(r, k, v, log_w, u, state)
+    s_out = torch.full_like(s0, float("nan"))
+    s0_copy = s0.clone()
+    y = torch.empty_like(r)
+    lib = wk._library()
+    err = lib.wkv6_launch(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
+        u.data_ptr(), s0.data_ptr(), s_out.data_ptr(), y.data_ptr(), K, B,
+        T, H, dh, *s0.stride()[:2], *s_out.stride()[:2], None,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(y, y_in)
+    assert torch.equal(s_out, state)
+    assert torch.equal(s0, s0_copy)
+
+
 def test_wkv6_kernel_checks_its_inputs(cuda):
     r, k, v, log_w, u, pool, state = wkv_case(cuda, 2, 2, 5, 2, 16)
     args = dict(r=r, k=k, v=v, log_w=log_w, u=u, state=state)
@@ -586,6 +681,37 @@ def test_ssm_scan_kernel_matches_plain_version(cuda, D, Ns, T):
     # nothing outside the state view moved
     pool[:, 1, 1:B + 1] = before[:, 1, 1:B + 1]
     assert torch.equal(pool, before)
+
+
+@pytest.mark.parametrize("T", [1, 2, 7, 8, 15, 16])
+@pytest.mark.parametrize("D,Ns", [(64, 16), (37, 3)])
+def test_ssm_scan_small_t_variant_beside_the_long_one(cuda, D, Ns, T):
+    """T below 8 takes the small-T variant, T from 8 the long-T kernel;
+    either matches the plain version, and T one-step launches (the
+    small-T variant) give bit for bit the hs and h_T of one launch over
+    the T steps."""
+    K, B = 2, 3
+    a, b, pool, state = scan_case(cuda, K, B, T, D, Ns, seed=T)
+    before = pool.clone()
+    h0 = state.clone()
+    want_hs, want_h = ref.ssm_scan(a, b, state.reshape(K * B, D, Ns))
+    hs = ssk.ssm_scan(a, b, state)
+    torch.cuda.synchronize()
+    assert ssk.plan()["small_t"] == (T < 8)
+    torch.testing.assert_close(hs, want_hs, **SCAN_TOL)
+    torch.testing.assert_close(state.reshape(K * B, D, Ns), want_h,
+                               **SCAN_TOL)
+    h_T = state.clone()
+    pool[:, 1, 1:B + 1] = before[:, 1, 1:B + 1]
+    assert torch.equal(pool, before)
+    steps = []
+    for t in range(T):
+        steps.append(ssk.ssm_scan(a[:, t:t + 1].contiguous(),
+                                  b[:, t:t + 1].contiguous(), h0))
+        assert ssk.plan()["small_t"]
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(steps, 1), hs)
+    assert torch.equal(h0, h_T)
 
 
 def test_ssm_scan_kernel_checks_its_inputs(cuda):
