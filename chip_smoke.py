@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, one JSON line each, in the order 0, 1, 7, 10, 11, 2, 8, 9, 12,
-3, 4, 5, 6:
+13, 3, 4, 5, 6:
   0  the card's name and power limit; build every CUDA kernel from
      src/repro_torch/kernels/csrc (one nvcc per source, all at once);
      every kernel function's registers and spills (ptxas) and each
@@ -54,9 +54,27 @@ Phases, one JSON line each, in the order 0, 1, 7, 10, 11, 2, 8, 9, 12,
      attention per prefill call, wkv6 never; init below 60 GB.
      Phases 2, 8, 9 and 12 give each kernel's device time per launch in
      situ (profiler sum over launches, decode and prefill apart);
+ 13  continuous batching at full width: gemma3-1b in f32 (greedy
+     decisive), K=4, paged (page 16, every layer: max_prompt 448 +
+     max_out 64 = the local window), 4 slots over a pool cut to 3 slots
+     at full length (96 pages), 16 requests submitted at once in four
+     groups sharing a system prompt (256 tokens, page-aligned, or 200,
+     mid-page), served by Scheduler.run with the prefix cache off and
+     then on: every request completes, admission is FIFO, both runs
+     preempt, the prefix-on run hits and copies pages on write, the
+     pool is whole after each drain, the tokens are identical on and
+     off on every step whose top-2 fused log-prob margin clears 2e-5,
+     paged attention launches 26 times per decode step and flash
+     attention 26 times per prefill call; tok/s, TTFT and latency
+     percentiles, tick phases, and decode over shared pages (ms per
+     step, idle share, both kernels' time per launch in situ);
   3  the card against the CPU end to end on reduced gemma3-1b,
      deepseek-7b, rwkv6-7b and jamba-v0.1-52b at f32: identical greedy
-     tokens and allclose fused log-probs;
+     tokens and allclose fused log-probs; Scheduler.run gives identical
+     completions and preemptions on both (prefix cache on for gemma3-1b
+     and deepseek-7b, off with a pool that preempts for rwkv6-7b and
+     jamba), and engine.score agrees within 1e-4 and keeps the Jensen
+     bound;
   4  the fused distillation-loss kernels (forward and backward) against
      their plain version on the card: the NiN training path's shape, a
      262k bf16 vocab, and f32 with padded labels; times as in phase 1,
@@ -849,6 +867,235 @@ def serve_phase(torch, np, card, arch: str, phase: int, members: int = 4,
 
 
 # ---------------------------------------------------------------------------
+# phase 13: continuous batching at full width (gemma3-1b, f32)
+# ---------------------------------------------------------------------------
+
+# 4 slots, prompts up to 448 + 64 new = 512 = gemma3's local window, so
+# every layer pages and the prefix cache is allowed; the pool holds 3
+# slots at full length, so decode runs dry and the scheduler preempts
+CONT = dict(slots=4, max_prompt=448, max_out=64, page=16, chunk=128,
+            n_pages=96, margin=2e-5)
+
+
+def continuous_requests(np, vocab: int) -> list:
+    """16 greedy requests, submitted at once, in four groups of four that
+    share a system prompt: 256 tokens (page-aligned) in groups 0 and 2,
+    200 (mid-page: a hit copies the page on write) in groups 1 and 3;
+    then a distinct suffix of 32-192 tokens each, and max_new 16-64.
+    Round robin over the groups, so a request's group has been served
+    (and its prefix cached at release) by the time it is admitted."""
+    rng = np.random.default_rng(13)
+    sys_prompts = [rng.integers(0, vocab, n) for n in (256, 200, 256, 200)]
+    reqs = []
+    for _ in range(4):
+        for sp in sys_prompts:
+            suffix = rng.integers(0, vocab, int(rng.integers(32, 193)))
+            reqs.append((np.concatenate([sp, suffix]),
+                         int(rng.integers(16, 65))))
+    return reqs
+
+
+def fused_margins(torch, np, params, cfg, prompt, toks) -> "np.ndarray":
+    """Top-2 margin of the fused log-probs at each generated step, by a
+    full forward (transformer.apply) over prompt + tokens."""
+    from repro_torch.core import ensemble as ens
+    from repro_torch.models import transformer as tf
+    seq = torch.as_tensor(np.concatenate([prompt, toks[:-1]]),
+                          device="cuda")[None]
+    with torch.no_grad():
+        logits, _ = tf.apply(params, cfg, seq)
+        lp = ens.ensemble_log_probs(logits[:, 0, len(prompt) - 1:].float())
+        top = lp.topk(2, dim=-1).values
+    return (top[:, 0] - top[:, 1]).cpu().numpy()
+
+
+def phase13(torch, np, card) -> dict:
+    """Scheduler.run over a paged K = 4 EnsembleEngine of full-width
+    gemma3-1b in f32 (greedy decisive), prefix cache off and then on,
+    the same 16 requests each time.  Both runs complete every request,
+    admit in submission order and preempt; the prefix-on run hits and
+    copies on write; the pool is whole after each drain; the tokens are
+    identical on and off on every step whose top-2 fused log-prob margin
+    clears 2e-5 (the first fork, if any, must be below it); paged
+    attention launches 26 times per decode step and flash attention 26
+    times per prefill call.  -> the two kernels' launches over both
+    runs."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import client
+    from repro_torch.serving.engine import EnsembleEngine
+    from repro_torch.serving.scheduler import Scheduler
+    t_phase = time.perf_counter()
+    cfg = registry.get_config("gemma3-1b").with_(dtype="float32")
+    K = 4
+    t0 = time.perf_counter()
+    params = tf.init(cfg, seed=0, device="cuda", members=K)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    reqs = continuous_requests(np, cfg.vocab_size)
+    kw = dict(n_slots=CONT["slots"], max_prompt=CONT["max_prompt"],
+              max_out=CONT["max_out"], prefill_chunk=CONT["chunk"],
+              paged=True, page_size=CONT["page"], n_pages=CONT["n_pages"],
+              device="cuda")
+    n_paged = n_paged_layers(cfg, kw["max_prompt"] + kw["max_out"], tf)
+    n_attn = sum(count for count, specs in cfg.segments() for sp in specs
+                 if sp.mixer in ("attn", "attn_local"))
+    if n_paged != cfg.n_layers or n_attn != cfg.n_layers:
+        raise AssertionError(f"{n_paged} paged / {n_attn} attention layers"
+                             f" of {cfg.n_layers}")
+    kernels = {"paged_attention": pa.paged_attention,
+               "flash_attention": fa.flash_attention}
+    runs, totals = {}, {k: 0 for k in kernels}
+    for on in (False, True):
+        eng = EnsembleEngine(cfg, params, prefix_cache=on, **kw)
+        if not on:      # warm-up (cuBLAS, kernels); the trie stays empty
+            eng.generate([reqs[0][0]], max_new=2)
+            eng.update_slots(release=range(eng.n_slots))
+        sched = Scheduler(eng)
+        rids = [sched.submit(t, m) for t, m in reqs]
+        steps0, prefills0 = eng.steps_run, eng.prefills_run
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        comps = sched.run()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        steps = eng.steps_run - steps0
+        prefills = eng.prefills_run - prefills0
+        want = {"paged_attention": n_paged * steps,
+                "flash_attention": n_attn * prefills}
+        if launches != want:
+            raise AssertionError(f"prefix_cache={on}: launches {launches}, "
+                                 f"expected {n_paged} x {steps} decode steps"
+                                 f" and {n_attn} x {prefills} prefill calls")
+        for k in kernels:
+            totals[k] += launches[k]
+        if set(comps) != set(rids):
+            raise AssertionError(f"prefix_cache={on}: {len(comps)} of "
+                                 f"{len(rids)} requests completed")
+        for r, (_, m) in zip(rids, reqs):
+            t = comps[r].tokens
+            if len(t) != m or t.min() < 0 or t.max() >= cfg.vocab_size:
+                raise AssertionError(f"bad completion {r}: {t}")
+        # admission is FIFO: first admissions in submission order
+        first = [sched.obs.traces.get(r) for r in rids]
+        first = [tr.t0 + tr.first_t("admitted") for tr in first]
+        if first != sorted(first):
+            raise AssertionError(f"prefix_cache={on}: admissions out of "
+                                 f"submission order")
+        eng.assert_pool_whole()
+        report = client.build_report(comps, wall, eng, sched=sched)
+        runs[on] = dict(eng=eng, sched=sched, rids=rids, comps=comps,
+                        report=report, steps=steps, prefills=prefills,
+                        launches=launches)
+    off, on = runs[False], runs[True]
+    ps = on["report"]["page_stats"]
+    if off["sched"].preemptions == 0 or on["sched"].preemptions == 0:
+        raise AssertionError(f"no preemption: off "
+                             f"{off['sched'].preemptions}, on "
+                             f"{on['sched'].preemptions}")
+    if ps["prefix_hits"] == 0 or ps["cow_pages"] == 0:
+        raise AssertionError(f"prefix cache unused: {ps}")
+    # tokens on against off under the margin rule
+    below, compared, forks = 0, 0, []
+    for (prompt, _), a, b in zip(reqs, off["rids"], on["rids"]):
+        t_off, t_on = off["comps"][a].tokens, on["comps"][b].tokens
+        margins = fused_margins(torch, np, params, cfg, prompt, t_off)
+        below += int((margins < CONT["margin"]).sum())
+        diff = np.nonzero(t_off != t_on)[0]
+        n = int(diff[0]) if diff.size else len(t_off)
+        compared += n
+        if diff.size:
+            forks.append({"rid": int(a), "step": n,
+                          "margin": float(margins[n])})
+            if margins[n] >= CONT["margin"]:
+                raise AssertionError(
+                    f"request {a}: on/off tokens fork at step {n} where "
+                    f"the fused margin is {margins[n]:.3g} >= "
+                    f"{CONT['margin']}")
+    # decode over shared pages and a mid-page prefill, timed and profiled:
+    # group 1's system prompt (200 tokens) is cached; four requests of it
+    eng = on["eng"]
+    group1 = [reqs[i][0] for i in (1, 5, 9, 13)]
+    hits = eng.update_slots(admits=[(i, p, 32) for i, p in enumerate(group1)])
+    shared_pages = eng.allocator.shared_pages
+    n_calls = sum(-(-(len(p) - hits[i]) // eng.prefill_chunk)
+                  for i, p in enumerate(group1))
+
+    def prefill_all():
+        for i, p in enumerate(group1):
+            for _ in range(-(-(len(p) - hits[i]) // eng.prefill_chunk)):
+                eng.prefill(i)
+
+    pre = profile_steps(torch, prefill_all, 1, ["flash_kernel"])
+    n_dec = 16
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_dec):
+        eng.step()
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    prof = profile_steps(torch, lambda: [eng.step() for _ in range(3)], 3,
+                         ["paged_kernel"])
+    eng.update_slots(release=range(eng.n_slots))
+    eng.assert_pool_whole()
+
+    def summary(run):
+        r, sc = run["report"], run["sched"]
+        return {"tok_per_s": r["tok_s"], "wall_s": r["wall_s"],
+                "gen_tokens": r["gen_tokens"],
+                "ttft_p50_ms": r["ttft_p50_ms"],
+                "ttft_p99_ms": r["ttft_p99_ms"],
+                "latency_p50_ms": r["latency_p50_ms"],
+                "latency_p99_ms": r["latency_p99_ms"],
+                "preemptions": sc.preemptions,
+                "peak_in_flight": sc.peak_in_flight,
+                "low_water_pages": r["low_water_pages"],
+                "decode_steps": run["steps"], "prefill_calls": run["prefills"],
+                "launches": run["launches"],
+                "tick_phase_s": {k: v["total_s"] for k, v in
+                                 sc.obs.ticks.snapshot().items()},
+                "ticks": sc.obs.ticks.ticks}
+
+    emit({"phase": 13, "card": card, "arch": cfg.name, "dtype": cfg.dtype,
+          "members": K, "n_layers": cfg.n_layers, "slots": CONT["slots"],
+          "n_pages": CONT["n_pages"], "page": CONT["page"],
+          "prefill_chunk": eng.prefill_chunk, "requests": len(reqs),
+          "prompt_lens": [len(p) for p, _ in reqs],
+          "max_new": [m for _, m in reqs], "init_s": init_s,
+          "launch_formula": f"paged_attention {n_paged} x decode steps, "
+                            f"flash_attention {n_attn} x prefill calls",
+          "prefix_off": summary(off), "prefix_on": summary(on),
+          "prefill_tokens_skipped": on["eng"].prefix.hit_tokens,
+          "prompt_tokens_looked_up": on["eng"].prefix.lookup_tokens,
+          "prefix_hit_rate": ps["prefix_hit_rate"],
+          "prefix_hits": ps["prefix_hits"], "cow_pages": ps["cow_pages"],
+          "shared_attaches": ps["shared_attaches"],
+          "evicted_pages": ps["evicted_pages"],
+          "margin": CONT["margin"], "steps_compared": compared,
+          "steps_below_margin": below, "forks": forks,
+          "shared_pages_at_decode": shared_pages,
+          "decode_ms_per_step": decode_s / n_dec * 1e3,
+          "device_busy_ms_per_step": prof["busy_ms"],
+          "device_idle_share": 1.0 - prof["busy_ms"] / (decode_s / n_dec
+                                                        * 1e3),
+          "kernel_ms_per_launch": {
+              "paged_attention": prof["name_ms"]["paged_kernel"] / n_paged,
+              "flash_attention": pre["name_ms"]["flash_kernel"]
+              / (n_attn * n_calls)},
+          "prefill_calls_profiled": n_calls,
+          "prefill_device_busy_ms": pre["busy_ms"],
+          "top_kernels_ms_per_step": prof["top"],
+          "phase_s": time.perf_counter() - t_phase})
+    del runs, off, on, eng, params
+    torch.cuda.empty_cache()
+    return totals
+
+
+# ---------------------------------------------------------------------------
 # phase 3: card against CPU
 # ---------------------------------------------------------------------------
 
@@ -889,6 +1136,81 @@ def phase3(torch, np, arch: str):
     # tolerance: the same f32 math summed in another order on each device
     torch.testing.assert_close(lps["cuda"], lps["cpu"], atol=1e-4,
                                rtol=1e-4)
+
+
+# phase 3's continuous-batching half: reduced configs, f32, K = 4.
+# gemma3-1b's reduced local window is 16, so max_prompt + max_out stays
+# at 16 for every layer to page (the prefix cache needs it); rwkv6-7b and
+# jamba refuse the prefix cache and run a pool small enough to preempt
+PHASE3_CONT = {
+    "gemma3-1b": dict(n_slots=3, max_prompt=12, max_out=4, n_pages=9,
+                      prefix_cache=True),
+    "deepseek-7b": dict(n_slots=3, max_prompt=24, max_out=6, n_pages=14,
+                        prefix_cache=True),
+    "rwkv6-7b": dict(n_slots=3, max_prompt=24, max_out=6, n_pages=6),
+    "jamba-v0.1-52b": dict(n_slots=3, max_prompt=24, max_out=6, n_pages=6)}
+
+
+def phase3_continuous(torch, np, arch: str):
+    """Reduced `arch`, f32, K = 4, paged (page 4, chunk 4): the same
+    requests (a shared prefix cut at random plus a short tail) through
+    Scheduler.run on the card and on the CPU give identical completions
+    and preemptions, and the pool is whole after the drain; engine.score
+    agrees within 1e-4 and keeps the Jensen bound."""
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.engine import EnsembleEngine
+    from repro_torch.serving.scheduler import Scheduler
+    cfg = registry.get_config(arch, reduced=True).with_(dtype="float32")
+    params = tf.init(cfg, seed=0, device="cpu", members=4)
+    kw = dict(PHASE3_CONT[arch], prefill_chunk=4, paged=True, page_size=4)
+    rng = np.random.default_rng(5)
+    shared = rng.integers(0, cfg.vocab_size, 16)
+    reqs = []
+    for i in range(9):
+        cut = int(rng.integers(4, 17))
+        tail = rng.integers(0, cfg.vocab_size, 1 + int(rng.integers(6)))
+        max_new = kw["max_out"] - i % 2
+        # the whole request fits the pool, so it can always complete
+        plen = min(cut + len(tail), kw["max_prompt"],
+                   kw["n_pages"] * 4 - max_new)
+        reqs.append((np.concatenate([shared[:cut], tail])[:plen], max_new))
+    toks = rng.integers(0, cfg.vocab_size, (3, 9))
+    labels = np.roll(toks, -1, axis=1)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        eng = EnsembleEngine(cfg, params, device=dev, **kw)
+        sched = Scheduler(eng)
+        rids = [sched.submit(t, m) for t, m in reqs]
+        comps = sched.run()
+        eng.assert_pool_whole()
+        m, e = eng.score(toks, labels)
+        got[dev] = ([comps[r].tokens for r in rids], sched.preemptions,
+                    eng.page_stats().get("prefix_hits"), m.cpu(), e.cpu())
+    same = all(np.array_equal(a, b)
+               for a, b in zip(got["cuda"][0], got["cpu"][0]))
+    m_err = (got["cuda"][3] - got["cpu"][3]).abs().max().item()
+    e_err = abs(got["cuda"][4].item() - got["cpu"][4].item())
+    emit({"phase": 3, "arch": cfg.name, "path": "continuous",
+          "prefix_cache": kw.get("prefix_cache", False),
+          "completions_identical": same,
+          "preemptions": got["cuda"][1], "prefix_hits": got["cuda"][2],
+          "score_member_max_abs_err": m_err, "score_ensemble_abs_err": e_err,
+          "tol": 1e-4})
+    if not same or got["cuda"][1:3] != got["cpu"][1:3]:
+        raise AssertionError(f"{arch}: continuous runs differ card/CPU: "
+                             f"{got['cuda'][:3]} vs {got['cpu'][:3]}")
+    if kw.get("prefix_cache") and not got["cuda"][2]:
+        raise AssertionError(f"{arch}: the prefix cache never hit")
+    if not kw.get("prefix_cache") and got["cuda"][1] == 0:
+        raise AssertionError(f"{arch}: the small pool never preempted")
+    torch.testing.assert_close(got["cuda"][3], got["cpu"][3], atol=1e-4,
+                               rtol=1e-4)
+    torch.testing.assert_close(got["cuda"][4], got["cpu"][4], atol=1e-4,
+                               rtol=1e-4)
+    if got["cuda"][4].item() > got["cuda"][3].mean().item() + 1e-6:
+        raise AssertionError(f"{arch}: ensemble NLL above the mean member "
+                             f"NLL (Jensen)")
 
 
 # ---------------------------------------------------------------------------
@@ -1268,8 +1590,10 @@ def main() -> int:
                                               "jamba-v0.1-52b", 12,
                                               members=2, n_layers=8,
                                               init_limit=60e9)}
+    launches_cont = phase13(torch, np, card)
     for arch in launches:
         phase3(torch, np, arch)
+        phase3_continuous(torch, np, arch)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     distill_rows = phase4(torch, flush, card)
     del flush
@@ -1288,7 +1612,10 @@ def main() -> int:
         return out
 
     def serving(kernel):
-        return {f"{arch} serve": n[kernel] for arch, n in launches.items()}
+        out = {f"{arch} serve": n[kernel] for arch, n in launches.items()}
+        if kernel in launches_cont:
+            out["gemma3-1b continuous"] = launches_cont[kernel]
+        return out
 
     def by_shape(rows):
         return {name: {key: row[key] for key in (

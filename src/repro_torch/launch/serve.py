@@ -1,5 +1,5 @@
 """Serving launcher for the PyTorch/CUDA port: the EC-DNN_G ensemble
-engine behind a CLI, static batch.
+engine behind a CLI, a static batch or continuous batching.
 
 All K members score each step together and their output distributions
 are averaged (paper Eqn 6) before sampling; --members 1 serves a single
@@ -7,11 +7,17 @@ model through the identical path.  Runs on the card unless --device cpu.
 
   python -m repro_torch.launch.serve --arch gemma3-1b --reduced \
       --members 4 --batch 4 --prompt-len 16 --steps 16 --paged
+  python -m repro_torch.launch.serve --arch gemma3-1b --reduced \
+      --members 4 --batch 4 --prompt-len 16 --steps 16 --paged \
+      --continuous --requests 12 --prefix-cache
 
-Prints tokens per second (host clock around a generate call that ends
-in a device synchronise, after a warm-up call) and a sample.  A speed
-printed here is only meaningful beside the card's name and power limit
-(nvidia-smi --query-gpu=name,power.limit --format=csv,noheader).
+The static batch prints tokens per second (host clock around a generate
+call that ends in a device synchronise, after a warm-up call) and a
+sample; --continuous serves --requests synthetic requests through the
+Scheduler and prints client.print_report's tok/s, TTFT and latency
+percentiles.  A speed printed here is only meaningful beside the card's
+name and power limit (nvidia-smi --query-gpu=name,power.limit
+--format=csv,noheader).
 """
 from __future__ import annotations
 
@@ -36,15 +42,34 @@ def main(argv=None) -> int:
                     help="prompt tokens per prefill call (0: per-token "
                          "reference path; default: from --prompt-len and "
                          "--page-size)")
+    ap.add_argument("--prefill-budget", type=int, default=None,
+                    help="prompt tokens prefilled per scheduler "
+                         "iteration (--continuous; default: 2 chunks)")
     ap.add_argument("--paged", action="store_true",
                     help="paged KV pool behind a per-slot page table")
     ap.add_argument("--page-size", type=int, default=16)
-    ap.add_argument("--n-pages", type=int, default=None)
+    ap.add_argument("--n-pages", type=int, default=None,
+                    help="physical pages in the pool (--paged; default: "
+                         "every slot at full length; fewer oversubscribes "
+                         "and relies on preemption)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share KV pages across requests with a common "
+                         "prompt prefix (--paged, and every layer paged)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--eos-id", type=int, default=-1)
     ap.add_argument("--quorum", default="",
                     help="comma 0/1 per member, e.g. 1,1,0,1")
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous batching under synthetic load")
+    ap.add_argument("--requests", type=int, default=32,
+                    help="synthetic requests (--continuous)")
+    ap.add_argument("--no-obs", action="store_true",
+                    help="disable the observability layer (request "
+                         "traces, latency histograms, tick phases)")
+    ap.add_argument("--trace-log", default="",
+                    help="append one JSON line per finished request "
+                         "trace to this file (obs must be on)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' to run "
@@ -57,6 +82,7 @@ def main(argv=None) -> int:
     from repro_torch.common.device import resolve_device
     from repro_torch.configs import registry
     from repro_torch.models import transformer as tf
+    from repro_torch.serving import client
     from repro_torch.serving.engine import EnsembleEngine
 
     device = resolve_device(args.device)
@@ -77,14 +103,30 @@ def main(argv=None) -> int:
         max_out=args.steps, prefill_chunk=args.prefill_chunk,
         temperature=args.temperature, top_k=args.top_k, eos_id=args.eos_id,
         quorum=quorum, seed=args.seed, paged=args.paged,
-        page_size=args.page_size, n_pages=args.n_pages, device=device)
+        page_size=args.page_size, n_pages=args.n_pages,
+        prefix_cache=args.prefix_cache, device=device)
     print(f"engine: K={K} members, {args.batch} slots, prefill chunk "
           f"{engine.prefill_chunk}, {device} "
           f"({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'host'}), "
           f"cache pool {engine.cache_bytes() / 2**20:.1f} MiB")
     if args.paged:
-        print(f"paged pool: {engine.n_pages} pages x {args.page_size} tok "
-              f"({engine.pages_per_slot} pages/slot max)")
+        ps = engine.page_stats()
+        print(f"paged pool: {ps['n_pages']} pages x {ps['page_size']} tok "
+              f"({ps['pages_per_slot']} pages/slot max), free list "
+              f"{ps['free_pages']}/{ps['n_pages']}, {ps['page_bytes']} "
+              f"B/page, {ps['bytes_per_token']} B/token")
+
+    if args.continuous:
+        reqs = client.make_requests(
+            args.requests, cfg.vocab_size,
+            prompt_len=(max(2, args.prompt_len // 4), args.prompt_len),
+            max_new=(max(1, args.steps // 2), args.steps), seed=args.seed)
+        # warm-up outside the timed run (max_new=2: prefill and decode)
+        engine.generate([reqs[0][0]], max_new=2)
+        client.print_report(client.run_load(
+            engine, reqs, prefill_budget=args.prefill_budget,
+            obs=not args.no_obs, trace_log=args.trace_log or None))
+        return 0
 
     rng = np.random.default_rng(1)
     prompt = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))

@@ -14,7 +14,14 @@ teacher-forcing path as the reference.
 paged=True swaps the full-attention layers' per-slot rows for a shared
 pool of fixed-size pages behind a per-slot page table (host policy,
 kv_cache.PageAllocator); decode reads those pages through the
-hand-written CUDA paged-attention kernel on the card.
+hand-written CUDA paged-attention kernel on the card.  prefix_cache=True
+(paged engines whose every layer pages) adds the shared-prefix trie of
+serving/prefix.py: an admission attaches the cached pages of its
+prompt's longest cached prefix, copies a partially matched page on
+write (kv_cache.copy_pages, dispatched before any kernel can write it),
+and starts its prefill at the hit.  serving/scheduler.py drives the
+engine through update_slots / prefill / step and the page accounting
+below.
 
 The pool and the slot state are updated in place where the JAX package
 donates buffers to its jitted programs.  The greedy decode loop never
@@ -34,6 +41,7 @@ from repro_torch.common.types import ModelConfig
 from repro_torch.core import ensemble as ens
 from repro_torch.models import transformer as tf
 from repro_torch.serving import kv_cache, sampling
+from repro_torch.serving import prefix as prefix_mod
 
 KV_DTYPES = ("f32", "bf16", "int8", "fp8")
 
@@ -50,6 +58,19 @@ class SlotState(NamedTuple):
     active: torch.Tensor      # (B,)   slot occupied by a request
     done: torch.Tensor        # (B,)   finished, awaiting host harvest
     out: torch.Tensor         # (B,G)  emitted tokens
+
+
+def _flatten(tree, path=()):
+    """(path, leaf) pairs of a nested dict/list tree, dict keys sorted
+    (the JAX package's flatten order)."""
+    if isinstance(tree, dict):
+        for k, v in sorted(tree.items()):
+            yield from _flatten(v, path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _flatten(v, path + (i,))
+    else:
+        yield path, tree
 
 
 def _to(tree, device):
@@ -81,9 +102,6 @@ class EnsembleEngine:
             raise NotImplementedError(
                 "mesh: sharding the member axis over several cards comes "
                 "with the multi-device slice")
-        if prefix_cache:
-            raise NotImplementedError(
-                "prefix_cache comes with the scheduler/prefix-cache slice")
         if kv_dtype not in KV_DTYPES:
             raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, "
                              f"got {kv_dtype!r}")
@@ -97,6 +115,9 @@ class EnsembleEngine:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = _to(stacked_params, self.device)
+        # swap_params holds incoming trees to this structure
+        self._param_spec = [(path, tuple(x.shape), x.dtype)
+                            for path, x in _flatten(self.params)]
         self.n_members = self.params["embed"].shape[0]
         self.kv_dtype = kv_dtype
         self.n_slots = n_slots
@@ -120,6 +141,7 @@ class EnsembleEngine:
                                             device=self.device))
         self.paged = bool(paged)
         self.page_size = int(page_size)
+        self.prefix: Optional[prefix_mod.PrefixCache] = None
         if self.paged:
             if self.page_size <= 0:
                 raise ValueError(f"page_size must be > 0, got {page_size}")
@@ -135,6 +157,27 @@ class EnsembleEngine:
             self._host_new = np.zeros(n_slots, np.int64)
             self._host_active = np.zeros(n_slots, bool)
             self._table_stale = True
+            if prefix_cache:
+                bad = self._prefix_ineligible()
+                if bad:
+                    raise ValueError(
+                        f"prefix_cache needs every layer's positional "
+                        f"state in shared pages, but {bad} keeps per-slot"
+                        f" state a hit could not skip rebuilding")
+                if self.prefill_chunk <= 0:
+                    raise ValueError(
+                        "prefix_cache needs chunked prefill "
+                        "(prefill_chunk > 0): admission starts the "
+                        "chunk walk at the hit boundary")
+                # each slot's prompt on the host: the trie is keyed on
+                # token ids and takes a chain's prefix at release
+                self._host_prompt = np.zeros((n_slots, max_prompt),
+                                             np.int32)
+                self.prefix = prefix_mod.PrefixCache(self.page_size)
+                self.allocator.cache = self.prefix
+        elif prefix_cache:
+            raise ValueError("prefix_cache requires paged=True (the "
+                             "contiguous pool has no shareable pages)")
         self.cache = kv_cache.init_pool(
             cfg, self.n_members, n_slots, self.max_seq,
             page_size=self.page_size if self.paged else 0,
@@ -149,6 +192,7 @@ class EnsembleEngine:
         self._admitted = 0
         self.steps_run = 0
         self.prefills_run = 0
+        self.swaps_done = 0
 
     def _blank_state(self) -> SlotState:
         B, P, G = self.n_slots, self.max_prompt, self.max_out
@@ -216,6 +260,23 @@ class EnsembleEngine:
                     f"holds {self.n_pages}")
         return t
 
+    # -- paged-pool host accounting ------------------------------------------
+
+    def _prefix_ineligible(self) -> Optional[str]:
+        """Why this config cannot reuse cached prefix pages (None = it
+        can).  A hit skips prefill for positions [0, hit), so every
+        layer's positional state for them must live in the shared pages:
+        ring-cached local layers below max_seq, recurrent mixers and
+        rwkv_cmix's per-slot shift would come up blank."""
+        for _, specs in self.cfg.segments():
+            for spec in specs:
+                if not tf.layer_pages(self.cfg, spec, self.max_seq):
+                    return (f"mixer {spec.mixer!r} keeps per-slot "
+                            f"(non-paged) cache planes")
+                if spec.ffn == "rwkv_cmix":
+                    return "ffn 'rwkv_cmix' carries per-slot cmix_shift"
+        return None
+
     def _sync_table(self):
         """Push the allocator's page table to the pool (every member
         carries a replica)."""
@@ -254,10 +315,92 @@ class EnsembleEngine:
         return starved
 
     def _release_slot(self, b: int):
+        """Recycle slot b's chain and host mirrors.  With the prefix
+        cache on, the chain's valid prompt prefix (min(pos, plen)
+        tokens: a preempted slot has written only that far, and decode
+        tokens are the request's own) goes to the trie first: claimed
+        pages stay cached, evictable once unreferenced; the rest returns
+        to the free list."""
+        if self.prefix is not None and self._host_plen[b] > 0:
+            valid = int(min(self._host_pos[b], self._host_plen[b]))
+            n = self.allocator.pages_for(valid)
+            chain = self.allocator.chain(b)
+            if valid > 0 and len(chain) >= n:
+                self.prefix.insert(self._host_prompt[b, :valid],
+                                   chain[:n])
+            self._host_prompt[b, :] = 0
         self.allocator.release(b)
         self._host_active[b] = False
         self._host_pos[b] = 0
         self._host_plen[b] = self._host_new[b] = 0
+
+    def admit_cost(self, tokens) -> int:
+        """Pages admitting this prompt would take now: ceil(plen/page)
+        less the matched full pages some live slot already references
+        (attaching them is a refcount bump).  Ref-0 trie pages are not
+        discounted (available_pages counts them once already), nor is a
+        partial tail (its copy takes a fresh page).  Probes with the
+        trie's side-effect-free peek."""
+        t = np.asarray(tokens, np.int32).reshape(-1)
+        cost = self.allocator.pages_for(t.size)
+        if self.prefix is None or t.size <= 1:
+            return cost
+        _, full, _ = self.prefix.peek(t.tolist(), t.size - 1)
+        return cost - sum(1 for p in full if self.allocator.ref(p) > 0)
+
+    def admission_headroom(self, releasing: Sequence[int] = ()) -> int:
+        """Pages an admission batch can draw on: free plus evictable
+        trie pages, plus what releasing `releasing` certainly returns
+        (their refcount-1 pages the trie does not keep).  -1 when not
+        paged."""
+        if not self.paged:
+            return -1
+        return self.allocator.available_pages + sum(
+            self.allocator.reclaimable_pages(int(b)) for b in releasing)
+
+    @property
+    def free_pages(self) -> int:
+        return self.allocator.free_pages if self.paged else -1
+
+    def assert_pool_whole(self) -> None:
+        """Drained-state check: no slot holds pages, the allocator's
+        accounting holds (check_invariants) and every page is free or
+        trie-evictable.  Raises AssertionError naming the leak; no-op
+        on contiguous engines."""
+        if not self.paged:
+            return
+        a = self.allocator
+        held = {b: a.held_pages(b) for b in range(self.n_slots)
+                if a.held_pages(b)}
+        assert not held, f"drained engine still holds pages: {held}"
+        a.check_invariants()
+        assert a.available_pages == a.n_pages, \
+            (f"{a.n_pages - a.available_pages} pages neither free nor "
+             f"evictable after drain ({a.free_pages} free, "
+             f"{a.available_pages} available of {a.n_pages})")
+
+    def page_stats(self) -> dict:
+        """Page-pool occupancy and prefix-cache telemetry; {} when not
+        paged."""
+        if not self.paged:
+            return {}
+        a = self.allocator
+        pb = kv_cache.page_bytes(self.cache, a.n_pages)
+        stats = {"n_pages": a.n_pages, "page_size": a.page_size,
+                 "free_pages": a.free_pages, "used_pages": a.used_pages,
+                 "available_pages": a.available_pages,
+                 "shared_pages": a.shared_pages,
+                 "pages_per_slot": a.pages_per_slot,
+                 "low_water_pages": a.low_water,
+                 "kv_dtype": self.kv_dtype,
+                 "kv_quantized": int(self.kv_dtype in ("int8", "fp8")),
+                 "page_bytes": pb,
+                 "bytes_per_token": pb // max(a.page_size, 1)}
+        if self.prefix is not None:
+            stats.update(self.prefix.stats())
+            stats["cow_pages"] = a.cow_count
+            stats["shared_attaches"] = a.shared_attach_count
+        return stats
 
     def step(self) -> SlotState:
         """Advance every slot one token: all K members score the step,
@@ -359,8 +502,13 @@ class EnsembleEngine:
         last element is an options dict with any of {"temperature",
         "top_k", "seed"} (None/missing = engine default).  A request with
         no seed gets one derived from the engine seed and its admission
-        order.  Returns {} (no prefix cache in this slice: every admitted
-        slot prefills from position 0)."""
+        order.
+
+        Returns {slot: hit_tokens} for admissions the prefix cache
+        served: such a slot starts at position `hit` (its first input is
+        prompt[hit]) and owes ceil((plen - hit) / prefill_chunk) prefill
+        calls.  Empty whenever the prefix cache is off, and every slot
+        then starts at 0 as before."""
         B, P = self.n_slots, self.max_prompt
 
         def check_slot(b) -> int:
@@ -398,37 +546,73 @@ class EnsembleEngine:
                         else (self._seed * 1_000_003 + self._admitted)
                         % (sampling.MAX_SEED + 1))
             self._admitted += 1
+        hits: dict = {}
+        pos0 = np.zeros((B,), np.int64)
         if self.paged:
-            # all-or-nothing page accounting BEFORE any state mutates
+            # all-or-nothing page accounting BEFORE any state mutates.
+            # Two tiers: the worst case first; if that fails with the
+            # prefix cache on, admit_cost (full pages a live slot already
+            # references attach for free), the Scheduler's own charge
             recycled = [b for b in range(B) if rel[b] or adm[b]]
             avail = self.allocator.available_pages + sum(
                 self.allocator.reclaimable_pages(b) for b in recycled)
             need = sum(self.allocator.pages_for(int(plen[b]))
                        for b in range(B) if adm[b])
+            if need > avail and self.prefix is not None:
+                need = sum(self.admit_cost(prompt[b, :plen[b]])
+                           for b in range(B) if adm[b])
             if need > avail:
                 raise RuntimeError(
                     f"admission needs {need} pages, only {avail} "
                     f"available (pool {self.n_pages}); queue instead")
             for b in recycled:
                 self._release_slot(b)
+            cow_src = np.full((B,), self.n_pages, np.int64)
+            cow_dst = np.full((B,), self.n_pages, np.int64)
             for b in np.nonzero(adm)[0]:
-                self.allocator.alloc(b, self.allocator.pages_for(plen[b]))
+                p = int(plen[b])
+                if self.prefix is not None:
+                    toks = prompt[b, :p]
+                    # at most plen - 1: the first sampled token needs the
+                    # last prompt token's logits, so one position prefills
+                    hit, full, tail = self.prefix.match(toks, p - 1)
+                    if full or tail:
+                        self.allocator.share(
+                            b, full + ([tail[0]] if tail else []))
+                    if tail is not None:
+                        # the hit ends mid-page: the slot's first write
+                        # lands inside the matched page, so it gets a
+                        # private copy before any kernel writes it
+                        cow_src[b], cow_dst[b] = self.allocator.cow(
+                            b, len(full))
+                    pos0[b] = hits[int(b)] = hit
+                    self._host_prompt[b, :p] = toks
+                if not self.allocator.alloc(b, self.allocator.pages_for(p)):
+                    raise RuntimeError("page accounting violated its "
+                                       "feasibility check")  # unreachable
                 self._host_active[b] = True
-                self._host_pos[b] = 0
-                self._host_plen[b] = plen[b]
+                self._host_pos[b] = pos0[b]
+                self._host_plen[b] = p
                 self._host_new[b] = mnew[b]
             self._sync_table()
+            # the page copy goes before the slot reset and before any
+            # prefill: on one stream, enqueue order puts the read of src
+            # ahead of every later write, even when src is evicted and
+            # handed to another admission of this same batch
+            kv_cache.copy_pages(self.cache, cow_src, cow_dst, self.n_pages)
         self._host_temp, self._host_topk, self._host_seed = temp, topk, seeds
         dev = self.device
         rel_t = torch.as_tensor(rel, device=dev)
         adm_t = torch.as_tensor(adm, device=dev)
         prompt_t = torch.as_tensor(prompt, device=dev)
-        kv_cache.reset_slots(self.cache, adm_t)
+        pos0_t = torch.as_tensor(pos0, device=dev)
+        kv_cache.reset_slots(self.cache, adm_t, pos0_t)
         st = self.state
         a2 = adm_t[:, None]
+        tok0 = prompt_t.gather(1, pos0_t[:, None])[:, 0]
         self.state = SlotState(
-            tok=torch.where(adm_t, prompt_t[:, 0], st.tok),
-            pos=torch.where(adm_t, 0, st.pos),
+            tok=torch.where(adm_t, tok0, st.tok),
+            pos=torch.where(adm_t, pos0_t, st.pos),
             prompt=torch.where(a2, prompt_t, st.prompt),
             prompt_len=torch.where(adm_t, torch.as_tensor(plen, device=dev),
                                    st.prompt_len),
@@ -438,7 +622,7 @@ class EnsembleEngine:
             active=(st.active & ~rel_t) | adm_t,
             done=st.done & ~rel_t & ~adm_t,
             out=torch.where(a2, 0, st.out))
-        return {}
+        return hits
 
     def generate(self, prompts: Sequence[np.ndarray], max_new: int) -> list:
         """Static-batch decode: admit up to n_slots prompts, run to done.
@@ -449,15 +633,17 @@ class EnsembleEngine:
             return []
         if len(prompts) > self.n_slots:
             raise ValueError(f"{len(prompts)} prompts > {self.n_slots} slots")
-        self.update_slots(
+        hits = self.update_slots(
             release=range(self.n_slots),
             admits=[(i, p, max_new) for i, p in enumerate(prompts)])
         plens = [len(np.reshape(p, -1)) for p in prompts]
         if self.prefill_chunk > 0:
             # chunked prefill emits each slot's first token; decode does
-            # the remaining max_new - 1
+            # the remaining max_new - 1.  A prefix hit starts the walk at
+            # the hit (at most plen - 1, so one chunk always runs)
             for i, plen in enumerate(plens):
-                for _ in range(-(-plen // self.prefill_chunk)):
+                left = plen - hits.get(i, 0)
+                for _ in range(-(-left // self.prefill_chunk)):
                     self.prefill(i)
             steps = max_new - 1
         else:
@@ -471,6 +657,59 @@ class EnsembleEngine:
         out = self.state.out.cpu().numpy().astype(np.int32)
         n_gen = self.state.n_gen.cpu().numpy()
         return [out[i, :n_gen[i]] for i in range(len(prompts))]
+
+    def score(self, tokens, labels):
+        """Teacher-forced NLL of a (B, T) batch -> (per-member (K,),
+        ensemble ()) tensors on the engine's device.  The ensemble NLL
+        is at most the mean member NLL for any members (Jensen), also
+        under a quorum.  Runs through a private contiguous pool; the
+        serving pool and slot state are untouched."""
+        tokens = torch.as_tensor(np.asarray(tokens), device=self.device)
+        labels = torch.as_tensor(np.asarray(labels), device=self.device)
+        B, T = tokens.shape
+        cache = kv_cache.init_pool(self.cfg, self.n_members, B, T,
+                                   device=self.device)
+        m_tot = torch.zeros(self.n_members, device=self.device)
+        e_tot = torch.zeros((), device=self.device)
+        for t in range(T):
+            logits, cache = tf.decode_step_slots(self.params, self.cfg,
+                                                 cache, tokens[:, t:t + 1])
+            logits = logits[:, :, 0].float()               # (K, B, V)
+            gold = labels[:, t].long()
+            lp = ens.member_log_probs(logits)
+            m_tot -= lp.gather(2, gold.expand(self.n_members, B)[..., None]
+                               )[..., 0].mean(1)
+            e_tot -= self._fuse(logits).gather(1, gold[:, None]).mean()
+        return m_tot / T, e_tot / T
+
+    def swap_params(self, new_stacked_params) -> None:
+        """Install a new member stack between steps (the serving end of
+        train -> compress -> serve).  The new tree must match the live
+        one: structure, leaf shapes and dtypes.  Its values are copied
+        into the live tensors in place, so every tensor a step reads
+        keeps its identity and storage (what a captured step needs).
+        The pool and slot state are not touched: in-flight requests go
+        on with the new weights (drain first where a request must see
+        one model).  With the prefix cache on, the trie is flushed:
+        cached pages hold the old model's KV."""
+        new = list(_flatten(new_stacked_params))
+        want = [path for path, _, _ in self._param_spec]
+        if [path for path, _ in new] != want:
+            raise ValueError(
+                f"swap_params: the new param tree's leaves "
+                f"{[path for path, _ in new]} do not match the live "
+                f"engine's {want}")
+        for (path, shape, dtype), (_, x) in zip(self._param_spec, new):
+            if tuple(x.shape) != shape or x.dtype != dtype:
+                raise ValueError(
+                    f"swap_params: leaf {path} is {tuple(x.shape)}/"
+                    f"{x.dtype}, the live engine's is {shape}/{dtype}")
+        with torch.no_grad():
+            for (_, live), (_, x) in zip(_flatten(self.params), new):
+                live.copy_(x)
+        if self.prefix is not None:
+            self.allocator.flush_cache()
+        self.swaps_done += 1
 
     def set_quorum(self, mask: Sequence[float]):
         """0/1 liveness per member, renormalized; the next step fuses

@@ -17,11 +17,15 @@ decodes (stale entries are masked by position bookkeeping).  The model
 code updates the planes IN PLACE, where the JAX package returns new
 planes into a donated buffer; the helpers below say where that changes
 their contract.  The page table is host policy (PageAllocator, sentinel
-id n_pages = unallocated).
+id n_pages = unallocated).  With the prefix trie wired in
+(serving/prefix.py) chains share physical prefix pages: a write into a
+shared page goes through copy-on-write (PageAllocator.cow, then
+copy_pages on the device), and pages at refcount zero that the trie
+owns stay evictable with their content instead of going free.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -169,16 +173,34 @@ def keep_frozen(new: dict, old: dict, advance: torch.Tensor) -> dict:
 class PageAllocator:
     """Refcounting free-list allocator behind the paged pool's table.
 
-    Pure host policy.  Physical pages are ids in [0, n_pages); the
-    sentinel id `n_pages` marks an unallocated page-table entry (reads
-    clamp and are masked, writes drop).  Each slot holds a chain of
-    pages, one per logical page, grown strictly in order.  Pages carry a
-    refcount of 1 while a chain holds them.  No zeroing anywhere: the
-    next owner overwrites every entry before the position bookkeeping
-    makes it visible.  The same id space addresses every paged layer's
-    plane, so one page buys position capacity in all layers at once.
-    (The JAX package's prefix-cache hooks, share/cow and the trie, come
-    with a later slice.)
+    Pure host policy, a copy of the JAX package's.  Physical pages are ids
+    in [0, n_pages); the sentinel id `n_pages` marks an unallocated
+    page-table entry (paged kernels clamp + mask reads through it and
+    drop writes).  Each slot holds a chain of pages, one per logical
+    page, grown strictly in order (sequence positions only ever
+    advance).  Pages are REFCOUNTED, not owned: a chain page fresh from
+    `alloc` carries refcount 1 (the old exclusive-ownership behavior,
+    bit-identical for chains that never share), while `share` attaches
+    pages of an existing prefix — the same physical page then appears
+    in several chains and in the prefix trie, and `release`/`truncate`
+    become refcount decrements that only free a page at zero.  `cow`
+    is the copy-on-write step: a slot about to write into a shared page
+    swaps a fresh page into its chain first (the engine dispatches the
+    device copy).  No zeroing anywhere: the next owner overwrites every
+    entry before the position bookkeeping makes it visible, the same
+    invariant the contiguous pool recycles slots with.
+
+    With a PrefixCache wired in (`self.cache`, engine-owned), pages
+    whose refcount drops to zero while the trie owns them become
+    EVICTABLE instead of free — their KV content is kept for future
+    sharers and reclaimed LRU leaf-first only when the free list runs
+    dry (`alloc` calls `cache.reclaim`).  `available_pages` is
+    therefore free + evictable: the admission headroom.
+
+    The same id space addresses every paged layer's plane (each layer
+    has its own (n_pages, page_size, ...) physical pool, all indexed by
+    the one table), so allocating a page buys position capacity in ALL
+    layers at once — vLLM's block-table layout.
     """
 
     def __init__(self, n_pages: int, page_size: int, n_slots: int,
@@ -194,10 +216,17 @@ class PageAllocator:
         self._free: List[int] = list(range(self.n_pages - 1, -1, -1))
         self._chain: List[List[int]] = [[] for _ in range(self.n_slots)]
         self._ref: List[int] = [0] * self.n_pages
+        # prefix trie (serving/prefix.PrefixCache), wired by the engine
+        # when prefix caching is on; None keeps pure free-list behavior
+        self.cache = None
         self._dirty = True
         self._table: Optional[np.ndarray] = None
-        # fewest free pages ever observed after an alloc
+        # fewest free pages ever observed after an alloc — how close
+        # the pool came to preemption over its lifetime (capacity
+        # telemetry; client.print_report surfaces it)
         self.low_water = self.n_pages
+        self.shared_attach_count = 0  # pages attached via share()
+        self.cow_count = 0            # pages copied via cow()
 
     @property
     def free_pages(self) -> int:
@@ -209,7 +238,15 @@ class PageAllocator:
 
     @property
     def available_pages(self) -> int:
-        return len(self._free)
+        """Free-list pages plus trie-cached pages no slot references —
+        everything an alloc can hand out (admission headroom)."""
+        return len(self._free) + (self.cache.evictable
+                                  if self.cache is not None else 0)
+
+    @property
+    def shared_pages(self) -> int:
+        """Pages currently referenced by more than one chain."""
+        return sum(1 for r in self._ref if r > 1)
 
     def ref(self, page: int) -> int:
         return self._ref[page]
@@ -226,17 +263,29 @@ class PageAllocator:
         return len(self._chain[slot])
 
     def chain(self, slot: int) -> Tuple[int, ...]:
+        """`slot`'s physical page chain in logical order (a copy)."""
         return tuple(self._chain[slot])
 
     def alloc(self, slot: int, n_logical: int) -> bool:
-        """Grow `slot` to cover >= n_logical logical pages.  All-or-
-        nothing: returns False (state untouched) when the free list
-        cannot cover the growth or n_logical exceeds the table width."""
+        """Grow `slot` to cover >= n_logical logical pages (fresh pages,
+        refcount 1).
+
+        All-or-nothing: returns False (state untouched) when free +
+        evictable pages cannot cover the growth or n_logical exceeds
+        the per-slot table width — the caller (engine/scheduler) then
+        preempts or queues instead of partially admitting.  When the
+        free list alone is short, trie-cached unreferenced pages are
+        evicted (LRU leaf-first) to cover the difference — the prefix
+        cache yields to live requests, never the other way around.
+        """
         need = int(n_logical) - len(self._chain[slot])
         if need <= 0:
             return True
-        if n_logical > self.pages_per_slot or need > len(self._free):
+        if n_logical > self.pages_per_slot or need > self.available_pages:
             return False
+        if need > len(self._free):
+            self._free.extend(
+                reversed(self.cache.reclaim(need - len(self._free))))
         for _ in range(need):
             p = self._free.pop()
             self._ref[p] = 1
@@ -245,40 +294,166 @@ class PageAllocator:
         self.low_water = min(self.low_water, len(self._free))
         return True
 
-    def _drop(self, pages) -> None:
+    def share(self, slot: int, pages: Sequence[int]) -> None:
+        """Attach an existing prefix's pages to `slot`'s chain (in
+        logical order, extending the tail) and take a reference on
+        each.  The pages' KV content is someone else's work — the slot
+        may READ through them but must never write below its admission
+        hit (engine admission guarantees writes start at the hit; the
+        partial tail page goes through `cow` first).
+        """
+        chain = self._chain[slot]
+        if len(chain) + len(pages) > self.pages_per_slot:
+            raise ValueError(
+                f"share would grow slot {slot} past pages_per_slot="
+                f"{self.pages_per_slot}")
         for p in pages:
-            self._ref[p] -= 1
-            if self._ref[p] < 0:
-                raise AssertionError(f"page {p} refcount underflow")
-        self._free.extend(p for p in reversed(pages) if self._ref[p] == 0)
+            p = int(p)
+            self._ref[p] += 1
+            if self._ref[p] == 1 and self.cache is not None \
+                    and self.cache.owns(p):
+                self.cache.page_referenced(p)
+            chain.append(p)
+        self.shared_attach_count += len(pages)
         self._dirty = True
 
+    def cow(self, slot: int, logical: int) -> Optional[Tuple[int, int]]:
+        """Copy-on-write: give `slot` an exclusive copy of its logical
+        page `logical` before its first divergent write lands there.
+
+        If the current page is shared (refcount > 1, or cached in the
+        trie where future sharers could pick it up), a fresh page is
+        swapped into the chain and (src, dst) returned — the CALLER
+        copies the device content (copy_pages) before dispatching any
+        write.  An already-exclusive page returns None (write in
+        place).  Raises when no page is available: admission accounting
+        charges the COW destination as part of the non-shared suffix,
+        so a caller that checked available_pages never trips this.
+        """
+        src = self._chain[slot][logical]
+        shared = self._ref[src] > 1 or (self.cache is not None
+                                        and self.cache.owns(src))
+        if not shared:
+            return None
+        if not self._free and self.cache is not None:
+            self._free.extend(reversed(self.cache.reclaim(1)))
+        if not self._free:
+            raise RuntimeError(
+                f"cow: no page available for slot {slot} (pool "
+                f"{self.n_pages}, all referenced)")
+        dst = self._free.pop()
+        self._ref[dst] = 1
+        self._chain[slot][logical] = dst
+        self._unref(src)
+        self.cow_count += 1
+        self.low_water = min(self.low_water, len(self._free))
+        self._dirty = True
+        return src, dst
+
+    def _unref(self, page: int) -> bool:
+        """Drop one reference; at zero the page goes to the free list —
+        or to the trie's evictable pool when the trie owns it (content
+        kept for future sharers).  -> True when the page left the
+        chain's accounting (always; return is for symmetry/clarity)."""
+        self._ref[page] -= 1
+        if self._ref[page] < 0:
+            raise AssertionError(f"page {page} refcount underflow")
+        if self._ref[page] == 0:
+            if self.cache is not None and self.cache.owns(page):
+                self.cache.page_unreferenced(page)
+            else:
+                self._free.append(page)
+        return True
+
     def truncate(self, slot: int, n_logical: int) -> int:
-        """Shrink `slot` back to n_logical pages; -> pages dropped."""
+        """Shrink `slot` back to n_logical pages; -> pages dropped from
+        the chain (freed immediately unless still shared/cached).
+
+        The JAX package's speculative engine rolls its gamma-token
+        lookahead pages back through this (spec decoding is not ported
+        yet).  Chains only ever shrink from the tail (positions are
+        append-only); decode-tail pages are refcount-1 and never
+        trie-cached (a chain's shared prefix sits strictly below the
+        prompt).  Already-short chains are a no-op.
+        """
         n = len(self._chain[slot]) - max(int(n_logical), 0)
         if n <= 0:
             return 0
         tail = self._chain[slot][-n:]
         self._chain[slot] = self._chain[slot][:-n]
-        self._drop(tail)
+        freed = [p for p in reversed(tail)
+                 if self._ref[p] == 1 and not (
+                     self.cache is not None and self.cache.owns(p))]
+        for p in tail:
+            if p in freed:
+                self._ref[p] = 0
+            else:
+                self._unref(p)
+        self._free.extend(freed)
+        self._dirty = True
         return n
 
     def release(self, slot: int) -> int:
-        """Return `slot`'s whole chain to the free list; -> its length."""
+        """Drop `slot`'s references to its whole chain; -> chain length.
+        Pages nobody else references return to the free list (reversed,
+        so the lowest id pops first, as before refcounting) — unless
+        the trie owns them, in which case they become evictable with
+        their content intact (that is how a released request's prefix
+        stays warm for the next sharer)."""
         chain = self._chain[slot]
-        if chain:
+        n = len(chain)
+        if n:
+            freed = [p for p in reversed(chain)
+                     if self._ref[p] == 1 and not (
+                         self.cache is not None and self.cache.owns(p))]
+            for p in chain:
+                if self._ref[p] == 1 and p in freed:
+                    self._ref[p] = 0
+                else:
+                    self._unref(p)
+            self._free.extend(freed)
             self._chain[slot] = []
-            self._drop(chain)
-        return len(chain)
+            self._dirty = True
+        return n
 
     def reclaimable_pages(self, slot: int) -> int:
-        """Chain pages a release would push onto the free list now."""
-        return sum(1 for p in self._chain[slot] if self._ref[p] == 1)
+        """Chain pages a release would push onto the FREE list right
+        now: refcount exactly 1 and not trie-owned.  (Trie-owned pages
+        go evictable instead — still admission headroom, but counted by
+        `available_pages` once they get there, so counting them here
+        would double-book.)  Scheduler admission adds this for slots in
+        its release batch."""
+        return sum(1 for p in self._chain[slot]
+                   if self._ref[p] == 1 and not (
+                       self.cache is not None and self.cache.owns(p)))
+
+    def flush_cache(self) -> int:
+        """Drop the prefix trie (engine.swap_params: cached pages hold
+        the old model's KV) and return its unreferenced pages to the
+        free list; -> pages freed.  No-op without a trie."""
+        if self.cache is None:
+            return 0
+        pages = self.cache.flush()
+        self._free.extend(sorted(pages, reverse=True))
+        return len(pages)
 
     def check_invariants(self) -> None:
-        """Assert the global accounting: every page's refcount equals the
-        chains holding it, the free list has no duplicates and holds
-        exactly the unreferenced pages."""
+        """Assert the pool's global accounting is consistent; raises
+        AssertionError naming the first violation.
+
+        The conservation law every admit/share/cow/cancel/preempt/
+        release interleaving must preserve (the cancellation path and
+        the fleet soak gate on this, and the hypothesis property test
+        drives random op sequences through it):
+
+          - every page's refcount equals the number of chains holding
+            it (the trie owns content, never references);
+          - the free list is disjoint from every chain and from the
+            trie, and holds no duplicates;
+          - refcount 0 <=> free or trie-evictable: every page is
+            exactly one of free / chain-referenced / cached-unref;
+          - the trie's evictable count matches its ref-0 owned pages.
+        """
         chain_refs = [0] * self.n_pages
         for b, chain in enumerate(self._chain):
             for p in chain:
@@ -287,17 +462,31 @@ class PageAllocator:
                 chain_refs[p] += 1
         free = set(self._free)
         assert len(free) == len(self._free), "free list holds duplicates"
+        owned = (self.cache.owned_pages() if self.cache is not None
+                 else set())
+        evictable = 0
         for p in range(self.n_pages):
             assert self._ref[p] == chain_refs[p], \
                 (f"page {p}: refcount {self._ref[p]} != "
                  f"{chain_refs[p]} chain references")
-            assert (p in free) == (chain_refs[p] == 0), \
-                f"page {p} is {'free' if p in free else 'leaked'} " \
-                f"with {chain_refs[p]} chain references"
+            if p in free:
+                assert chain_refs[p] == 0, \
+                    f"page {p} is free but referenced by a chain"
+                assert p not in owned, \
+                    f"page {p} is free but the trie still owns it"
+            elif chain_refs[p] == 0:
+                assert p in owned, \
+                    f"page {p} leaked: not free, not referenced, not cached"
+                evictable += 1
+        if self.cache is not None:
+            assert evictable == self.cache.evictable, \
+                (f"trie evictable counter {self.cache.evictable} != "
+                 f"{evictable} ref-0 owned pages")
 
     def table(self) -> np.ndarray:
         """(n_slots, pages_per_slot) int32 logical->physical map,
-        sentinel-filled (n_pages) where unallocated."""
+        sentinel-filled (n_pages) where unallocated.  Cached; rebuilt
+        only after an alloc/release."""
         if self._dirty or self._table is None:
             t = np.full((self.n_slots, self.pages_per_slot), self.n_pages,
                         np.int32)
@@ -307,6 +496,38 @@ class PageAllocator:
             self._table = t
             self._dirty = False
         return self._table
+
+
+def copy_pages(pool: dict, src: np.ndarray, dst: np.ndarray,
+               n_pages: int) -> dict:
+    """Copy whole physical pages src[i] -> dst[i] in every paged plane of
+    every member and layer, in place: the device half of copy-on-write
+    (PageAllocator.cow swaps a fresh dst page into a chain; the engine
+    calls this before any kernel writes the page).
+
+    src, dst: (B,) host id arrays; rows whose dst is the sentinel
+    (n_pages) are dropped here on the host, where the JAX package's
+    scatter drops them on the device.  Every source page is gathered
+    before any destination is written, so a src that is also another
+    row's dst (evicted and handed out again in the same admission
+    batch) is read first.  Enqueue order on the pool's stream puts the
+    copy after every earlier write of src and before every later write
+    of dst, as the donated buffer does in the JAX package."""
+    src, dst = np.asarray(src).reshape(-1), np.asarray(dst).reshape(-1)
+    keep = (dst >= 0) & (dst < n_pages)
+    if not keep.any():
+        return pool
+
+    def cp(name, x):  # paged leaves are (K, count, n_pages, page, ...)
+        if name.endswith("_pages"):
+            s = torch.as_tensor(np.clip(src[keep], 0, n_pages - 1),
+                                device=x.device)
+            d = torch.as_tensor(dst[keep], device=x.device)
+            x[:, :, d] = x[:, :, s]    # the right side is a gathered copy
+        return x
+
+    _map(pool["segments"], cp)
+    return pool
 
 
 def pool_bytes(pool: dict) -> int:

@@ -5,7 +5,8 @@ fused distillation loss, forward and backward; the rwkv6 wkv
 recurrence, chunked and single-step; Mamba's selective scan, short-T
 and long-T) against their plain PyTorch versions in every option, their
 input checks, and the engine and the trainer on the card against the
-CPU.  Each test skips where there is no CUDA device.
+CPU, including the prefix cache's copy-on-write (kv_cache.copy_pages)
+and a prefill that starts at a mid-page hit.  Each test skips where there is no CUDA device.
 No JAX import, so the file runs on a machine without JAX:
 
     python -m pytest tests/test_torch_cuda.py -q
@@ -22,6 +23,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import ssm_scan as ssk
 from repro_torch.kernels import wkv6 as wk
 from repro_torch.models import transformer as tf
+from repro_torch.serving import kv_cache
 from repro_torch.serving.engine import EnsembleEngine
 
 pytestmark = pytest.mark.cuda
@@ -379,6 +381,74 @@ def test_engine_on_card_matches_cpu(cuda):
         outs.append(eng.generate(prompts, 10))
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
+
+
+def test_copy_pages_on_card_matches_cpu(cuda):
+    """The device half of copy-on-write, on every member's every paged
+    plane: a sentinel row drops, and a source page that is also another
+    row's destination is read before it is written."""
+    cfg = registry.get_config("deepseek-7b", reduced=True).with_(
+        dtype="float32")
+    n_pages = 10
+    pools = [kv_cache.init_pool(cfg, 2, 3, 16, page_size=4,
+                                n_pages=n_pages, device=dev)
+             for dev in (cuda, "cpu")]
+    g = torch.Generator().manual_seed(0)
+    for (name, a), (_, b) in zip(kv_cache._leaves(pools[0]),
+                                 kv_cache._leaves(pools[1])):
+        if name.endswith("_pages"):
+            b.copy_(torch.randn(b.shape, generator=g))
+            a.copy_(b)
+    src = np.array([2, n_pages, 5], np.int32)
+    dst = np.array([5, n_pages, 7], np.int32)
+    old = [x.clone() for n, x in kv_cache._leaves(pools[1])
+           if n.endswith("_pages")]
+    for pool in pools:
+        kv_cache.copy_pages(pool, src, dst, n_pages)
+    torch.cuda.synchronize()
+    new = [(n, a, b) for (n, a), (_, b) in zip(kv_cache._leaves(pools[0]),
+                                               kv_cache._leaves(pools[1]))
+           if n.endswith("_pages")]
+    for (name, a, b), o in zip(new, old):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=0)
+        torch.testing.assert_close(b[:, :, 5], o[:, :, 2], rtol=0, atol=0)
+        torch.testing.assert_close(b[:, :, 7], o[:, :, 5], rtol=0, atol=0)
+
+
+def test_prefill_from_mid_page_hit_matches_cpu(cuda):
+    """A prefix hit that ends mid-page: the slot's page is copied on
+    write, its prefill starts at the hit (query positions from 13, not a
+    page boundary) through the CUDA flash kernel, and tokens and the
+    slot's written K/V equal the CPU engine's (the plain twin)."""
+    cfg = registry.get_config("deepseek-7b", reduced=True).with_(
+        dtype="float32")
+    params = tf.init(cfg, seed=0, device="cpu", members=2)
+    kw = dict(n_slots=2, max_prompt=24, max_out=6, prefill_chunk=8,
+              paged=True, page_size=4, prefix_cache=True)
+    p = np.arange(30, 50)
+    q = np.concatenate([p[:13], [7, 7, 7, 7, 7]])
+    toks, planes = [], []
+    for dev in (cuda, "cpu"):
+        eng = EnsembleEngine(cfg, params, device=dev, **kw)
+        first = eng.generate([p], 4)[0]
+        before = fa.flash_attention.launches
+        second = eng.generate([q], 4)[0]
+        assert eng.page_stats()["cow_pages"] == 1
+        assert eng.prefix.hit_tokens == 13
+        calls = -(-(len(q) - 13) // eng.prefill_chunk)
+        if dev is cuda:
+            torch.cuda.synchronize()
+            assert fa.flash_attention.launches - before == \
+                cfg.n_layers * calls
+        chain = list(eng.allocator.chain(0))
+        planes.append([x[:, :, chain].cpu() for n, x in
+                       kv_cache._leaves(eng.cache["segments"])
+                       if n.endswith("_pages")])
+        toks.append((first, second))
+    for a, b in zip(*toks):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(*planes):
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=2e-5)
 
 
 # (N, V, logits dtype, pseudo dtype, padded labels): the NiN main path's
