@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, one JSON line each, in the order 0, 1, 7, 10, 11, 2, 8, 9, 12,
-13, 3, 4, 5, 6:
+13, 3, 4, 5, 6, 14:
   0  the card's name and power limit; build every CUDA kernel from
      src/repro_torch/kernels/csrc (one nvcc per source, all at once);
      every kernel function's registers and spills (ptxas) and each
@@ -17,10 +17,12 @@ Phases, one JSON line each, in the order 0, 1, 7, 10, 11, 2, 8, 9, 12,
   7  the flash-attention kernel likewise, f32 and bf16, at the prefill's
      shapes (gemma3-1b over a 512 ring and over 576 gathered positions,
      deepseek-7b over 576, each plus a 128-token chunk, mid-prompt and
-     ragged tail) and the full forward's (top-left causal, T = S =
-     2048), beside one scaled_dot_product_attention call with the same
-     boolean mask, and the share of key tiles the kernel skips (its
-     predicate's twin, kernels/ref.flash_tile_live);
+     ragged tail), the full forward's (top-left causal, T = S = 2048)
+     and phase 14's relabel and eval chunk (16 sequences, T = S = 64,
+     gemma3-1b's heads, window 0 and 512), beside one
+     scaled_dot_product_attention call with the same boolean mask, and
+     the share of key tiles the kernel skips (its predicate's twin,
+     kernels/ref.flash_tile_live);
  10  the wkv6 kernel (the rwkv6 recurrence) likewise, f32, at rwkv6-7b's
      shapes: the decode step (16 rows, one token, a strided state view),
      a mid-prompt prefill chunk (4 rows, 128 tokens, a nonzero state and
@@ -84,8 +86,21 @@ Phases, one JSON line each, in the order 0, 1, 7, 10, 11, 2, 8, 9, 12,
      Eqn-9 distill steps); the kernels' launch counts must equal the
      formula printed, every loss be finite and the Jensen gap >= 0;
      device ms per step by CUDA events (no profiler) against host ms;
-  6  the card against the CPU on reduced NiN at f32: one plain and one
-     distill round, losses and evaluate() metrics within 1e-4.
+  6  the card against the CPU on reduced NiN (K=4, momentum SGD) and
+     reduced gemma3-1b (K=2, AdamW, dense and then top-8 labels) at f32:
+     one plain and one distill round each, losses and evaluate() metrics
+     within 1e-4;
+ 14  EC training at full width: gemma3-1b (bf16, 26 layers, d_model
+     1152, vocab 262144), K=4, AdamW, batch 8 of 64 tokens a member, 32
+     sequences a member, relabel 70% (22), tau 4, p 2: two rounds with
+     dense labels (round 1's two distill steps launch the fused kernels
+     at N 2048 x V 262144, once each way a step), then two with top-64
+     labels on a fresh trainer (no fused launch); every loss finite, the
+     Jensen gap >= 0, no flash launch inside a training step, the
+     formula's count in a relabel and at least the relabels' count over
+     the rounds (their evals add more), peak memory below 80 GB; host ms a
+     step beside the profiler's device busy ms (the idle share), relabel
+     seconds; the flash wrapper refuses an input that requires grad.
 Then the kernels line, the card line, and last the result line.  Any
 failure exits non-zero before the result line.  Imports nothing of JAX.
 """
@@ -367,7 +382,8 @@ def flash_positions(torch, N, S, C, idx, n_tok, ring_window):
 # name: (N, T, cache S (0: top-left T = S), H, Hkv, dh, window, idx, n_tok)
 # gemma3-1b: ring of 512 (local layers, window 512) and 576 gathered
 # positions (global layer) plus a 128 chunk; deepseek-7b: 576 gathered
-# plus the chunk; apply at T = S = 2048, top-left causal
+# plus the chunk; apply at T = S = 2048, top-left causal; phase 14's
+# relabel and eval: one member's chunk of 16 sequences at T = S = 64
 FLASH_CASES = {
     "gemma3_ring_mid": (4, 128, 512, 4, 1, 256, 512, 256, 128),
     "gemma3_ring_tail": (4, 128, 512, 4, 1, 256, 512, 256, 44),
@@ -378,6 +394,8 @@ FLASH_CASES = {
     "gemma3_apply_2048": (4, 2048, 0, 4, 1, 256, 0, 0, 0),
     "gemma3_apply_2048_w512": (4, 2048, 0, 4, 1, 256, 512, 0, 0),
     "deepseek_apply_2048": (4, 2048, 0, 32, 32, 128, 0, 0, 0),
+    "gemma3_relabel_64": (16, 64, 0, 4, 1, 256, 0, 0, 0),
+    "gemma3_relabel_64_w512": (16, 64, 0, 4, 1, 256, 512, 0, 0),
 }
 
 
@@ -1293,7 +1311,7 @@ def phase4(torch, flush, card):
     # loss rtol 1e-5 for both logits types: both sides read the same
     # values and sum in f32; dz: DZ_TOL
     loss_tol = 1e-5
-    main = {}
+    main, by_case = {}, {"fwd": {}, "bwd": {}}
     for name, N, V, zdt, pdt, pad in cases:
         z, y, p, lam = distill_inputs(torch, gen, N, V, zdt, pdt, pad)
         g = torch.tensor(1.0, device="cuda")
@@ -1348,11 +1366,12 @@ def phase4(torch, flush, card):
             if which == "bwd":
                 row.update(max_abs_err_scaled=err_scaled, rel_l1_err=rel_l1)
             emit(row)
+            by_case[which][name] = row
             if name == "nin_f32":
                 main[which] = row
         del z, p, zk, zr, got, want, dz, dz_ref, target, zl, lib_loss, fns
         torch.cuda.empty_cache()
-    return main
+    return main, by_case
 
 
 # ---------------------------------------------------------------------------
@@ -1516,40 +1535,247 @@ def phase5(torch, np, card):
 # phase 6: training on the card against the CPU
 # ---------------------------------------------------------------------------
 
+def trainer_on(dev, cfg, ec, opt, K, params, train, test, batch):
+    """Two rounds of a Trainer on `dev`, from the given numpy params:
+    -> [round loss, evaluate() values...] per round, then
+    evaluate_compressed()."""
+    from repro_torch.runtime.trainer import Trainer
+    tr = Trainer(cfg, ec, opt, K, 0, train, test, batch_size=batch, seed=1,
+                 params=params, device=dev)
+    rows = []
+    for _ in range(2):   # a plain round, then a distill round
+        rows.append(tr.run_round())
+        rows.extend(tr.evaluate().values())
+    rows.extend(tr.evaluate_compressed().values())
+    return rows
+
+
 def phase6(torch):
     from repro_torch import models
+    from repro_torch.common.tree import tree_map
     from repro_torch.common.types import ECConfig
     from repro_torch.configs import registry
-    from repro_torch.data import image_member_datasets
-    from repro_torch.optim import sgd_momentum
+    from repro_torch.data import image_member_datasets, lm_member_datasets
+    from repro_torch.optim import adamw, sgd_momentum
+    nin = registry.get_config("paper_nin").with_(d_model=48, vocab_size=10)
+    gemma = registry.get_config("gemma3-1b", reduced=True).with_(
+        dtype="float32")
+    nin_data = image_member_datasets(4, 64, n_classes=10, img=16, seed=0,
+                                     device="cpu")
+    lm_data = lm_member_datasets(2, 32, 16, gemma.vocab_size, seed=0,
+                                 device="cpu")
+    cases = {  # name: (config, K, optimizer, label mode, data, batch)
+        "paper_nin reduced (d_model 48, img 16, 10 classes)":
+            (nin, 4, lambda: sgd_momentum(0.02), "dense", nin_data, 16),
+        "gemma3-1b reduced, dense labels":
+            (gemma, 2, lambda: adamw(1e-3), "dense", lm_data, 4),
+        "gemma3-1b reduced, top-8 labels":
+            (gemma, 2, lambda: adamw(1e-3), "topk", lm_data, 4)}
+    for name, (cfg, K, opt, mode, (train, test), batch) in cases.items():
+        params = tree_map(lambda v: v.numpy(), models.init(
+            cfg, seed=0, device="cpu", members=K))
+        ec = ECConfig(tau=4 if K == 4 else 3, p_steps=2, lam=0.5,
+                      relabel_fraction=0.5, label_mode=mode, top_m=8,
+                      aggregator="ec")
+        out = {dev: trainer_on(dev, cfg, ec, opt(), K, params, train, test,
+                               batch) for dev in ("cuda", "cpu")}
+        got, want = (torch.tensor(out[d], dtype=torch.float64)
+                     for d in ("cuda", "cpu"))
+        err = (got - want).abs().max().item()
+        emit({"phase": 6, "arch": name, "dtype": "float32", "members": K,
+              "label_mode": mode, "values_compared": len(out["cpu"]),
+              "max_abs_err": err, "rtol": 1e-4})
+        # tolerance: the same f32 math, summed in another order on each
+        # device
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6,
+                                   msg=lambda m: f"{name}: {m}")
+
+
+# ---------------------------------------------------------------------------
+# phase 14: EC training of gemma3-1b at full width
+# ---------------------------------------------------------------------------
+
+LM_TRAIN = dict(members=4, batch=8, seq_len=64, per_member=32, relabel=0.7,
+                tau=4, p_steps=2, rounds=2, top_m=64, lr=1e-4)
+
+
+def lm_steps(torch, tr, n: int, distill: bool) -> list:
+    """n steps drawn as run_round draws them, each timed on the host from
+    its draw to a synchronise after it.  -> host ms of each.  The state
+    is updated in place (AdamW), so these steps come after the rounds
+    whose losses are reported."""
+    from repro_torch.data import sample_batch
+    lam = torch.tensor(0.25, device="cuda")
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if distill:
+            batch, pseudo = tr._sample_pseudo_batch()
+        else:
+            batch, pseudo = sample_batch(tr.rng, tr.shards, tr.batch), None
+        tr.state, _ = tr._plain_step(tr.state, batch, pseudo,
+                                     lam if distill else 0.0)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def lm_train_run(torch, np, card, mode: str) -> dict:
+    """Full-width gemma3-1b (bf16, 26 layers), K members, AdamW: two EC
+    rounds with `mode` pseudo-labels through Trainer.run_round, then the
+    parts of a round timed.  -> the phase's row."""
+    from repro_torch.common.types import ECConfig
+    from repro_torch.configs import registry
+    from repro_torch.data import lm_member_datasets
+    from repro_torch.kernels import distill_loss as dl
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.optim import adamw
     from repro_torch.runtime.trainer import Trainer
-    cfg = registry.get_config("paper_nin").with_(d_model=48, vocab_size=10)
-    K = 4
-    params = models.init(cfg, seed=0, device="cpu", members=K)
-    params = {k: v.numpy() for k, v in params.items()}
-    train, test = image_member_datasets(K, 64, n_classes=10, img=16,
-                                        seed=0, device="cpu")
-    ec = ECConfig(tau=4, p_steps=2, lam=0.5, relabel_fraction=0.5,
-                  label_mode="dense", aggregator="ec")
-    out = {}
-    for dev in ("cuda", "cpu"):
-        tr = Trainer(cfg, ec, sgd_momentum(0.02), K, 0, train, test,
-                     batch_size=16, seed=1, params=params, device=dev)
-        rows = []
-        for _ in range(2):   # a plain round, then a distill round
-            rows.append(tr.run_round())
-            rows.extend(tr.evaluate().values())
-        rows.extend(tr.evaluate_compressed().values())
-        out[dev] = rows
-    got, want = (torch.tensor(out[d], dtype=torch.float64)
-                 for d in ("cuda", "cpu"))
-    err = (got - want).abs().max().item()
-    emit({"phase": 6, "arch": "paper_nin reduced (d_model 48, img 16, "
-                              "10 classes)", "dtype": "float32",
-          "members": K, "values_compared": len(out["cpu"]),
-          "max_abs_err": err, "rtol": 1e-4})
-    # tolerance: the same f32 math, summed in another order on each device
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+    c = LM_TRAIN
+    cfg = registry.get_config("gemma3-1b")
+    K, B, T = c["members"], c["batch"], c["seq_len"]
+    ec = ECConfig(tau=c["tau"], p_steps=c["p_steps"], lam=0.5,
+                  relabel_fraction=c["relabel"], label_mode=mode,
+                  top_m=c["top_m"], aggregator="ec")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    train, test = lm_member_datasets(K, c["per_member"], T, cfg.vocab_size,
+                                     seed=0, device="cuda")
+    tr = Trainer(cfg, ec, adamw(c["lr"]), K, 0, train, test, batch_size=B,
+                 seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    dl.distill_loss_fwd.launches = dl.distill_loss_bwd.launches = 0
+    fa.flash_attention.launches = 0
+    losses, evals, round_s = [], [], []
+    for _ in range(c["rounds"]):
+        t0 = time.perf_counter()
+        losses.append(tr.run_round())
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t0)
+        evals.append(tr.evaluate())
+    launches = {"fwd": dl.distill_loss_fwd.launches,
+                "bwd": dl.distill_loss_bwd.launches}
+    # the relabels and evals of the rounds
+    flash_in_rounds = fa.flash_attention.launches
+    expected = (c["rounds"] - 1) * ec.p_steps if mode == "dense" else 0
+    for which, n in launches.items():
+        if n != expected:
+            raise AssertionError(f"gemma3-1b {mode}: distill_loss_{which} "
+                                 f"launched {n} times, expected {expected}")
+    for r, (loss, ev) in enumerate(zip(losses, evals)):
+        if not all(math.isfinite(v) for v in [loss, *ev.values()]):
+            raise AssertionError(f"round {r}: non-finite {loss}, {ev}")
+        gap = ev["local_loss"] - ev["global_loss"]
+        if gap < -1e-6:
+            raise AssertionError(f"round {r}: Jensen gap {gap} < 0")
+    # the parts of a round: training steps (no flash launch in them), a
+    # relabel (the flash kernel once per layer, member and chunk)
+    fa.flash_attention.launches = 0
+    plain = lm_steps(torch, tr, 3, False)
+    distill = lm_steps(torch, tr, 3, True)
+    flash_in_steps = fa.flash_attention.launches
+    if flash_in_steps:
+        raise AssertionError(f"the flash kernel launched {flash_in_steps} "
+                             f"times inside training steps")
+    n_seq = K * int(c["per_member"] * c["relabel"])
+    from repro_torch.core import aggregation as agg
+    rows = agg.chunk_rows({"tokens": tr.shards["tokens"][0]},
+                          cfg.vocab_size)
+    if rows != 16:  # the flash cases gemma3_relabel_64*'s N
+        raise AssertionError(f"a relabel chunk holds {rows} sequences")
+    chunks = -(-n_seq // rows)
+    flash_expected = cfg.n_layers * K * chunks
+    if flash_in_rounds < c["rounds"] * flash_expected:  # + the evals'
+        raise AssertionError(f"{c['rounds']} rounds launched the flash "
+                             f"kernel {flash_in_rounds} times, fewer than "
+                             f"their relabels' {flash_expected} each")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr._relabel()
+    torch.cuda.synchronize()
+    relabel_s = time.perf_counter() - t0
+    if fa.flash_attention.launches != flash_expected:
+        raise AssertionError(f"relabel launched the flash kernel "
+                             f"{fa.flash_attention.launches} times, expected "
+                             f"{flash_expected}")
+    prof = {name: profile_steps(torch, lambda d=d: lm_steps(torch, tr, 2, d),
+                                2, ["distill_", "gemm", "nvjet",
+                                    "elementwise_kernel", "reduce_kernel",
+                                    "flash_kernel"])
+            for name, d in (("plain", False), ("distill", True))}
+    peak = torch.cuda.max_memory_allocated()
+    if peak >= 80e9:
+        raise AssertionError(f"gemma3-1b {mode}: peak {peak} B >= 80 GB")
+    # AdamW's share of a step: one update (on zero gradients: the same
+    # work) timed alone by CUDA events, median of 3
+    from repro_torch.common.tree import tree_map
+    grads = tree_map(torch.zeros_like, tr.state["params"])
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    adamw_ms = time_ms(lambda: tr.opt.update(grads, tr.state["opt"],
+                                             tr.state["params"]),
+                       torch, flush, iters=3, warmup=1)
+    del grads, flush
+    step = {}
+    for name, times in (("plain", plain), ("distill", distill)):
+        ms = sorted(times)[1]
+        step[name] = {"host_ms": ms, "host_ms_runs": times,
+                      "device_busy_ms": prof[name]["busy_ms"],
+                      "idle_share": 1.0 - prof[name]["busy_ms"] / ms,
+                      "profiled_step_ms": prof[name]["wall_ms"],
+                      "kernel_ms": prof[name]["name_ms"],
+                      "top_kernels_ms": prof[name]["top"]}
+    row = {"phase": 14, "card": card, "arch": cfg.name, "dtype": cfg.dtype,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "members": K, "batch_per_member": B,
+           "seq_len": T, "per_member": c["per_member"],
+           "relabel_sequences": n_seq, "tau": ec.tau,
+           "p_steps": ec.p_steps, "rounds": c["rounds"], "label_mode": mode,
+           "top_m": ec.top_m if mode == "topk" else None,
+           "optimizer": f"adamw({c['lr']})",
+           "distill_rows": K * B * T if mode == "dense" else None,
+           "launch_formula": f"({c['rounds']} rounds - 1) x {ec.p_steps} "
+                             f"distill steps = {expected} each way"
+                             if mode == "dense" else "0: top-M labels",
+           "launches": launches, "flash_launches_in_steps": flash_in_steps,
+           "flash_launches_per_relabel": flash_expected,
+           "flash_launches_in_rounds": flash_in_rounds,
+           "round_loss": losses, "evaluate": evals,
+           "jensen_gap": [e["local_loss"] - e["global_loss"] for e in evals],
+           "init_s": init_s, "round_s": round_s,
+           "tokens_per_s": K * B * T * ec.tau / round_s[-1],
+           "plain_step_ms": step["plain"]["host_ms"],
+           "distill_step_ms": step["distill"]["host_ms"], "steps": step,
+           "adamw_update_device_ms": adamw_ms,
+           "relabel_s": relabel_s, "max_memory_allocated": peak}
+    emit(row)
+    return {**launches, "flash_attention": flash_in_rounds}
+
+
+def phase14(torch, np, card) -> dict:
+    """Dense labels, then top-M labels on a fresh trainer once the first
+    is freed; and the forward-only guard of kernels/ops.  -> the dense
+    run's distillation-kernel and flash-kernel launches."""
+    import gc
+    from repro_torch.kernels import ops
+    q = torch.randn(2, 8, 2, 32, device="cuda", requires_grad=True)
+    try:
+        ops.flash_attention(q, q.detach(), q.detach())
+    except RuntimeError as e:
+        if "forward-only" not in str(e):
+            raise
+    else:
+        raise AssertionError("flash_attention took an input that requires "
+                             "grad")
+    launches = lm_train_run(torch, np, card, "dense")
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_train_run(torch, np, card, "topk")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -1595,10 +1821,11 @@ def main() -> int:
         phase3(torch, np, arch)
         phase3_continuous(torch, np, arch)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    distill_rows = phase4(torch, flush, card)
+    distill_rows, distill_cases = phase4(torch, flush, card)
     del flush
     distill_launches = phase5(torch, np, card)
     phase6(torch)
+    lm_launches = phase14(torch, np, card)
 
     def entry(name, source, replaces, n, row, by_path=None):
         out = {"name": name, "route": "cuda", "source": source,
@@ -1615,6 +1842,8 @@ def main() -> int:
         out = {f"{arch} serve": n[kernel] for arch, n in launches.items()}
         if kernel in launches_cont:
             out["gemma3-1b continuous"] = launches_cont[kernel]
+        if kernel in lm_launches:
+            out["gemma3-1b train"] = lm_launches[kernel]
         return out
 
     def by_shape(rows):
@@ -1642,12 +1871,15 @@ def main() -> int:
                    serving("flash_attention")),
              by_shape=by_shape({name: row for (name, dt), row in
                                 flash_rows.items() if dt == "bfloat16"})),
-        entry("distill_loss_fwd", dsrc,
-              "src/repro/kernels/distill_loss.py:35",
-              distill_launches["fwd"], distill_rows["fwd"]),
-        entry("distill_loss_bwd", dsrc,
-              "src/repro/kernels/distill_loss.py:71",
-              distill_launches["bwd"], distill_rows["bwd"]),
+        # the NiN row; the 262k-vocab rows too, the shape of gemma3-1b's
+        # distill step (N 2048 x V 262144, bf16)
+        *(dict(entry(f"distill_loss_{which}", dsrc,
+                     f"src/repro/kernels/distill_loss.py:{line}",
+                     distill_launches[which], distill_rows[which],
+                     {"paper_nin train": distill_launches[which],
+                      "gemma3-1b train": lm_launches[which]}),
+               by_shape=by_shape(distill_cases[which]))
+          for which, line in (("fwd", 35), ("bwd", 71))),
         # the decode step's row; launches over decode and prefill both
         dict(entry("wkv6", "src/repro_torch/kernels/csrc/wkv6.cu",
                    "src/repro/kernels/wkv6.py:79",

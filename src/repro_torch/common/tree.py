@@ -1,5 +1,6 @@
 """Maps over parameter trees: nested dicts, lists and tuples of tensors
-(the JAX package's pytrees, as the port keeps them)."""
+(the JAX package's pytrees, as the port keeps them), NamedTuples
+included."""
 from __future__ import annotations
 
 from typing import Callable, List
@@ -13,8 +14,11 @@ def tree_map(fn: Callable, tree, *rest):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
-                          for i, v in enumerate(tree))
+        out = [tree_map(fn, v, *(r[i] for r in rest))
+               for i, v in enumerate(tree)]
+        # a NamedTuple (core/compression.TopM) takes its fields as args
+        return type(tree)(*out) if hasattr(tree, "_fields") \
+            else type(tree)(out)
     return fn(tree, *rest)
 
 

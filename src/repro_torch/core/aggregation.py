@@ -1,54 +1,105 @@
 """Aggregation for EC-DNN (the ensemble relabel) and the MA baseline.
 
 allgather_relabel: every member scores every member's relabel batch and
-  the K outputs are fused (Eqn 6) into each batch's pseudo-labels — the
-  JAX package's dense oracle.  The port scores member by member over all
-  K batches concatenated, so at most one member's activations are live
-  (about a quarter of the JAX form's (K, K, n, ...) member x batch
-  activations); the result is the same.
+  the K outputs are fused (Eqn 6) into each batch's pseudo-labels: dense
+  probs, or top-M accumulators (label_mode="topk") — the JAX package's
+  dense oracle.  The port scores the K batches concatenated, a chunk of
+  rows at a time and member by member, adding each member's weighted
+  output into one ensemble.StreamingEnsemble per chunk (`stream_logits`),
+  so at most one member's logits over one chunk are live; the result is
+  the same.  At gemma3's 262k vocabulary a member's logits over a K = 4
+  relabel set of 22 sequences of 64 tokens a member would be 5.9 GB in
+  f32.
 
 ma_aggregate: parameter mean over the member axis (MA-DNN).
 
 The ring protocol (data rotating around a member mesh) waits for the
-multi-device port (ROADMAP queue 1 item 12).  Straggler policy: a (K,)
-0/1 quorum mask; dropped members contribute nothing and the rest
-renormalize to 1/(K-r).
+multi-device port.  Straggler policy: a (K,) 0/1 quorum mask; dropped
+members contribute nothing and the rest renormalize to 1/(K-r).
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Iterator, Optional, Tuple
 
 import torch
 
 from repro_torch.common.tree import tree_leaves, tree_map
 from repro_torch.common.types import ECConfig
+from repro_torch.core import compression as comp
 from repro_torch.core import ensemble as ens
+
+# f32 logits one scoring call may return: 1,024 token rows at gemma3's
+# 262k vocabulary; a NiN relabel set (100 classes) scores in one call
+CHUNK_BYTES = 1 << 30
+
+
+def chunk_rows(inputs: dict, n_out: int) -> int:
+    """Input rows (images, or sequences of T tokens) one scoring call
+    takes, so that its f32 logits over n_out classes stay within
+    CHUNK_BYTES."""
+    per_row = inputs["tokens"].shape[-1] if "tokens" in inputs else 1
+    return max(1, CHUNK_BYTES // (4 * per_row * n_out))
+
+
+def stream_logits(stacked_params, inputs: dict, logits_fn: Callable,
+                  n_out: int, fold: bool = False
+                  ) -> Iterator[Tuple[slice, int, torch.Tensor]]:
+    """Score inputs {name: (n, ...)}, shared by every member, a chunk of
+    chunk_rows rows at a time and, within it, member by member.  ->
+    yields (rows, member k, member k's logits (len(rows), ..., V)).
+    fold=True scores the K members in one call when all their logits
+    fit CHUNK_BYTES (the eval's test rows; the relabel's rows are
+    already K members' batches, so it scores a member at a time).
+    logits_fn takes member-stacked params and a batch with a leading
+    member axis, as steps.make_logits_fn's do."""
+    K = tree_leaves(stacked_params)[0].shape[0]
+    n = tree_leaves(inputs)[0].shape[0]
+    rows = chunk_rows(inputs, n_out)
+    if fold and K * n <= rows:
+        logits = logits_fn(stacked_params, {
+            name: v[None].expand(K, *v.shape) for name, v in inputs.items()})
+        for k in range(K):
+            yield slice(0, n), k, logits[k]
+        return
+    for s in range(0, n, rows):
+        sl = slice(s, min(s + rows, n))
+        chunk = {name: v[None, sl] for name, v in inputs.items()}
+        for k in range(K):
+            member = tree_map(lambda x: x[k:k + 1], stacked_params)
+            yield sl, k, logits_fn(member, chunk)[0]
 
 
 @torch.no_grad()
 def allgather_relabel(stacked_params, batches: dict, logits_fn: Callable,
-                      ec: ECConfig,
-                      quorum: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """-> dense pseudo-labels (K, n, ..., V) for each member's own batch.
+                      ec: ECConfig, quorum: Optional[torch.Tensor] = None,
+                      *, n_out: int):
+    """-> pseudo-labels for each member's own batch: dense probs (K, n,
+    ..., V), or a TopM with leading (K, n, ...) in label_mode "topk".
 
     stacked_params: tree with leading K; batches: dict of (K, n, ...)
-    tensors (each member's relabel inputs); logits_fn(params, batch)
-    takes member-stacked params and a batch with a leading member axis
-    and returns (K, n, ..., V)."""
-    if ec.label_mode == "topk":
-        raise NotImplementedError(
-            "top-M pseudo-labels (label_mode='topk') need "
-            "core/compression.py, not ported yet (ROADMAP queue 1 item 6)")
+    tensors (each member's relabel inputs); n_out: the classes (V) the
+    logits span."""
     K, n = tree_leaves(batches)[0].shape[:2]
-    every = {k: v.reshape(1, K * n, *v.shape[2:]) for k, v in
-             batches.items()}
-    all_logits = []
-    for m in range(K):
-        member = tree_map(lambda x: x[m:m + 1], stacked_params)
-        lg = logits_fn(member, every)              # (1, K*n, ..., V)
-        all_logits.append(lg.reshape(K, n, *lg.shape[2:]))
-    return ens.ensemble_probs(torch.stack(all_logits), weights=quorum,
-                              average_probs=ec.average_probs)
+    every = {name: v.reshape(K * n, *v.shape[2:])
+             for name, v in batches.items()}
+    device = tree_leaves(batches)[0].device
+    out = fused = None
+    for sl, k, logits in stream_logits(stacked_params, every, logits_fn,
+                                       n_out):
+        if k == 0:
+            fused = ens.StreamingEnsemble(K, quorum, ec.average_probs,
+                                          device)
+        fused.add(k, logits)
+        if k < K - 1:
+            continue
+        probs = fused.probs()
+        res = comp.from_dense(probs, ec.top_m) \
+            if ec.label_mode == "topk" else probs
+        if out is None:
+            out = tree_map(lambda x: x.new_empty((K * n, *x.shape[1:])),
+                           res)
+        tree_map(lambda o, x: o[sl].copy_(x), out, res)
+    return tree_map(lambda o: o.reshape(K, n, *o.shape[1:]), out)
 
 
 @torch.no_grad()

@@ -2,12 +2,14 @@
 
   L = CE(f(x), y_true) + lambda * CE(f(x), y_pseudo)
 
-y_pseudo is the ensemble output distribution, dense (..., V) probs on
-the faithful CIFAR path.  lambda anneals linearly from lam0 to 0 over p
-steps (paper: lam0=0.5, p=tau/2), so the compression phase is the start
-of the next local-training phase.  The dense dual CE goes through
-kernels/ops.fused_distill_loss: the hand-written CUDA kernel pair on the
-card, its plain version on the CPU.
+y_pseudo is the ensemble output distribution: dense (..., V) probs, or
+a core/compression.TopM accumulator at LM vocabularies.  lambda anneals
+linearly from lam0 to 0 over p steps (paper: lam0=0.5, p=tau/2), so the
+compression phase is the start of the next local-training phase.  The
+dense dual CE goes through kernels/ops.fused_distill_loss: the
+hand-written CUDA kernel pair on the card, its plain version on the
+CPU.  The top-M branch is plain PyTorch, as it is plain jnp in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import compression as comp
 from repro_torch.kernels import ops
 
 
@@ -35,24 +38,48 @@ def pseudo_ce_dense(logits: torch.Tensor,
     return -(pseudo_probs * logp).sum(-1).mean()
 
 
-def true_ce(logits: torch.Tensor, labels: torch.Tensor,
-            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    logp = torch.log_softmax(logits.float(), dim=-1)
+def _topm_ce(logp: torch.Tensor, t: comp.TopM) -> torch.Tensor:
+    t = comp.normalize(t)
+    w = t.vals / t.vals.sum(-1).clamp_min(1e-30)[..., None]
+    gathered = logp.gather(-1, t.idx.clamp_min(0).long())
+    gathered = torch.where(t.idx < 0, 0.0, gathered)
+    return -(w * gathered).sum(-1).mean()
+
+
+def pseudo_ce_topm(logits: torch.Tensor, t: comp.TopM) -> torch.Tensor:
+    """Sparse CE against a TopM target, mean over rows.  Only the kept
+    classes contribute (the pruned mass's CE is unknowable after
+    compression); the targets are renormalized over the kept entries,
+    so the loss stays a proper CE up to the documented L1 bound."""
+    return _topm_ce(torch.log_softmax(logits.float(), dim=-1), t)
+
+
+def _gold_nll(logp: torch.Tensor, labels: torch.Tensor,
+              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     gold = logp.gather(-1, labels.long()[..., None])[..., 0]
     if mask is not None:
         return -(gold * mask).sum() / mask.sum().clamp_min(1.0)
     return -gold.mean()
 
 
+def true_ce(logits: torch.Tensor, labels: torch.Tensor,
+            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return _gold_nll(torch.log_softmax(logits.float(), dim=-1), labels,
+                     mask)
+
+
 def mixed_ce(logits: torch.Tensor, labels: torch.Tensor, pseudo,
              lam) -> torch.Tensor:
     """Eqn 9, mean over rows.  pseudo=None degrades to plain CE; dense
     pseudo-labels (..., V) go through the fused kernel (one launch over
-    all rows each way on the card)."""
+    all rows each way on the card); a TopM target shares one log-softmax
+    between the two CE terms."""
     if pseudo is None:
         return true_ce(logits, labels)
+    if isinstance(pseudo, comp.TopM):
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        return _gold_nll(logp, labels) + lam * _topm_ce(logp, pseudo)
     if not torch.is_tensor(pseudo):
-        raise NotImplementedError(
-            "top-M pseudo-labels (label_mode='topk') need "
-            "core/compression.py, not ported yet (ROADMAP queue 1 item 6)")
+        raise TypeError(f"pseudo-labels are dense probs or a "
+                        f"core/compression.TopM, not {type(pseudo).__name__}")
     return ops.fused_distill_loss(logits, labels, pseudo, lam)

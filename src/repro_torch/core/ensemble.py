@@ -1,9 +1,11 @@
 """Model aggregation: ensemble (Eqn 6) vs model-average (Eqn 3).
 
-All functions take a leading member axis K.  `ensemble_probs` averages
-member OUTPUTS; every standard loss is convex in the output distribution,
-so by Jensen L(G_E(x), y) <= (1/K) sum_k L(f(w_k; x), y), and
-`jensen_gap` returns that (always >= 0) slack.  `ma_average` averages
+The stacked functions take a leading member axis K; `StreamingEnsemble`
+takes one member at a time (the trainer's relabel and eval, where K
+members' logits at an LM vocabulary would not fit).  `ensemble_probs`
+averages member OUTPUTS; every standard loss is convex in the output
+distribution, so by Jensen L(G_E(x), y) <= (1/K) sum_k L(f(w_k; x), y),
+and `jensen_gap` returns that (always >= 0) slack.  `ma_average` averages
 member PARAMETERS, for which no such bound exists.  The serving engine
 fuses in log space with `ensemble_log_probs` under a (K,) quorum vector,
 so a dropped member contributes exactly nothing.
@@ -21,24 +23,58 @@ def member_log_probs(logits: torch.Tensor) -> torch.Tensor:
     return torch.log_softmax(logits.float(), dim=-1)
 
 
+class StreamingEnsemble:
+    """Eqn 6 over members that arrive one at a time, so that no more
+    than one member's logits need be live: `add` member k's (..., V)
+    logits, then `probs` -> the (..., V) ensemble distribution.
+
+    average_probs=True accumulates sum_k w_k softmax(z_k), the paper's
+    Eqn 6; False accumulates sum_k w_k z_k and takes its softmax (the
+    geometric-mean ensemble).  `weights` (K,) reweights members
+    (straggler drop); they are normalized to 1."""
+
+    def __init__(self, K: int, weights: Optional[torch.Tensor] = None,
+                 average_probs: bool = True, device=None):
+        w = torch.ones((K,), device=device) if weights is None \
+            else weights.float()
+        self.w = w / w.sum().clamp_min(1e-9)
+        self.average_probs = average_probs
+        self.acc = None
+
+    def add(self, k: int, logits: torch.Tensor) -> None:
+        lg = logits.float()
+        part = (torch.softmax(lg, dim=-1) if self.average_probs else lg) \
+            * self.w[k]
+        self.acc = part if self.acc is None else self.acc.add_(part)
+
+    def probs(self) -> torch.Tensor:
+        return self.acc if self.average_probs \
+            else torch.softmax(self.acc, dim=-1)
+
+
+def gold_nll(probs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """(..., V) distribution, (...) int labels -> (...) -log p[label]."""
+    gold = probs.gather(-1, labels.long()[..., None])[..., 0]
+    return -torch.log(gold.clamp_min(1e-30))
+
+
+def member_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """(..., V) logits, (...) int labels -> (...) cross-entropy."""
+    lp = member_log_probs(logits)
+    return -lp.gather(-1, labels.long()[..., None])[..., 0]
+
+
 def ensemble_probs(member_logits: torch.Tensor,
                    weights: Optional[torch.Tensor] = None,
                    average_probs: bool = True) -> torch.Tensor:
-    """(K, ..., V) member logits -> (..., V) ensemble distribution.
-
-    average_probs=True is the paper's Eqn 6 (mean of softmax outputs);
-    False averages logits first (geometric-mean ensemble).  `weights`
-    (K,) reweights members (straggler drop); they are normalized to 1."""
+    """(K, ..., V) member logits -> (..., V) ensemble distribution, by
+    StreamingEnsemble."""
     K = member_logits.shape[0]
-    w = torch.ones((K,), device=member_logits.device) if weights is None \
-        else weights.float()
-    w = w / w.sum().clamp_min(1e-9)
-    wb = w.reshape((K,) + (1,) * (member_logits.dim() - 1))
-    if average_probs:
-        p = torch.softmax(member_logits.float(), dim=-1)
-        return (p * wb).sum(dim=0)
-    lg = (member_logits.float() * wb).sum(dim=0)
-    return torch.softmax(lg, dim=-1)
+    fused = StreamingEnsemble(K, weights, average_probs,
+                              member_logits.device)
+    for k in range(K):
+        fused.add(k, member_logits[k])
+    return fused.probs()
 
 
 def quorum_weights(mask: torch.Tensor) -> torch.Tensor:
@@ -72,19 +108,15 @@ def ensemble_log_probs(member_logits: torch.Tensor,
 def ensemble_nll(member_logits: torch.Tensor, labels: torch.Tensor,
                  weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Cross-entropy of the ensemble distribution against int labels."""
-    p = ensemble_probs(member_logits, weights)
-    gold = p.gather(-1, labels.long()[..., None])[..., 0]
-    return -torch.log(gold.clamp_min(1e-30)).mean()
+    return gold_nll(ensemble_probs(member_logits, weights), labels).mean()
 
 
 def mean_member_nll(member_logits: torch.Tensor,
                     labels: torch.Tensor) -> torch.Tensor:
     """Mean over members of each member's cross-entropy; labels are
     shared by the members, (...) or (K, ...)."""
-    lp = member_log_probs(member_logits)
     y = labels.long().expand(member_logits.shape[:-1])
-    gold = lp.gather(-1, y[..., None])[..., 0]
-    return -gold.flatten(1).mean(1).mean()
+    return member_nll(member_logits, y).flatten(1).mean(1).mean()
 
 
 def jensen_gap(member_logits: torch.Tensor,

@@ -1,11 +1,16 @@
-"""Deterministic synthetic image data with learnable structure.
+"""Deterministic synthetic datasets with learnable structure.
 
-The faithful CIFAR-100 experiment runs on a synthetic stand-in with the
+Images: the faithful CIFAR-100 experiment runs on a synthetic stand-in with the
 same shape contract (32x32x3, 100 classes) and genuine class structure:
 class prototypes + Gaussian noise + random horizontal flips (the paper's
 only augmentation).  Each ensemble member holds a disjoint shard, like
-the paper's random partition of the training set.  The draws come from a
-torch.Generator on the target device, so the numbers differ from the
+the paper's random partition of the training set.
+
+LM streams: affine-recurrent token sequences x_{t+1} = (a*x_t + b) mod V
+with per-sequence (a, b) drawn from a small pool, plus noise tokens: a
+next-token task a small transformer provably reduces below uniform CE.
+
+The draws come from a torch.Generator on the target device, so the numbers differ from the
 JAX package's jax.random draws; tests hand both packages the same numpy
 arrays instead.
 
@@ -51,6 +56,46 @@ def image_member_datasets(n_members: int, per_member: int,
     train = {"images": xtr.reshape(n_members, per_member, img, img, 3),
              "labels": ytr.reshape(n_members, per_member)}
     test = {"images": xte, "labels": yte}
+    return train, test
+
+
+def _affine_stream(gen: torch.Generator, n_seq: int, seq_len: int,
+                   vocab: int, n_rules: int = 0, noise_p: float = 0.05):
+    """n_rules=0 scales the pool with the vocab (vocab//4, clamped to
+    [2, 16]), as the JAX package does, so a small vocab keeps its bigram
+    structure.  The recurrence is taken in int64 (a*x stays exact at a
+    262k vocab)."""
+    if n_rules <= 0:
+        n_rules = min(16, max(2, vocab // 4))
+    dev = gen.device
+    draw = lambda lo, hi, shape: torch.randint(  # noqa: E731
+        lo, hi, shape, generator=gen, device=dev)
+    rule_a = draw(1, max(vocab - 1, 2), (n_rules,))
+    rule_b = draw(0, vocab, (n_rules,))
+    rid = draw(0, n_rules, (n_seq,))
+    a, b, x = rule_a[rid], rule_b[rid], draw(0, vocab, (n_seq,))
+    toks = torch.empty((n_seq, seq_len), dtype=torch.int64, device=dev)
+    for t in range(seq_len):
+        x = (x * a + b) % vocab
+        toks[:, t] = x
+    noise = torch.rand(toks.shape, generator=gen, device=dev) < noise_p
+    return torch.where(noise, draw(0, vocab, toks.shape), toks).int()
+
+
+def lm_member_datasets(n_members: int, per_member: int, seq_len: int,
+                       vocab: int, seed: int = 0,
+                       device: DeviceLike = None) -> Tuple[dict, dict]:
+    """-> (train shards {tokens, labels (K, n, T) int32}, test set
+    {tokens, labels (n_test, T)}); labels are the tokens shifted by one.
+    On the card unless `device` says otherwise."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    tr = _affine_stream(gen, n_members * per_member, seq_len + 1, vocab)
+    te = _affine_stream(gen, max(per_member // 2, 32), seq_len + 1, vocab)
+    train = {"tokens": tr[:, :-1].reshape(n_members, per_member, seq_len),
+             "labels": tr[:, 1:].reshape(n_members, per_member, seq_len)}
+    test = {"tokens": te[:, :-1], "labels": te[:, 1:]}
     return train, test
 
 

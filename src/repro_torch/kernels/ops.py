@@ -2,9 +2,15 @@
 plain PyTorch version (kernels/ref.py) on the CPU.
 
 There is no switch and no fallback: a CUDA tensor always goes to the
-hand-written kernel, which launches or raises.
+hand-written kernel, which launches or raises.  The attention and
+recurrence kernels are forward-only: on the card they refuse an input
+that requires grad while grad mode is on (their output would carry no
+gradient), where the plain versions on the CPU would differentiate.
+Training takes the models' plain routes (transformer.apply(remat=True)).
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import distill_loss as dl
 from repro_torch.kernels import flash_attention as fa
@@ -14,6 +20,15 @@ from repro_torch.kernels import ssm_scan as ss
 from repro_torch.kernels import wkv6 as wk
 
 
+def _forward_only(name: str, *tensors) -> None:
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel is forward-only and an input requires "
+            f"grad; train through the plain route "
+            f"(transformer.apply(remat=True))")
+
+
 def paged_attention(q, k_pages, v_pages, table, lens, window: int = 0,
                     scale=None, k_scale=None, v_scale=None, k_extra=None):
     """Decode attention over a paged KV pool; see kernels/ref.py for the
@@ -21,6 +36,7 @@ def paged_attention(q, k_pages, v_pages, table, lens, window: int = 0,
     kw = dict(window=window, scale=scale, k_scale=k_scale, v_scale=v_scale,
               k_extra=k_extra)
     if q.is_cuda:
+        _forward_only("paged_attention", q, k_pages, v_pages, k_extra)
         return pa.paged_attention(q, k_pages, v_pages, table, lens, **kw)
     if q.device.type == "cpu":
         return ref.paged_attention(q, k_pages, v_pages, table, lens, **kw)
@@ -36,6 +52,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     kw = dict(causal=causal, window=window, scale=scale, q_pos=q_pos,
               k_pos=k_pos)
     if q.is_cuda:
+        _forward_only("flash_attention", q, k, v)
         return fa.flash_attention(q, k, v, **kw)
     if q.device.type == "cpu":
         return ref.attention(q, k, v, **kw)
@@ -61,6 +78,7 @@ def wkv6(r, k, v, log_w, u, state):
     kernels/ref.wkv6.  On the card one launch covers every row and
     head."""
     if r.is_cuda:
+        _forward_only("wkv6", r, k, v, log_w, u, state)
         return wk.wkv6(r, k, v, log_w, u, state)
     if r.device.type == "cpu":
         N, _, H, dh = r.shape
@@ -77,6 +95,7 @@ def ssm_scan(a, b, state):
     See kernels/ref.ssm_scan.  On the card one launch covers every row
     and state element."""
     if a.is_cuda:
+        _forward_only("ssm_scan", a, b, state)
         return ss.ssm_scan(a, b, state)
     if a.device.type == "cpu":
         N, _, D, Ns = a.shape

@@ -3,14 +3,19 @@ sync-SGD rounds of K members on one device.
 
 Runs on the card unless --device cpu.  The default is the paper's own
 setup: NiN (paper_nin) on 32x32x3 synthetic CIFAR-100 stand-in data
-with dense pseudo-labels, whose compression steps go through the fused
-distillation kernel.  Top-M pseudo-labels and checkpoints come with
-their ports (ROADMAP queue 1 items 6 and 7).
+with momentum SGD and dense pseudo-labels, whose compression steps go
+through the fused distillation kernel.  The attention LMs (gemma3-1b,
+deepseek-7b) train with AdamW on synthetic affine token streams, with
+dense or top-M (--label-mode topk) pseudo-labels.  Checkpoints wait for
+checkpoint/store.py's port.
 
   python -m repro_torch.launch.train --arch paper_nin --members 4 \
       --rounds 4 --tau 16 --p-steps 8 --batch 64 --per-member 1024
   python -m repro_torch.launch.train --device cpu --members 2 \
       --rounds 2 --tau 2 --p-steps 1 --batch 4 --per-member 16
+  python -m repro_torch.launch.train --arch gemma3-1b --reduced \
+      --label-mode topk --device cpu --members 2 --rounds 2 --tau 2 \
+      --p-steps 1 --batch 2 --per-member 8 --seq-len 16
 
 Prints one line per round (the last step's training loss, then the
 members' and the ensemble's test NLL and error) and the EC-DNN_L pick.
@@ -30,6 +35,8 @@ def main(argv=None) -> int:
                     help="use the smoke-scale config")
     ap.add_argument("--aggregator", default="ec",
                     choices=["ec", "ma", "sync"])
+    ap.add_argument("--label-mode", default="dense",
+                    choices=["dense", "topk"])
     ap.add_argument("--members", type=int, default=4)
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--tau", type=int, default=16)
@@ -38,6 +45,7 @@ def main(argv=None) -> int:
     ap.add_argument("--relabel-fraction", type=float, default=0.7)
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--per-member", type=int, default=256)
+    ap.add_argument("--seq-len", type=int, default=64)
     ap.add_argument("--lr", type=float, default=5e-3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--straggler-drop", type=int, default=0,
@@ -50,8 +58,8 @@ def main(argv=None) -> int:
     from repro_torch.common.device import resolve_device
     from repro_torch.common.types import ECConfig
     from repro_torch.configs import registry
-    from repro_torch.data import image_member_datasets
-    from repro_torch.optim import sgd_momentum
+    from repro_torch.data import image_member_datasets, lm_member_datasets
+    from repro_torch.optim import adamw, sgd_momentum
     from repro_torch.runtime.trainer import Trainer
 
     device = resolve_device(args.device)
@@ -59,19 +67,22 @@ def main(argv=None) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     cfg = registry.get_config(args.arch, reduced=args.reduced)
-    if cfg.family != "cnn":
-        raise SystemExit(f"training {args.arch!r} is not ported yet: the "
-                         f"port trains the CNN (paper_nin)")
     rng = np.random.default_rng(args.seed)
-    train, test = image_member_datasets(
-        args.members, args.per_member, n_classes=cfg.vocab_size,
-        seed=args.seed, device=device)
+    if cfg.family == "cnn":
+        train, test = image_member_datasets(
+            args.members, args.per_member, n_classes=cfg.vocab_size,
+            seed=args.seed, device=device)
+        opt = sgd_momentum(args.lr, momentum=0.9)
+    else:
+        train, test = lm_member_datasets(
+            args.members, args.per_member, args.seq_len, cfg.vocab_size,
+            seed=args.seed, device=device)
+        opt = adamw(args.lr)
     ec = ECConfig(tau=args.tau, lam=args.lam, p_steps=args.p_steps,
                   relabel_fraction=args.relabel_fraction,
-                  label_mode="dense", aggregator=args.aggregator)
-    tr = Trainer(cfg, ec, sgd_momentum(args.lr, momentum=0.9), args.members,
-                 args.seed, train, test, batch_size=args.batch,
-                 seed=args.seed, device=device)
+                  label_mode=args.label_mode, aggregator=args.aggregator)
+    tr = Trainer(cfg, ec, opt, args.members, args.seed, train, test,
+                 batch_size=args.batch, seed=args.seed, device=device)
 
     for r in range(args.rounds):
         mask = None

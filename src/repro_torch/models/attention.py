@@ -10,7 +10,8 @@ relies on buffer donation; here the functions write through the views
 they are given (so a slot row taken with kv_cache.slot_row writes into
 the pool) and return only the attention output.
 
-Kernels: the full-sequence forward (`gqa_apply`) and both chunked
+Kernels: the full-sequence forward (`gqa_apply`, but for its training
+route, which takes `attend`) and both chunked
 prefills (`gqa_prefill` over a ring, `gqa_prefill_paged` over gathered
 pages, each plus the chunk) go through kernels/ops.flash_attention, one
 call per layer with the K members folded into its rows; paged decode
@@ -195,15 +196,24 @@ def _out(params, o: torch.Tensor, K: int, B: int) -> torch.Tensor:
 
 def gqa_apply(params: dict, x: torch.Tensor, a: AttnConfig,
               cfg: ModelConfig, positions: torch.Tensor, window: int,
-              theta: float, causal: bool = True) -> torch.Tensor:
+              theta: float, causal: bool = True,
+              train: bool = False) -> torch.Tensor:
     """x (K, B, T, d), positions (B, T) -> (K, B, T, d).  positions are
     0..T-1 in every row (transformer.apply's), so the attention mask is
-    the flash kernel's top-left one."""
+    the flash kernel's top-left one.
+
+    The flash kernel is forward-only.  train=True takes the training
+    route instead: `attend`, plain PyTorch that autograd differentiates,
+    as the JAX package trains through its jnp attend."""
     K, B, T, _ = x.shape
     q, k, v = _qkv(params, x, a, cfg, positions, theta)
-    o = ops.flash_attention(_fold(q), _fold(k), _fold(v), causal=causal,
-                            window=window,
-                            scale=1.0 / math.sqrt(a.head_dim))
+    scale = 1.0 / math.sqrt(a.head_dim)
+    if train:
+        o = attend(_fold(q), _fold(k), _fold(v), positions[0],
+                   positions[0], window=window, causal=causal, scale=scale)
+    else:
+        o = ops.flash_attention(_fold(q), _fold(k), _fold(v),
+                                causal=causal, window=window, scale=scale)
     return _out(params, o, K, B)
 
 

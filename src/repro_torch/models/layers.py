@@ -119,8 +119,14 @@ def embed_init(gen, lead, vocab: int, d_model: int, dtype) -> dict:
 
 def embed_lookup(params: dict, tokens: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
-    """tokens (...) shared by all members -> (K, ..., d)."""
-    x = params["embed"][:, tokens.long()]
+    """tokens (B, T) shared by all members, or (K, B, T) with one batch
+    per member (training) -> (K, B, T, d)."""
+    table = params["embed"]
+    if tokens.dim() == 3:
+        k = torch.arange(table.shape[0], device=tokens.device)
+        x = table[k[:, None, None], tokens.long()]
+    else:
+        x = table[:, tokens.long()]
     if cfg.scale_embeddings:
         # the scale is cast to the embed dtype first, as the JAX package does
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,

@@ -1,4 +1,4 @@
-"""Transformer LM assembly for the serving path: pattern-driven blocks
+"""Transformer LM assembly for serving and training: pattern-driven blocks
 over the member-stacked params.  A block is a pre-norm mixer, attention
 (GQA, ring or paged), Mamba or rwkv6's time-mix (models/ssm.py), then a
 pre-norm FFN: a dense MLP, a MoE (models/moe.py) or rwkv6's channel-mix.
@@ -12,7 +12,7 @@ run batched inside every op.
 
 Entry points
   init(cfg, seed, device, members)          -> stacked params
-  apply(params, cfg, tokens)                -> (logits (K,B,T,V), aux (K,))
+  apply(params, cfg, tokens, remat)         -> (logits (K,B,T,V), aux (K,))
   init_slot_cache(cfg, batch, max_seq, ...) -> slot-addressable cache
   decode_step_slots / decode_step_paged     -> (logits (K,B,1,V), cache)
   prefill_slots / prefill_step_paged        -> (last logits (K,B,V), cache)
@@ -27,6 +27,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.device import DeviceLike, resolve_device, torch_dtype
 from repro_torch.common.types import LayerSpec, ModelConfig
@@ -134,37 +135,62 @@ def _moe(p, cfg: ModelConfig, h: torch.Tensor, per_row: bool):
     return y.reshape(K, B, S, d), aux.sum(1)
 
 
-def apply(params, cfg: ModelConfig, tokens: torch.Tensor):
-    """tokens (B, T) -> (logits (K, B, T, V), aux): aux is the MoE
-    layers' summed load-balance loss per member, (K,), or 0.0 for a
-    model without MoE, as the JAX package's apply returns it."""
+def _block(p, spec: LayerSpec, cfg: ModelConfig, x: torch.Tensor,
+           pos: torch.Tensor, train: bool):
+    """One block of the full-sequence forward -> (x, aux of its MoE, or
+    0.0)."""
+    T = x.shape[2]
+    h_in = rmsnorm(p["norm_mix"], x, cfg.norm_eps)
+    if spec.mixer == "rwkv":
+        x = x + ssm.rwkv_apply(p["rwkv"], h_in, cfg)
+    elif spec.mixer == "mamba":
+        x = x + ssm.mamba_apply(p["mamba"], h_in, cfg)
+    else:
+        window, theta = _mixer_window(cfg, spec)
+        x = x + attn.gqa_apply(p["attn"], h_in, cfg.attn, cfg, pos, window,
+                               theta, train=train)
+    h_f = rmsnorm(p["norm_ffn"], x, cfg.norm_eps)
+    aux = 0.0
+    if spec.ffn == "rwkv_cmix":
+        x_prev = F.pad(h_f, (0, 0, 1, 0))[:, :, :T]
+        x = x + ssm.cmix_apply(p["cmix"], h_f, x_prev)
+    elif spec.ffn == "moe":
+        h, aux = _moe(p, cfg, h_f, per_row=False)
+        x = x + h
+    else:
+        x = x + mlp_apply(p["mlp"], h_f, cfg.ffn.mlp_type)
+    return x, aux
+
+
+def apply(params, cfg: ModelConfig, tokens: torch.Tensor,
+          remat: bool = False):
+    """tokens (B, T) shared by all members, or (K, B, T) with one batch
+    per member -> (logits (K, B, T, V), aux): aux is the MoE layers'
+    summed load-balance loss per member, (K,), or 0.0 for a model
+    without MoE, as the JAX package's apply returns it.
+
+    remat=False is the forward-only route (relabel, eval, serving):
+    attention goes through ops.flash_attention, which on the card is the
+    hand-written kernel and has no backward.  remat=True is the training
+    route, the counterpart of the JAX package's remat=True: each block
+    runs under torch.utils.checkpoint (its activations recomputed in the
+    backward) and attention through attention.attend."""
     _check_supported(cfg)
     x = embed_lookup(params, tokens, cfg)
-    B, T = tokens.shape
+    B, T = tokens.shape[-2:]
     pos = torch.arange(T, device=x.device).expand(B, T)
     aux = 0.0
     for seg, (count, specs) in zip(params["segments"], cfg.segments()):
         for c in range(count):
             for i, spec in enumerate(specs):
                 p = _layer(seg[f"slot_{i}"], c)
-                h_in = rmsnorm(p["norm_mix"], x, cfg.norm_eps)
-                if spec.mixer == "rwkv":
-                    x = x + ssm.rwkv_apply(p["rwkv"], h_in, cfg)
-                elif spec.mixer == "mamba":
-                    x = x + ssm.mamba_apply(p["mamba"], h_in, cfg)
+                if remat:
+                    x, a = checkpoint(_block, p, spec, cfg, x, pos, True,
+                                      use_reentrant=False,
+                                      preserve_rng_state=False)
                 else:
-                    window, theta = _mixer_window(cfg, spec)
-                    x = x + attn.gqa_apply(p["attn"], h_in, cfg.attn, cfg,
-                                           pos, window, theta)
-                h_f = rmsnorm(p["norm_ffn"], x, cfg.norm_eps)
-                if spec.ffn == "rwkv_cmix":
-                    x_prev = F.pad(h_f, (0, 0, 1, 0))[:, :, :T]
-                    x = x + ssm.cmix_apply(p["cmix"], h_f, x_prev)
-                elif spec.ffn == "moe":
-                    h, a = _moe(p, cfg, h_f, per_row=False)
-                    x, aux = x + h, aux + a
-                else:
-                    x = x + mlp_apply(p["mlp"], h_f, cfg.ffn.mlp_type)
+                    x, a = _block(p, spec, cfg, x, pos, False)
+                aux = aux + a
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return lm_logits(params, x, cfg), aux
 

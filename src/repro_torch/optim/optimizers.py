@@ -7,8 +7,9 @@ The JAX package vmaps the same pair over the member axis; here the
 member axis is written out: every leaf has a leading K, the step count
 is (K,) int32 and a gradient-norm clip is taken per member, so each
 ensemble member carries independent optimizer state under the JAX
-layout {"mu", "step"}.  `update` is functional (new tensors, nothing
-updated in place) and runs without autograd.
+layouts ({"mu", "step"}, {"m", "v", "step"}).  Both updates run without
+autograd.  `sgd_momentum`'s update is functional (new tensors);
+`adamw`'s updates params and moments in place (see there).
 """
 from __future__ import annotations
 
@@ -31,13 +32,20 @@ def _per_member(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return v.reshape((-1,) + (1,) * (like.dim() - 1))
 
 
+def _clip_scale(grads, max_norm: float):
+    """-> ((K,) factors that bring each member's global gradient norm to
+    <= max_norm, (K,) norms), each leaf's norm reduced in f32."""
+    gn = torch.sqrt(sum(
+        torch.linalg.vector_norm(g.reshape(g.shape[0], -1), dim=1,
+                                 dtype=torch.float32).square()
+        for g in tree_leaves(grads)))
+    return (max_norm / gn.clamp_min(1e-9)).clamp_max(1.0), gn
+
+
 def clip_by_global_norm(grads, max_norm: float):
     """Scale each member's gradients to a global norm <= max_norm.
     -> (grads, (K,) norms before clipping)."""
-    leaves = tree_leaves(grads)
-    gn = torch.sqrt(sum(g.float().square().flatten(1).sum(1)
-                        for g in leaves))
-    scale = (max_norm / gn.clamp_min(1e-9)).clamp_max(1.0)
+    scale, gn = _clip_scale(grads, max_norm)
     return tree_map(lambda g: g * _per_member(scale, g).to(g.dtype),
                     grads), gn
 
@@ -72,5 +80,77 @@ def sgd_momentum(lr, momentum: float = 0.9, weight_decay: float = 0.0,
 
         new_params = tree_map(apply, params, mu)
         return new_params, {"mu": mu, "step": step}
+
+    return Optimizer(init, update)
+
+
+# leaves up to this many elements update in one pass; larger ones member
+# by member, so the f32 temporaries stay within one member's slice
+_ONE_PASS = 1 << 25
+
+
+def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+          weight_decay: float = 0.1, clip_norm: float = 1.0,
+          moment_dtype: torch.dtype = torch.float32) -> Optimizer:
+    """AdamW under the JAX package's state layout {"m", "v", "step"}.
+    `lr` is a float or a schedule of the (K,) step tensor
+    (optim/schedules.py); the clip is per member.
+
+    `update` works IN PLACE: the moments, the step and the params given
+    to it are overwritten and returned, the port's counterpart of the
+    JAX package's donated state.  A functional update would hold a second
+    copy of params and moments at its peak (K = 4 full-width gemma3-1b:
+    8 GB of bf16 params, 32 GB of f32 moments), more than the card has.
+    The math is the JAX package's, in f32 whatever the storage types;
+    a clipped gradient is scaled in its own dtype first, as there."""
+
+    @torch.no_grad()
+    def init(params):
+        leaf = tree_leaves(params)[0]
+        z = lambda p: torch.zeros(p.shape, dtype=moment_dtype,  # noqa: E731
+                                  device=p.device)
+        return {"m": tree_map(z, params), "v": tree_map(z, params),
+                "step": torch.zeros((leaf.shape[0],), dtype=torch.int32,
+                                    device=leaf.device)}
+
+    def one(p, g, m, v, s, lr_t, c1, c2):
+        """The update of one part (a leaf, or one member's slice of it);
+        s, lr_t, c1, c2 broadcast against it."""
+        g = g * s.to(g.dtype) if s is not None else g
+        mf, vf = m.float(), v.float()
+        mf.mul_(b1).add_(g, alpha=1 - b1)
+        vf.mul_(b2).addcmul_(g, g, value=1 - b2)
+        if mf is not m:  # stored rounded, and the step reads them so
+            m.copy_(mf)
+            v.copy_(vf)
+            mf, vf = m.float(), v.float()
+        den = (vf / c2).sqrt_().add_(eps)
+        delta = (mf / c1).div_(den)
+        del den
+        delta.add_(p, alpha=weight_decay)
+        p.sub_(delta.mul_(lr_t))
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        scale = _clip_scale(grads, clip_norm)[0] if clip_norm > 0 else None
+        step = state["step"]
+        step += 1
+        lr_t = lr(step).float() if callable(lr) else \
+            torch.full(step.shape, lr, dtype=torch.float32,
+                       device=step.device)
+        sf = step.float()
+        c1 = 1.0 - torch.pow(b1, sf)
+        c2 = 1.0 - torch.pow(b2, sf)
+        vecs = (scale, lr_t, c1, c2)
+        for p, g, m, v in zip(*(tree_leaves(t) for t in (
+                params, grads, state["m"], state["v"]))):
+            if p.numel() <= _ONE_PASS:
+                one(p, g, m, v, *(None if x is None else _per_member(x, p)
+                                  for x in vecs))
+            else:
+                for k in range(p.shape[0]):
+                    one(p[k], g[k], m[k], v[k],
+                        *(None if x is None else x[k] for x in vecs))
+        return params, state
 
     return Optimizer(init, update)

@@ -2,9 +2,11 @@
 
 The JAX package vmaps a per-member loss over the member axis; here all K
 members run in one pass: the CNN folds them into the channels of grouped
-convolutions (models/cnn.py), and the Eqn-9 loss of all K members is one
-fused-kernel launch over K*B rows each way.  The models this covers so
-far: the CNN (paper NiN).  LM training waits for its slice.
+convolutions (models/cnn.py), the transformer batches them in every op
+(models/transformer.py), and the Eqn-9 loss of all K members is one
+fused-kernel launch over all K*B rows each way.  The models this covers:
+the CNN (paper NiN) and the attention transformers.  The recurrent
+families (rwkv6's "ssm", jamba's "hybrid") serve but do not train yet.
 """
 from __future__ import annotations
 
@@ -14,68 +16,141 @@ import torch
 
 from repro_torch.common.tree import tree_leaves, tree_map
 from repro_torch.common.types import ModelConfig
+from repro_torch.core import compression as comp
 from repro_torch.core import distill
 from repro_torch.optim import Optimizer
 
 L2 = 1e-4  # the paper's weight l2 on conv kernels (Section 5.1)
 
 
-def _cnn_only(cfg: ModelConfig) -> None:
-    if cfg.family != "cnn":
+def _check_trainable(cfg: ModelConfig) -> None:
+    if cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(
-            f"training the {cfg.family!r} family is not ported yet (LM "
-            f"training: ROADMAP queue 1 item 6); the port trains the CNN")
+            f"training the {cfg.family!r} family is not ported yet: "
+            f"models/ssm.py's recurrences have no training route (ROADMAP "
+            f"queue 1, training of the ssm/hybrid families)")
 
 
 def make_logits_fn(cfg: ModelConfig) -> Callable:
-    """(member-stacked params, batch {images (K, B, H, W, C)}) ->
-    logits (K, B, V)."""
-    _cnn_only(cfg)
-    from repro_torch.models import cnn
-    return lambda params, batch: cnn.nin_apply(params, batch["images"])
+    """(member-stacked params, batch {images (K, B, H, W, C)} or {tokens
+    (K, B, T)}) -> logits (K, B, [T,] V), forward only (relabel, eval):
+    the transformer's attention goes through the flash kernel."""
+    _check_trainable(cfg)
+    if cfg.family == "cnn":
+        from repro_torch.models import cnn
+        return lambda params, batch: cnn.nin_apply(params, batch["images"])
+    from repro_torch.models import transformer
+    return lambda params, batch: transformer.apply(params, cfg,
+                                                   batch["tokens"])[0]
+
+
+def _rows(pseudo, V: int):
+    """Pseudo-labels (K, B, ..., V) or a TopM with leading (K, B, ...) ->
+    one row per output position."""
+    if pseudo is None:
+        return None
+    if isinstance(pseudo, comp.TopM):
+        M = pseudo.vals.shape[-1]
+        return comp.TopM(pseudo.vals.reshape(-1, M),
+                         pseudo.idx.reshape(-1, M), pseudo.rest.reshape(-1))
+    return pseudo.reshape(-1, V)
 
 
 def make_member_loss(cfg: ModelConfig) -> Callable:
     """(params, batch, pseudo, lam) -> scalar: the SUM over members of
-    each member's Eqn-9 loss + l2 on its own batch, so that its gradient
-    with respect to member k's params is member k's own gradient.  The
-    fused loss is the mean over all K*B rows, i.e. 1/K of the members'
-    summed means: it is scaled by K before the gradient."""
-    _cnn_only(cfg)
-    from repro_torch.models import cnn
+    each member's Eqn-9 loss (+ l2 on the CNN's kernels, + the MoE aux
+    loss) on its own batch, so that its gradient with respect to member
+    k's params is member k's own gradient.  The CE is the mean over all
+    K*B(*T) rows, i.e. 1/K of the members' summed means: it is scaled by
+    K.  The transformer takes its training route (apply(remat=True))."""
+    _check_trainable(cfg)
+    if cfg.family == "cnn":
+        from repro_torch.models import cnn
 
-    def cnn_loss(params, batch, pseudo, lam):
-        logits = cnn.nin_apply(params, batch["images"])
+        def cnn_loss(params, batch, pseudo, lam):
+            logits = cnn.nin_apply(params, batch["images"])
+            K, V = logits.shape[0], logits.shape[-1]
+            ce = distill.mixed_ce(logits.reshape(-1, V),
+                                  batch["labels"].reshape(-1),
+                                  _rows(pseudo, V), lam)
+            return K * ce + L2 * cnn.l2_reg(params).sum()
+        return cnn_loss
+
+    from repro_torch.models import transformer
+
+    def lm_loss(params, batch, pseudo, lam):
+        logits, aux = transformer.apply(params, cfg, batch["tokens"],
+                                        remat=True)
         K, V = logits.shape[0], logits.shape[-1]
-        ps = None if pseudo is None else pseudo.reshape(-1, V)
         ce = distill.mixed_ce(logits.reshape(-1, V),
-                              batch["labels"].reshape(-1), ps, lam)
-        return K * ce + L2 * cnn.l2_reg(params).sum()
-    return cnn_loss
+                              batch["labels"].reshape(-1),
+                              _rows(pseudo, V), lam)
+        return K * ce + (aux.sum() if torch.is_tensor(aux) else aux)
+    return lm_loss
 
 
-def make_local_step(cfg: ModelConfig, opt: Optimizer,
+def make_member_grads(cfg: ModelConfig, grad_accum: int = 1) -> Callable:
+    """(params, batch, pseudo, lam) -> (the members' summed loss, a 0-d
+    tensor, grads).  grad_accum > 1 splits every member's batch into
+    microbatches, member k's microbatch i being its rows i, i + accum,
+    ... (the JAX package's split), and means their losses and gradients
+    in f32 accumulators."""
+    member_loss = make_member_loss(cfg)
+
+    def grads_of(params, batch, pseudo, lam):
+        leaves = tree_leaves(params)
+        total = member_loss(params, batch, pseudo, lam)
+        return total.detach(), torch.autograd.grad(total, leaves)
+
+    def fn(params, batch, pseudo, lam):
+        if grad_accum <= 1:
+            loss, flat = grads_of(params, batch, pseudo, lam)
+        else:
+            B = tree_leaves(batch)[0].shape[1]
+            if B % grad_accum:
+                raise ValueError(f"batch {B} does not split into "
+                                 f"{grad_accum} microbatches")
+            loss, flat = 0.0, None
+            for i in range(grad_accum):
+                micro = lambda t: tree_map(  # noqa: E731
+                    lambda x: x[:, i::grad_accum], t)
+                l_i, g_i = grads_of(params, micro(batch),
+                                    None if pseudo is None else micro(pseudo),
+                                    lam)
+                if flat is None:
+                    flat = [torch.zeros_like(g, dtype=torch.float32)
+                            for g in g_i]
+                for acc, g in zip(flat, g_i):
+                    acc.add_(g)
+                loss = loss + l_i
+            inv = 1.0 / grad_accum
+            loss = loss * inv
+            flat = [acc.mul_(inv) for acc in flat]
+        it = iter(flat)
+        return loss, tree_map(lambda _: next(it), params)
+    return fn
+
+
+def make_local_step(cfg: ModelConfig, opt: Optimizer, grad_accum: int = 1,
                     sync: bool = False) -> Callable:
     """EC local-training step over member-stacked state.
 
     (state {params, opt}, batch, pseudo, lam) -> (state, mean loss over
     members, a 0-d tensor on the state's device).  pseudo=None is the
     plain-CE step; sync=True all-reduces (means) the gradients over the
-    member axis first (the sync-SGD baseline)."""
-    member_loss = make_member_loss(cfg)
+    member axis first (the sync-SGD baseline).  An optimizer that updates
+    in place (adamw) returns the state's own tensors."""
+    member_grads = make_member_grads(cfg, grad_accum)
 
     def step(state, batch, pseudo, lam):
         params = tree_map(lambda p: p.detach().requires_grad_(),
                           state["params"])
-        total = member_loss(params, batch, pseudo, lam)
-        flat = torch.autograd.grad(total, tree_leaves(params))
-        it = iter(flat)
-        grads = tree_map(lambda _: next(it), params)
+        total, grads = member_grads(params, batch, pseudo, lam)
         if sync:
             grads = tree_map(lambda g: g.mean(0, keepdim=True).expand_as(g),
                              grads)
         new_params, new_opt = opt.update(grads, state["opt"],
                                          state["params"])
         K = tree_leaves(params)[0].shape[0]
-        return {"params": new_params, "opt": new_opt}, total.detach() / K
+        return {"params": new_params, "opt": new_opt}, total / K
     return step

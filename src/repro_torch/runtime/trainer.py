@@ -10,12 +10,17 @@ Algorithm 1 of the paper, generalized over aggregator:
   aggregator="sync" every step means the gradients over the member axis
                     (sync-SGD reference).
 
-State is member-stacked (leading K) under the JAX package's layout,
-{"params": ..., "opt": {"mu", "step"}}, on one device: the card unless
-`device` says otherwise.  The host draws every index with the same numpy
-calls as the JAX Trainer, so the two, seeded alike and started from the
-same params (`params=`), train on the same batches.  A round waits for
-the card once, for its last loss.
+The members are the paper's NiN (images) or an attention transformer
+(tokens); pseudo-labels are dense probs or, at LM vocabularies, top-M
+accumulators (ECConfig.label_mode "topk").  State is member-stacked
+(leading K) under the JAX package's layout, {"params": ..., "opt": ...},
+on one device: the card unless `device` says otherwise.  The host draws
+every index with the same numpy calls as the JAX Trainer, so the two,
+seeded alike and started from the same params (`params=`), train on the
+same batches.  A round waits for the card once, for its last loss.
+The relabel, `evaluate` and `best_member` score member by member and
+chunk by chunk (core/aggregation.stream_logits): at gemma3's vocabulary
+K members' logits over the test set would not fit beside the state.
 
 Straggler policy: members listed as lagging at aggregation time are
 excluded from the ensemble (and from the MA mean) via a (K,) quorum mask.
@@ -57,28 +62,29 @@ class TrainerMetrics:
 class Trainer:
     """K-member EC-DNN / MA-DNN / sync-SGD trainer on one device.
 
-    train_shards {images (K, n, H, W, C), labels (K, n) int32} and
-    test_set {images (n_test, H, W, C), labels (n_test,)} are tensors,
-    moved to the trainer's device.  `params`: a numpy tree of
-    member-stacked params (e.g. the JAX package's init, fetched with
-    jax.device_get) to start from; else torch-seeded from init_seed."""
+    train_shards {images (K, n, H, W, C) | tokens (K, n, T), labels (K,
+    n[, T]) int32} and test_set {images (n_test, H, W, C) | tokens
+    (n_test, T), labels (n_test[, T])} are tensors, moved to the
+    trainer's device.  `params`: a numpy tree of member-stacked params
+    (e.g. the JAX package's init, fetched with jax.device_get) to start
+    from; else torch-seeded from init_seed.  grad_accum splits each
+    step's batch into that many microbatches."""
 
     def __init__(self, cfg: ModelConfig, ec: ECConfig, opt: Optimizer,
                  n_members: int, init_seed: int, train_shards: dict,
                  test_set: dict, batch_size: int, mesh=None,
                  ckpt_dir: Optional[str] = None, seed: int = 0,
-                 params=None, device: DeviceLike = None):
+                 params=None, device: DeviceLike = None,
+                 grad_accum: int = 1):
         if mesh is not None:
             raise NotImplementedError(
-                "multi-device training is not ported yet (ROADMAP queue 1 "
-                "item 12)")
+                "multi-device training needs common/sharding.py and the "
+                "ring relabel, not ported yet")
         if ckpt_dir is not None:
             raise NotImplementedError(
-                "checkpoints are not ported yet (ROADMAP queue 1 item 7)")
-        if ec.label_mode != "dense":
-            raise NotImplementedError(
-                f"label_mode={ec.label_mode!r} needs core/compression.py, "
-                f"not ported yet (ROADMAP queue 1 item 6)")
+                "checkpoints need checkpoint/store.py, not ported yet")
+        if ec.label_mode not in ("dense", "topk"):
+            raise ValueError(f"unknown label_mode {ec.label_mode!r}")
         if ec.aggregator not in ("ec", "ma", "sync"):
             raise ValueError(f"unknown aggregator {ec.aggregator!r}")
         self.cfg, self.ec, self.opt = cfg, ec, opt
@@ -105,8 +111,9 @@ class Trainer:
 
         self._logits = steps.make_logits_fn(cfg)
         self._member_loss = steps.make_member_loss(cfg)
-        self._plain_step = steps.make_local_step(cfg, opt)
-        self._sync_step = steps.make_local_step(cfg, opt, sync=True)
+        self._plain_step = steps.make_local_step(cfg, opt, grad_accum)
+        self._sync_step = steps.make_local_step(cfg, opt, grad_accum,
+                                                sync=True)
 
     # ------------------------------------------------------------------
     # aggregation
@@ -118,7 +125,8 @@ class Trainer:
         subset, _ = sample_relabel_subset(self.rng, self.shards,
                                           self.ec.relabel_fraction)
         pseudo = agg.allgather_relabel(self.state["params"], subset,
-                                       self._logits, self.ec, quorum=quorum)
+                                       self._logits, self.ec, quorum=quorum,
+                                       n_out=self.cfg.vocab_size)
         self.pseudo_buffer = (subset, pseudo)
 
     # ------------------------------------------------------------------
@@ -162,6 +170,8 @@ class Trainer:
         return float(loss)
 
     def _sample_pseudo_batch(self):
+        """A batch of the relabelled subset and its pseudo-labels (dense
+        or TopM), by the JAX Trainer's one numpy draw."""
         subset, pseudo = self.pseudo_buffer
         n = tree_leaves(subset)[0].shape[1]
         idx = self.rng.integers(0, n, size=(self.K, self.batch))
@@ -173,16 +183,27 @@ class Trainer:
 
     @torch.no_grad()
     def _eval_members(self, params, test_b: dict):
+        """-> (mean member NLL, ensemble NLL, mean member error, ensemble
+        error) on test_b, shared by the members; as the JAX package's
+        eval, scored a chunk and a member at a time."""
         K = tree_leaves(params)[0].shape[0]
-        images = test_b["images"][None].expand(K, *test_b["images"].shape)
-        logits = self._logits(params, {"images": images})
         labels = test_b["labels"]
-        member_nll = ens.mean_member_nll(logits, labels)
-        ens_nll = ens.ensemble_nll(logits, labels)
-        member_err = (logits.argmax(-1) != labels[None]).float().mean()
-        ens_err = (ens.ensemble_probs(logits).argmax(-1) != labels) \
-            .float().mean()
-        return member_nll, ens_nll, member_err, ens_err
+        m_nll = m_err = e_nll = e_err = 0.0
+        for sl, k, logits in agg.stream_logits(
+                params, test_b, self._logits, self.cfg.vocab_size,
+                fold=True):
+            y = labels[sl]
+            m_nll = m_nll + ens.member_nll(logits, y).sum()
+            m_err = m_err + (logits.argmax(-1) != y).sum()
+            if k == 0:
+                fused = ens.StreamingEnsemble(K, device=self.device)
+            fused.add(k, logits)
+            if k == K - 1:
+                p = fused.probs()
+                e_nll = e_nll + ens.gold_nll(p, y).sum()
+                e_err = e_err + (p.argmax(-1) != y).sum()
+        n = labels.numel()
+        return m_nll / (K * n), e_nll / n, m_err / (K * n), e_err / n
 
     def _test_batch(self) -> dict:
         return {k: v[:EVAL_ROWS] for k, v in self.test.items()}
@@ -194,12 +215,9 @@ class Trainer:
         out = {"local_loss": float(m_nll), "global_loss": float(e_nll),
                "local_err": float(m_err), "global_err": float(e_err)}
         if self.ec.aggregator == "ma":
-            avg = agg.ma_aggregate(self.state["params"])
-            one = tree_map(lambda x: x[:1], avg)
-            with torch.no_grad():
-                logits = self._logits(one, {"images": test_b["images"][None]})
-            nll = distill.true_ce(logits[0], test_b["labels"])
-            err = (logits[0].argmax(-1) != test_b["labels"]).float().mean()
+            one = tree_map(lambda x: x[:1],
+                           agg.ma_aggregate(self.state["params"]))
+            nll, _, err, _ = self._eval_members(one, test_b)
             out["global_loss"], out["global_err"] = float(nll), float(err)
         if record:
             self.metrics.round_idx.append(self.round)
@@ -235,5 +253,5 @@ class Trainer:
 
     def reshard(self, k_new: int):
         raise NotImplementedError(
-            "elastic K needs checkpoint.reshard_members, not ported yet "
-            "(ROADMAP queue 1 item 7)")
+            "elastic K needs checkpoint/store.py's reshard_members, not "
+            "ported yet")

@@ -6,7 +6,9 @@ recurrence, chunked and single-step; Mamba's selective scan, short-T
 and long-T) against their plain PyTorch versions in every option, their
 input checks, and the engine and the trainer on the card against the
 CPU, including the prefix cache's copy-on-write (kv_cache.copy_pages)
-and a prefill that starts at a mid-page hit.  Each test skips where there is no CUDA device.
+and a prefill that starts at a mid-page hit; the forward-only kernels'
+refusal of inputs that require grad.  Each test skips where there is no
+CUDA device.
 No JAX import, so the file runs on a machine without JAX:
 
     python -m pytest tests/test_torch_cuda.py -q
@@ -815,3 +817,41 @@ def test_jamba_engine_on_card_matches_cpu(cuda):
         outs.append(eng.generate(prompts, 10))
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
+
+
+def forward_only_call(name, dev):
+    """A call through kernels/ops of one forward-only kernel on small
+    inputs, its first input requiring grad."""
+    from repro_torch.kernels import ops
+    if name == "paged_attention":
+        c = make_case("f32", dev)
+        c["q"].requires_grad_()
+        return lambda: ops.paged_attention(**c)
+    if name == "flash_attention":
+        g = torch.Generator(device=dev)
+        g.manual_seed(0)
+        q, k, v = (torch.randn(2, 8, 2, 32, generator=g, device=dev)
+                   for _ in range(3))
+        q.requires_grad_()
+        return lambda: ops.flash_attention(q, k, v, causal=True)
+    if name == "wkv6":
+        r, k, v, log_w, u, _, state = wkv_case(dev, 1, 2, 4, 2, 8)
+        r.requires_grad_()
+        return lambda: ops.wkv6(r, k, v, log_w, u, state)
+    a, b, _, state = scan_case(dev, 1, 2, 4, 16, 4)
+    a.requires_grad_()
+    return lambda: ops.ssm_scan(a, b, state)
+
+
+@pytest.mark.parametrize("name", ["paged_attention", "flash_attention",
+                                  "wkv6", "ssm_scan"])
+def test_forward_only_kernels_refuse_inputs_that_require_grad(cuda, name):
+    """Its output would carry no gradient: under grad mode the wrapper
+    raises before launching; under no_grad the same call launches."""
+    call = forward_only_call(name, cuda)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        call()
+    with torch.no_grad():
+        out = call()
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()

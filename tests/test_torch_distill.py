@@ -100,7 +100,7 @@ def test_mixed_ce_and_schedule_match_jax():
     np.testing.assert_allclose(
         float(tdistill.true_ce(zt, yt, torch.from_numpy(mask))),
         float(jdistill.true_ce(z, y, mask)), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="compression"):
+    with pytest.raises(TypeError, match="compression.TopM"):
         tdistill.mixed_ce(zt, yt, (pt, yt), lam)
 
 
