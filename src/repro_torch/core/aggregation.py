@@ -9,7 +9,11 @@ allgather_relabel: every member scores every member's relabel batch and
   so at most one member's logits over one chunk are live; the result is
   the same.  At gemma3's 262k vocabulary a member's logits over a K = 4
   relabel set of 22 sequences of 64 tokens a member would be 5.9 GB in
-  f32.
+  f32.  A model that routes tokens by pool (a MoE: which tokens share a
+  call decides which are dropped) scores each batch as its own pool,
+  as the JAX package does: a chunk then holds whole batches, at least
+  one, and the MoE layers pool each batch's rows apart
+  (transformer.apply's pool_rows).
 
 ma_aggregate: parameter mean over the member axis (MA-DNN).
 
@@ -42,7 +46,8 @@ def chunk_rows(inputs: dict, n_out: int) -> int:
 
 
 def stream_logits(stacked_params, inputs: dict, logits_fn: Callable,
-                  n_out: int, fold: bool = False
+                  n_out: int, fold: bool = False,
+                  pool_rows: Optional[int] = None
                   ) -> Iterator[Tuple[slice, int, torch.Tensor]]:
     """Score inputs {name: (n, ...)}, shared by every member, a chunk of
     chunk_rows rows at a time and, within it, member by member.  ->
@@ -50,14 +55,21 @@ def stream_logits(stacked_params, inputs: dict, logits_fn: Callable,
     fold=True scores the K members in one call when all their logits
     fit CHUNK_BYTES (the eval's test rows; the relabel's rows are
     already K members' batches, so it scores a member at a time).
+    pool_rows: the rows of one token pool, passed on to logits_fn; a
+    chunk then holds whole pools, as many as fit, at least one.
     logits_fn takes member-stacked params and a batch with a leading
     member axis, as steps.make_logits_fn's do."""
     K = tree_leaves(stacked_params)[0].shape[0]
     n = tree_leaves(inputs)[0].shape[0]
     rows = chunk_rows(inputs, n_out)
+    kw = {}
+    if pool_rows is not None:
+        rows = max(1, rows // pool_rows) * pool_rows
+        kw = {"pool_rows": pool_rows}
     if fold and K * n <= rows:
         logits = logits_fn(stacked_params, {
-            name: v[None].expand(K, *v.shape) for name, v in inputs.items()})
+            name: v[None].expand(K, *v.shape) for name, v in inputs.items()},
+            **kw)
         for k in range(K):
             yield slice(0, n), k, logits[k]
         return
@@ -66,26 +78,28 @@ def stream_logits(stacked_params, inputs: dict, logits_fn: Callable,
         chunk = {name: v[None, sl] for name, v in inputs.items()}
         for k in range(K):
             member = tree_map(lambda x: x[k:k + 1], stacked_params)
-            yield sl, k, logits_fn(member, chunk)[0]
+            yield sl, k, logits_fn(member, chunk, **kw)[0]
 
 
 @torch.no_grad()
 def allgather_relabel(stacked_params, batches: dict, logits_fn: Callable,
                       ec: ECConfig, quorum: Optional[torch.Tensor] = None,
-                      *, n_out: int):
+                      *, n_out: int, pooled: bool = False):
     """-> pseudo-labels for each member's own batch: dense probs (K, n,
     ..., V), or a TopM with leading (K, n, ...) in label_mode "topk".
 
     stacked_params: tree with leading K; batches: dict of (K, n, ...)
     tensors (each member's relabel inputs); n_out: the classes (V) the
-    logits span."""
+    logits span; pooled: the model routes tokens by pool
+    (steps.routes_by_pool), so each batch is scored as its own."""
     K, n = tree_leaves(batches)[0].shape[:2]
     every = {name: v.reshape(K * n, *v.shape[2:])
              for name, v in batches.items()}
     device = tree_leaves(batches)[0].device
     out = fused = None
     for sl, k, logits in stream_logits(stacked_params, every, logits_fn,
-                                       n_out):
+                                       n_out,
+                                       pool_rows=n if pooled else None):
         if k == 0:
             fused = ens.StreamingEnsemble(K, quorum, ec.average_probs,
                                           device)

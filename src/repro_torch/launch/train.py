@@ -4,10 +4,12 @@ sync-SGD rounds of K members on one device.
 Runs on the card unless --device cpu.  The default is the paper's own
 setup: NiN (paper_nin) on 32x32x3 synthetic CIFAR-100 stand-in data
 with momentum SGD and dense pseudo-labels, whose compression steps go
-through the fused distillation kernel.  The attention LMs (gemma3-1b,
-deepseek-7b) train with AdamW on synthetic affine token streams, with
-dense or top-M (--label-mode topk) pseudo-labels.  Checkpoints wait for
-checkpoint/store.py's port.
+through the fused distillation kernel.  The LMs (gemma3-1b,
+deepseek-7b, rwkv6-7b, jamba-v0.1-52b) train with AdamW on synthetic
+affine token streams, with dense or top-M (--label-mode topk)
+pseudo-labels.  --ckpt DIR saves the state after every round (the JAX
+package's layout, keep 3); --resume first restores the newest committed
+round there and runs the rounds left up to --rounds.
 
   python -m repro_torch.launch.train --arch paper_nin --members 4 \
       --rounds 4 --tau 16 --p-steps 8 --batch 64 --per-member 1024
@@ -16,6 +18,9 @@ checkpoint/store.py's port.
   python -m repro_torch.launch.train --arch gemma3-1b --reduced \
       --label-mode topk --device cpu --members 2 --rounds 2 --tau 2 \
       --p-steps 1 --batch 2 --per-member 8 --seq-len 16
+  python -m repro_torch.launch.train --arch rwkv6-7b --reduced \
+      --device cpu --members 2 --rounds 2 --tau 2 --p-steps 1 --batch 2 \
+      --per-member 8 --seq-len 16 --ckpt /tmp/ec_ckpt --resume
 
 Prints one line per round (the last step's training loss, then the
 members' and the ensemble's test NLL and error) and the EC-DNN_L pick.
@@ -47,6 +52,8 @@ def main(argv=None) -> int:
     ap.add_argument("--per-member", type=int, default=256)
     ap.add_argument("--seq-len", type=int, default=64)
     ap.add_argument("--lr", type=float, default=5e-3)
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--resume", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--straggler-drop", type=int, default=0,
                     help="simulate N lagging members dropped per round")
@@ -82,9 +89,12 @@ def main(argv=None) -> int:
                   relabel_fraction=args.relabel_fraction,
                   label_mode=args.label_mode, aggregator=args.aggregator)
     tr = Trainer(cfg, ec, opt, args.members, args.seed, train, test,
-                 batch_size=args.batch, seed=args.seed, device=device)
+                 batch_size=args.batch, ckpt_dir=args.ckpt, seed=args.seed,
+                 device=device)
+    if args.resume and tr.resume():
+        print(f"resumed from round {tr.round}")
 
-    for r in range(args.rounds):
+    for r in range(tr.round, args.rounds):
         mask = None
         if args.straggler_drop:
             mask = np.ones(args.members)
@@ -98,6 +108,9 @@ def main(argv=None) -> int:
               f"{ev['local_loss']:.4f} err {ev['local_err']:.4f} | "
               f"{'ens' if args.aggregator == 'ec' else 'global'} nll "
               f"{ev['global_loss']:.4f} err {ev['global_err']:.4f}")
+    tr.save()
+    if tr.ckpt:
+        tr.ckpt.close()
     _, k = tr.best_member()
     print(f"final model: member {k} (EC-DNN_L rule)")
     return 0

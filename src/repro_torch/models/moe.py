@@ -66,12 +66,12 @@ def _route(router_w: torch.Tensor, x_f32: torch.Tensor, top_k: int):
 def _experts(params: dict, xe: torch.Tensor) -> torch.Tensor:
     """xe (K, E, n, d) -> every member's experts' swiglu FFN, (K, E, n,
     d): one bmm over the E experts per member and weight."""
-    out = torch.empty_like(xe)
+    outs = []
     for k in range(xe.shape[0]):
         g = torch.bmm(xe[k], params["experts_gate"][k])
         u = torch.bmm(xe[k], params["experts_up"][k])
-        torch.bmm(F.silu(g) * u, params["experts_down"][k], out=out[k])
-    return out
+        outs.append(torch.bmm(F.silu(g) * u, params["experts_down"][k]))
+    return torch.stack(outs)
 
 
 def moe_apply(params: dict, x: torch.Tensor, f: FFNConfig

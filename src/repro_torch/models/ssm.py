@@ -10,6 +10,12 @@ into the kernels' rows: one launch per layer (per 128-token Mamba piece)
 covers every member and slot.  Decode and prefill update the cache
 planes in place (see models/attention.py).
 
+Both kernels are forward-only, so apply(train=True) takes the training
+route, the JAX package's own form of the recurrences: chunks in plain
+PyTorch that autograd differentiates, each under torch.utils.checkpoint
+(its graph rebuilt in the backward), carrying the state from chunk to
+chunk (_mamba_chunked, _wkv_chunked).
+
 Per layer and slot the decode state is O(1) in sequence length:
   mamba: conv (K, B, conv_w-1, d_inner)  the last conv inputs
          ssm  (K, B, d_inner, d_state) f32  the selective-scan state
@@ -24,12 +30,15 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.types import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init, member_view, mm
 
 MAMBA_CHUNK = 128    # the JAX package's: one scan launch per piece
+RWKV_CHUNK = 32      # the JAX package's: the training route's pairwise
+#                      decays are (N, L, L, H, dh) a chunk
 GROUPNORM_EPS = 1e-5  # the JAX package's _rwkv_groupnorm, not cfg.norm_eps
 
 
@@ -84,22 +93,14 @@ def _mamba_conv_full(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _mamba_inner(params, xz: torch.Tensor, cfg: ModelConfig,
-                 state: torch.Tensor, valid: torch.Tensor = None
-                 ) -> torch.Tensor:
-    """The scan core over conv'd x, xz (K, B, T, di); state (K, B, di,
-    Ns) f32 is read as h0 and left holding h_T.  -> y (K, B, T, di) f32.
-
-    The sequence is walked in MAMBA_CHUNK pieces: each forms a = exp(dt
-    A) and b = dt x B in f32, (K*B, CH, di, Ns) (the live set), runs one
-    ops.ssm_scan launch on it carrying the state, and contracts the
-    states with C.  valid (B, T) marks real positions; elsewhere dt is
-    0, so the step is the identity (a = 1, b = 0) and the state passes
-    through padding untouched."""
-    s = cfg.ssm
-    d_inner, dt_rank = mamba_dims(cfg)
-    K, B, T, _ = xz.shape
-    Ns = s.d_state
+def _mamba_coeffs(params, xz: torch.Tensor, cfg: ModelConfig,
+                  valid: torch.Tensor = None):
+    """The scan's inputs from conv'd x, xz (K, B, T, di): dt and dt x
+    (K, B, T, di), A (K, 1, 1, di, Ns), B and C (K, B, T, Ns), all f32,
+    and x in f32.  valid (B, T) marks real positions; elsewhere dt is 0,
+    so the step is the identity (a = 1, b = 0)."""
+    Ns = cfg.ssm.d_state
+    _, dt_rank = mamba_dims(cfg)
     proj = mm(xz, params["mamba_dt_x"])
     dt_lo = proj[..., :dt_rank]
     Bm = proj[..., dt_rank: dt_rank + Ns].float()
@@ -110,7 +111,24 @@ def _mamba_inner(params, xz: torch.Tensor, cfg: ModelConfig,
         dt = torch.where(valid[None, :, :, None], dt, 0.0)
     A = -torch.exp(params["mamba_A_log"])[:, None, None]    # (K,1,1,di,Ns)
     xf = xz.float()
-    dtx = dt * xf
+    return dt, dt * xf, A, Bm, Cm, xf
+
+
+def _mamba_inner(params, xz: torch.Tensor, cfg: ModelConfig,
+                 state: torch.Tensor, valid: torch.Tensor = None
+                 ) -> torch.Tensor:
+    """The scan core over conv'd x, xz (K, B, T, di); state (K, B, di,
+    Ns) f32 is read as h0 and left holding h_T.  -> y (K, B, T, di) f32.
+
+    The sequence is walked in MAMBA_CHUNK pieces: each forms a = exp(dt
+    A) and b = dt x B in f32, (K*B, CH, di, Ns) (the live set), runs one
+    ops.ssm_scan launch on it carrying the state, and contracts the
+    states with C.  valid (B, T): see _mamba_coeffs; the state passes
+    through padding untouched."""
+    d_inner, _ = mamba_dims(cfg)
+    K, B, T, _ = xz.shape
+    Ns = cfg.ssm.d_state
+    dt, dtx, A, Bm, Cm, xf = _mamba_coeffs(params, xz, cfg, valid)
     ys = []
     for t0 in range(0, T, MAMBA_CHUNK):
         sl = slice(t0, min(t0 + MAMBA_CHUNK, T))
@@ -125,13 +143,51 @@ def _mamba_inner(params, xz: torch.Tensor, cfg: ModelConfig,
     return y + xf * member_view(params["mamba_D"], xf)
 
 
+def _mamba_chunk(h, dt, dtx, A, Bm, Cm):
+    """One chunk of the training route: h (K, B, di, Ns) the carried
+    state, dt and dtx (K, B, CH, di), A (K, 1, di, Ns), Bm and Cm (K, B,
+    CH, Ns).  A step loop, h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t,
+    each state contracted with C_t at once, rather than a log-depth
+    (Hillis-Steele) scan of the pairs (a, b): its backward keeps one
+    state and one a_t a step (two chunk-sized tensors, 1.1 GB a 64-token
+    chunk at jamba's width, K 2 x B 8), where the scan keeps two a
+    level, log2(CH) levels.  -> (y (K, B, CH, di), h_CH)."""
+    ys = []
+    for t in range(dt.shape[2]):
+        h = torch.exp(dt[:, :, t, :, None] * A) * h \
+            + dtx[:, :, t, :, None] * Bm[:, :, t, None, :]
+        ys.append((h * Cm[:, :, t, None, :]).sum(-1))
+    return torch.stack(ys, 2), h
+
+
+def _mamba_chunked(params, xz: torch.Tensor, cfg: ModelConfig,
+                   h: torch.Tensor):
+    """The training route of the scan core, the JAX package's
+    _mamba_inner: MAMBA_CHUNK pieces, each under torch.utils.checkpoint,
+    never ops.ssm_scan.  xz (K, B, T, di) conv'd x, h (K, B, di, Ns) f32
+    the initial state.  -> (y (K, B, T, di) f32, h_T)."""
+    T = xz.shape[2]
+    dt, dtx, A, Bm, Cm, xf = _mamba_coeffs(params, xz, cfg)
+    A = A[:, 0]
+    ys = []
+    for t0 in range(0, T, MAMBA_CHUNK):
+        sl = slice(t0, t0 + MAMBA_CHUNK)
+        y, h = checkpoint(_mamba_chunk, h, dt[:, :, sl], dtx[:, :, sl], A,
+                          Bm[:, :, sl], Cm[:, :, sl], use_reentrant=False,
+                          preserve_rng_state=False)
+        ys.append(y)
+    y = torch.cat(ys, 2)
+    return y + xf * member_view(params["mamba_D"], xf), h
+
+
 def _mamba_out(params, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     return mm(y.to(z.dtype) * F.silu(z), params["mamba_out"])
 
 
-def mamba_apply(params: dict, x: torch.Tensor,
-                cfg: ModelConfig) -> torch.Tensor:
-    """x (K, B, T, d) from position 0 -> (K, B, T, d)."""
+def mamba_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                train: bool = False) -> torch.Tensor:
+    """x (K, B, T, d) from position 0 -> (K, B, T, d).  train=True takes
+    the training route (_mamba_chunked), else ops.ssm_scan."""
     K, B = x.shape[:2]
     d_inner, _ = mamba_dims(cfg)
     xz = mm(x, params["mamba_in"])
@@ -139,7 +195,11 @@ def mamba_apply(params: dict, x: torch.Tensor,
     xs = F.silu(_mamba_conv_full(xs, params["mamba_conv"])).to(xs.dtype)
     state = torch.zeros(K, B, d_inner, cfg.ssm.d_state, dtype=torch.float32,
                         device=x.device)
-    return _mamba_out(params, _mamba_inner(params, xs, cfg, state), z)
+    if train:
+        y, _ = _mamba_chunked(params, xs, cfg, state)
+    else:
+        y = _mamba_inner(params, xs, cfg, state)
+    return _mamba_out(params, y, z)
 
 
 def mamba_cache_init(cfg: ModelConfig, lead, batch: int, dtype,
@@ -283,21 +343,82 @@ def _wkv(params, r, k, v, log_w, state: torch.Tensor, H: int, dh: int):
     return y.reshape(K, B, T, d)
 
 
+def _wkv_chunk(S, rb, kb, vb, lw, u):
+    """One chunk of the training route: S (N, H, dh, dh) the carried
+    [key, value] state; rb, kb, vb, lw (N, L, H, dh); u (N, 1, H, dh).
+    -> (y (N, L, H, dh), S_L).
+
+    Every decay is the exponential of a sum of log w over the tokens
+    between two positions, an exponent <= 0.  The pairwise decays of
+    token j to token t > j, exp(la_prev[t] - la[j]), are masked to j < t
+    BEFORE the exponential: on the masked pairs the exponent is >= 0 and
+    overflows once a chunk's decays pass about 88, and the JAX package's
+    where(tri, exp(ld), 0) then gives a NaN gradient (0 * inf) though its
+    value is right (ROADMAP queue 3)."""
+    L = rb.shape[1]
+    la = torch.cumsum(lw, 1)                  # inclusive sums of log w
+    la_prev = la - lw                         # exclusive
+    r_in = rb * torch.exp(la_prev)            # r decayed to the start
+    k_out = kb * torch.exp(la[:, -1:] - la)   # k decayed to the end
+    tri = torch.ones(L, L, dtype=torch.bool, device=rb.device).tril(-1)
+    ld = la_prev[:, :, None] - la[:, None]    # (N, L, L, H, dh)
+    dec = torch.exp(torch.where(tri[None, :, :, None, None], ld,
+                                float("-inf")))
+    scores = (rb[:, :, None] * kb[:, None] * dec).sum(-1)   # (N, L, L, H)
+    y = torch.einsum("nlmh,nmhd->nlhd", scores, vb)
+    y = y + torch.einsum("nlhk,nhkv->nlhv", r_in, S)        # cross-chunk
+    y = y + (rb * kb * u).sum(-1, keepdim=True) * vb        # the bonus
+    S = S * torch.exp(la[:, -1])[..., None] \
+        + torch.einsum("nlhk,nlhv->nhkv", k_out, vb)
+    return y, S
+
+
+def _wkv_chunked(r, k, v, log_w, u, s0):
+    """The wkv recurrence's training route, the JAX package's
+    _wkv_chunked: RWKV_CHUNK-token chunks (the last one shorter), each
+    under torch.utils.checkpoint, never ops.wkv6.
+
+    r, k, v, log_w (N, T, H, dh) f32 with N = K*B rows folding K
+    members; u (K, H, dh), row n reading member n // (N / K)'s, or (H,
+    dh); s0 (N, H, dh, dh).  -> (y (N, T, H, dh), s_T)."""
+    N, T, H, dh = r.shape
+    u = u.reshape(-1, H, dh)
+    u = u.repeat_interleave(N // u.shape[0], 0)[:, None]   # (N, 1, H, dh)
+    S, ys = s0, []
+    for t0 in range(0, T, RWKV_CHUNK):
+        sl = slice(t0, t0 + RWKV_CHUNK)
+        y, S = checkpoint(_wkv_chunk, S, r[:, sl], k[:, sl], v[:, sl],
+                          log_w[:, sl], u, use_reentrant=False,
+                          preserve_rng_state=False)
+        ys.append(y)
+    return torch.cat(ys, 1), S
+
+
 def _rwkv_out(params, y: torch.Tensor, g: torch.Tensor, H: int, dh: int):
     y = _rwkv_groupnorm(y, params["rwkv_ln_scale"], H, dh)
     return mm(y.to(g.dtype) * g, params["rwkv_o"])
 
 
-def rwkv_apply(params: dict, x: torch.Tensor,
-               cfg: ModelConfig) -> torch.Tensor:
-    """x (K, B, T, d) from position 0 -> (K, B, T, d)."""
+def rwkv_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
+               train: bool = False) -> torch.Tensor:
+    """x (K, B, T, d) from position 0 -> (K, B, T, d).  train=True takes
+    the training route (_wkv_chunked), else ops.wkv6."""
     K, B, T, d = x.shape
     H, dh = rwkv_dims(cfg)
     x_prev = F.pad(x, (0, 0, 1, 0))[:, :, :T]
     r, k, v, g, log_w = _rwkv_proj(params, x, x_prev)
-    state = torch.zeros(K, B, H, dh, dh, dtype=torch.float32,
-                        device=x.device)
-    y = _wkv(params, r, k, v, log_w, state, H, dh)
+    if train:
+        def heads(t):
+            return t.float().reshape(K * B, T, H, dh)
+        s0 = torch.zeros(K * B, H, dh, dh, dtype=torch.float32,
+                         device=x.device)
+        y, _ = _wkv_chunked(heads(r), heads(k), heads(v), heads(log_w),
+                            params["rwkv_first"], s0)
+        y = y.reshape(K, B, T, d)
+    else:
+        state = torch.zeros(K, B, H, dh, dh, dtype=torch.float32,
+                            device=x.device)
+        y = _wkv(params, r, k, v, log_w, state, H, dh)
     return _rwkv_out(params, y, g, H, dh)
 
 

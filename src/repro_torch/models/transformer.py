@@ -123,28 +123,30 @@ def _mixer_window(cfg: ModelConfig, spec: LayerSpec) -> Tuple[int, float]:
 # forward (full sequence)
 # ---------------------------------------------------------------------------
 
-def _moe(p, cfg: ModelConfig, h: torch.Tensor, per_row: bool):
+def _moe(p, cfg: ModelConfig, h: torch.Tensor, pool_rows: Optional[int]):
     """The MoE FFN over h (K, B, S, d), every member routing its own
-    tokens with one capacity per pool: each row's S tokens (per_row, as
-    the JAX package's row-vmapped prefill and contiguous decode see
-    them) or all B*S tokens of the call (apply, paged decode).
-    -> (out (K, B, S, d), aux (K,) summed over the pools)."""
+    tokens with one capacity per pool of pool_rows rows: each row's S
+    tokens (1, as the JAX package's row-vmapped prefill and contiguous
+    decode see them), each batch's where a call holds several (a
+    relabel's), or all B*S tokens of the call (None: apply, paged
+    decode).  -> (out (K, B, S, d), aux (K,) summed over the pools)."""
     K, B, S, d = h.shape
-    y, aux = moe.moe_apply(p["moe"], h if per_row else
-                           h.reshape(K, 1, B * S, d), cfg.ffn)
+    G = B // (pool_rows or B)
+    y, aux = moe.moe_apply(p["moe"], h.reshape(K, G, B // G * S, d),
+                           cfg.ffn)
     return y.reshape(K, B, S, d), aux.sum(1)
 
 
 def _block(p, spec: LayerSpec, cfg: ModelConfig, x: torch.Tensor,
-           pos: torch.Tensor, train: bool):
+           pos: torch.Tensor, train: bool, pool_rows: Optional[int]):
     """One block of the full-sequence forward -> (x, aux of its MoE, or
     0.0)."""
     T = x.shape[2]
     h_in = rmsnorm(p["norm_mix"], x, cfg.norm_eps)
     if spec.mixer == "rwkv":
-        x = x + ssm.rwkv_apply(p["rwkv"], h_in, cfg)
+        x = x + ssm.rwkv_apply(p["rwkv"], h_in, cfg, train=train)
     elif spec.mixer == "mamba":
-        x = x + ssm.mamba_apply(p["mamba"], h_in, cfg)
+        x = x + ssm.mamba_apply(p["mamba"], h_in, cfg, train=train)
     else:
         window, theta = _mixer_window(cfg, spec)
         x = x + attn.gqa_apply(p["attn"], h_in, cfg.attn, cfg, pos, window,
@@ -155,7 +157,7 @@ def _block(p, spec: LayerSpec, cfg: ModelConfig, x: torch.Tensor,
         x_prev = F.pad(h_f, (0, 0, 1, 0))[:, :, :T]
         x = x + ssm.cmix_apply(p["cmix"], h_f, x_prev)
     elif spec.ffn == "moe":
-        h, aux = _moe(p, cfg, h_f, per_row=False)
+        h, aux = _moe(p, cfg, h_f, pool_rows)
         x = x + h
     else:
         x = x + mlp_apply(p["mlp"], h_f, cfg.ffn.mlp_type)
@@ -163,18 +165,24 @@ def _block(p, spec: LayerSpec, cfg: ModelConfig, x: torch.Tensor,
 
 
 def apply(params, cfg: ModelConfig, tokens: torch.Tensor,
-          remat: bool = False):
+          remat: bool = False, pool_rows: Optional[int] = None):
     """tokens (B, T) shared by all members, or (K, B, T) with one batch
     per member -> (logits (K, B, T, V), aux): aux is the MoE layers'
     summed load-balance loss per member, (K,), or 0.0 for a model
-    without MoE, as the JAX package's apply returns it.
+    without MoE, as the JAX package's apply returns it.  A MoE layer
+    routes each run of pool_rows rows as one token pool, with one
+    capacity (None: all B rows, as one call of the JAX package's apply
+    sees them), so that a call over several batches routes each as the
+    JAX package does.
 
     remat=False is the forward-only route (relabel, eval, serving):
-    attention goes through ops.flash_attention, which on the card is the
-    hand-written kernel and has no backward.  remat=True is the training
-    route, the counterpart of the JAX package's remat=True: each block
-    runs under torch.utils.checkpoint (its activations recomputed in the
-    backward) and attention through attention.attend."""
+    attention and the recurrences go through ops.flash_attention,
+    ops.wkv6 and ops.ssm_scan, which on the card are the hand-written
+    kernels and have no backward.  remat=True is the training route, the
+    counterpart of the JAX package's remat=True: each block runs under
+    torch.utils.checkpoint (its activations recomputed in the backward),
+    attention through attention.attend and the recurrences through their
+    chunked plain forms (models/ssm.py)."""
     _check_supported(cfg)
     x = embed_lookup(params, tokens, cfg)
     B, T = tokens.shape[-2:]
@@ -186,10 +194,10 @@ def apply(params, cfg: ModelConfig, tokens: torch.Tensor,
                 p = _layer(seg[f"slot_{i}"], c)
                 if remat:
                     x, a = checkpoint(_block, p, spec, cfg, x, pos, True,
-                                      use_reentrant=False,
+                                      pool_rows, use_reentrant=False,
                                       preserve_rng_state=False)
                 else:
-                    x, a = _block(p, spec, cfg, x, pos, False)
+                    x, a = _block(p, spec, cfg, x, pos, False, pool_rows)
                 aux = aux + a
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return lm_logits(params, x, cfg), aux
@@ -307,7 +315,7 @@ def _ffn_step(p, spec: LayerSpec, cfg: ModelConfig, lc: dict,
     position (prefill).  A MoE routes per row or over the batch (_moe);
     its aux loss is dropped, as in the JAX package's serving steps."""
     if spec.ffn == "moe":
-        return _moe(p, cfg, h_f, moe_per_row)[0]
+        return _moe(p, cfg, h_f, 1 if moe_per_row else None)[0]
     if spec.ffn != "rwkv_cmix":
         return mlp_apply(p["mlp"], h_f, cfg.ffn.mlp_type)
     tail = lc["cmix_shift"].to(h_f.dtype)

@@ -32,13 +32,30 @@ def _per_member(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return v.reshape((-1,) + (1,) * (like.dim() - 1))
 
 
+# leaves up to _ONE_PASS elements update in one pass; larger ones member
+# by member, each member's slice in pieces of at most _PIECE elements,
+# so that the f32 temporaries stay small (a jamba expert leaf's member
+# slice is 939M elements: 3.8 GB a temporary in f32)
+_ONE_PASS = _PIECE = 1 << 25
+
+
+def _pieces(x: torch.Tensor):
+    """Flat views of x's member slices (x contiguous), in pieces of at
+    most _PIECE elements, member 0's first."""
+    return [piece for k in range(x.shape[0])
+            for piece in x[k].view(-1).split(_PIECE)]
+
+
 def _clip_scale(grads, max_norm: float):
     """-> ((K,) factors that bring each member's global gradient norm to
-    <= max_norm, (K,) norms), each leaf's norm reduced in f32."""
-    gn = torch.sqrt(sum(
-        torch.linalg.vector_norm(g.reshape(g.shape[0], -1), dim=1,
-                                 dtype=torch.float32).square()
-        for g in tree_leaves(grads)))
+    <= max_norm, (K,) norms), each leaf's norm reduced in f32 (a large
+    leaf piece by piece: the f32 cast copies what it reduces)."""
+    def sq(g):
+        flat = g.reshape(g.shape[0], -1)
+        return sum(torch.linalg.vector_norm(flat[:, i:i + _PIECE], dim=1,
+                                            dtype=torch.float32).square()
+                   for i in range(0, flat.shape[1], _PIECE))
+    gn = torch.sqrt(sum(sq(g) for g in tree_leaves(grads)))
     return (max_norm / gn.clamp_min(1e-9)).clamp_max(1.0), gn
 
 
@@ -82,11 +99,6 @@ def sgd_momentum(lr, momentum: float = 0.9, weight_decay: float = 0.0,
         return new_params, {"mu": mu, "step": step}
 
     return Optimizer(init, update)
-
-
-# leaves up to this many elements update in one pass; larger ones member
-# by member, so the f32 temporaries stay within one member's slice
-_ONE_PASS = 1 << 25
 
 
 def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
@@ -147,10 +159,15 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
             if p.numel() <= _ONE_PASS:
                 one(p, g, m, v, *(None if x is None else _per_member(x, p)
                                   for x in vecs))
-            else:
-                for k in range(p.shape[0]):
-                    one(p[k], g[k], m[k], v[k],
-                        *(None if x is None else x[k] for x in vecs))
+                continue
+            # in place on views of params and moments; the gradient is
+            # only read
+            per_member = -(-p[0].numel() // _PIECE)
+            parts = zip(*(_pieces(x) for x in (p, g.contiguous(), m, v)))
+            for i, (pp, gp, mp, vp) in enumerate(parts):
+                k = i // per_member
+                one(pp, gp, mp, vp, *(None if x is None else x[k]
+                                      for x in vecs))
         return params, state
 
     return Optimizer(init, update)

@@ -5,8 +5,11 @@ members run in one pass: the CNN folds them into the channels of grouped
 convolutions (models/cnn.py), the transformer batches them in every op
 (models/transformer.py), and the Eqn-9 loss of all K members is one
 fused-kernel launch over all K*B rows each way.  The models this covers:
-the CNN (paper NiN) and the attention transformers.  The recurrent
-families (rwkv6's "ssm", jamba's "hybrid") serve but do not train yet.
+the CNN (paper NiN) and every transformer family (attention, rwkv6's
+"ssm", jamba's "hybrid").  The transformer's forward-only route
+(relabel, eval) goes through the attention and recurrence kernels; its
+training route (apply(remat=True)) through their plain forms, which
+autograd differentiates.
 """
 from __future__ import annotations
 
@@ -23,25 +26,26 @@ from repro_torch.optim import Optimizer
 L2 = 1e-4  # the paper's weight l2 on conv kernels (Section 5.1)
 
 
-def _check_trainable(cfg: ModelConfig) -> None:
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family is not ported yet: "
-            f"models/ssm.py's recurrences have no training route (ROADMAP "
-            f"queue 1, training of the ssm/hybrid families)")
-
-
 def make_logits_fn(cfg: ModelConfig) -> Callable:
     """(member-stacked params, batch {images (K, B, H, W, C)} or {tokens
     (K, B, T)}) -> logits (K, B, [T,] V), forward only (relabel, eval):
-    the transformer's attention goes through the flash kernel."""
-    _check_trainable(cfg)
+    the transformer's attention and recurrences go through the flash,
+    wkv6 and ssm_scan kernels.  The transformer's also takes pool_rows,
+    the rows of one MoE token pool (transformer.apply)."""
     if cfg.family == "cnn":
         from repro_torch.models import cnn
         return lambda params, batch: cnn.nin_apply(params, batch["images"])
     from repro_torch.models import transformer
-    return lambda params, batch: transformer.apply(params, cfg,
-                                                   batch["tokens"])[0]
+    return lambda params, batch, pool_rows=None: transformer.apply(
+        params, cfg, batch["tokens"], pool_rows=pool_rows)[0]
+
+
+def routes_by_pool(cfg: ModelConfig) -> bool:
+    """Does a layer of cfg route its tokens as a pool (a MoE, whose
+    capacity drops tokens), so that which rows share a call changes the
+    output?"""
+    return cfg.family != "cnn" and any(
+        spec.ffn == "moe" for _, specs in cfg.segments() for spec in specs)
 
 
 def _rows(pseudo, V: int):
@@ -63,7 +67,6 @@ def make_member_loss(cfg: ModelConfig) -> Callable:
     k's params is member k's own gradient.  The CE is the mean over all
     K*B(*T) rows, i.e. 1/K of the members' summed means: it is scaled by
     K.  The transformer takes its training route (apply(remat=True))."""
-    _check_trainable(cfg)
     if cfg.family == "cnn":
         from repro_torch.models import cnn
 

@@ -10,8 +10,8 @@ Algorithm 1 of the paper, generalized over aggregator:
   aggregator="sync" every step means the gradients over the member axis
                     (sync-SGD reference).
 
-The members are the paper's NiN (images) or an attention transformer
-(tokens); pseudo-labels are dense probs or, at LM vocabularies, top-M
+The members are the paper's NiN (images) or a transformer (tokens:
+attention, rwkv6's recurrence, jamba's hybrid of Mamba and MoE); pseudo-labels are dense probs or, at LM vocabularies, top-M
 accumulators (ECConfig.label_mode "topk").  State is member-stacked
 (leading K) under the JAX package's layout, {"params": ..., "opt": ...},
 on one device: the card unless `device` says otherwise.  The host draws
@@ -21,6 +21,11 @@ same batches.  A round waits for the card once, for its last loss.
 The relabel, `evaluate` and `best_member` score member by member and
 chunk by chunk (core/aggregation.stream_logits): at gemma3's vocabulary
 K members' logits over the test set would not fit beside the state.
+
+Fault tolerance: with ckpt_dir, every round ends with an async save of
+the state (checkpoint/store.py: the JAX package's layout, keep 3), and
+`resume()` restores the newest committed round; `reshard(k_new)` changes
+K between rounds.
 
 Straggler policy: members listed as lagging at aggregation time are
 excluded from the ensemble (and from the MA mean) via a (K,) quorum mask.
@@ -35,6 +40,7 @@ import torch
 
 from repro_torch import models
 from repro_torch.bridge import params_from_numpy
+from repro_torch.checkpoint import CheckpointManager, reshard_members
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.common.tree import tree_leaves, tree_map
 from repro_torch.common.types import ECConfig, ModelConfig
@@ -80,9 +86,6 @@ class Trainer:
             raise NotImplementedError(
                 "multi-device training needs common/sharding.py and the "
                 "ring relabel, not ported yet")
-        if ckpt_dir is not None:
-            raise NotImplementedError(
-                "checkpoints need checkpoint/store.py, not ported yet")
         if ec.label_mode not in ("dense", "topk"):
             raise ValueError(f"unknown label_mode {ec.label_mode!r}")
         if ec.aggregator not in ("ec", "ma", "sync"):
@@ -95,6 +98,7 @@ class Trainer:
         self.batch = batch_size
         self.rng = np.random.default_rng(seed)
         self.metrics = TrainerMetrics()
+        self.ckpt = CheckpointManager(ckpt_dir, keep=3) if ckpt_dir else None
         self.pseudo_buffer = None  # (subset_batch, pseudo_targets)
         self.round = 0
 
@@ -126,7 +130,8 @@ class Trainer:
                                           self.ec.relabel_fraction)
         pseudo = agg.allgather_relabel(self.state["params"], subset,
                                        self._logits, self.ec, quorum=quorum,
-                                       n_out=self.cfg.vocab_size)
+                                       n_out=self.cfg.vocab_size,
+                                       pooled=steps.routes_by_pool(self.cfg))
         self.pseudo_buffer = (subset, pseudo)
 
     # ------------------------------------------------------------------
@@ -167,6 +172,8 @@ class Trainer:
                                                      quorum),
                           "opt": self.state["opt"]}
         self.round += 1
+        if self.ckpt is not None:
+            self.ckpt.save(self.round, self.state)
         return float(loss)
 
     def _sample_pseudo_batch(self):
@@ -185,7 +192,11 @@ class Trainer:
     def _eval_members(self, params, test_b: dict):
         """-> (mean member NLL, ensemble NLL, mean member error, ensemble
         error) on test_b, shared by the members; as the JAX package's
-        eval, scored a chunk and a member at a time."""
+        eval, scored a chunk and a member at a time.  A MoE model's
+        chunk is its own token pool: where the test rows' logits pass
+        CHUNK_BYTES (full-width jamba: 64 of the 256 rows a chunk), its
+        capacity drops other tokens than the JAX package's one pool of
+        all rows does (ROADMAP queue 3)."""
         K = tree_leaves(params)[0].shape[0]
         labels = test_b["labels"]
         m_nll = m_err = e_nll = e_err = 0.0
@@ -251,7 +262,42 @@ class Trainer:
         k = int(torch.argmin(losses))
         return tree_map(lambda x: x[k], params), k
 
-    def reshard(self, k_new: int):
-        raise NotImplementedError(
-            "elastic K needs checkpoint/store.py's reshard_members, not "
-            "ported yet")
+    # ------------------------------------------------------------------
+    # fault tolerance / elasticity
+    # ------------------------------------------------------------------
+
+    def save(self) -> None:
+        if self.ckpt is not None:
+            self.ckpt.save(self.round, self.state)
+            self.ckpt.wait()
+
+    def resume(self) -> bool:
+        """Restore the newest committed round, if any: the state, and
+        `round`; the pseudo buffer is dropped (the next round boundary
+        relabels).  The host's index generator is not checkpointed, as in
+        the JAX package."""
+        if self.ckpt is None:
+            return False
+        latest = self.ckpt.latest()
+        if latest is None:
+            return False
+        self.state = self.ckpt.restore(self.state, latest)
+        self.round = latest
+        self.pseudo_buffer = None
+        return True
+
+    def reshard(self, k_new: int,
+                generator: Optional[torch.Generator] = None) -> None:
+        """K -> k_new members (store.reshard_members): grown members copy
+        the first ones, their params perturbed by 1e-3 * N(0, 1) when a
+        generator is given (the JAX Trainer perturbs with a key, and then
+        its AdamW moments too, where noise makes v negative); the
+        shards follow.  The steps read K from the state: nothing to
+        rebuild."""
+        self.state = {"params": reshard_members(self.state["params"], k_new,
+                                                perturb=1e-3,
+                                                generator=generator),
+                      "opt": reshard_members(self.state["opt"], k_new)}
+        self.shards = reshard_members(self.shards, k_new)
+        self.K = k_new
+        self.pseudo_buffer = None

@@ -41,6 +41,17 @@ K = 4
 ARCH = "jamba-v0.1-52b"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: at these shapes it is the fastest even
+    alone, and the suite's workers share the cores (torch's default,
+    one thread a core in every worker, oversubscribes them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def models():
     jcfg = jreg.get_config(ARCH, reduced=True).with_(dtype="float32")

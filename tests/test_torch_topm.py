@@ -211,13 +211,17 @@ def _adam_tree(rng, K):
 
 
 @pytest.mark.parametrize("moments", ["float32", "bfloat16"])
-@pytest.mark.parametrize("one_pass", ["whole_leaf", "member_by_member"])
+@pytest.mark.parametrize("one_pass", ["whole_leaf", "member_by_member",
+                                      "in_pieces"])
 def test_adamw_matches_jax_in_place(monkeypatch, moments, one_pass):
     """Four steps under a warm-up schedule, member 0's gradients above
     the clip norm and member 1's below it; the params and moments the
-    update writes are the tensors it was given."""
-    if one_pass == "member_by_member":
+    update writes are the tensors it was given.  `in_pieces` cuts each
+    member's slice into pieces of 4 elements (the clip's norms too)."""
+    if one_pass != "whole_leaf":
         monkeypatch.setattr(topt_mod, "_ONE_PASS", 0)
+    if one_pass == "in_pieces":
+        monkeypatch.setattr(topt_mod, "_PIECE", 4)
     rng = np.random.default_rng(0)
     K = 2
     params = _adam_tree(rng, K)
