@@ -4,16 +4,19 @@
     python3 chip_smoke.py
 
 Phases, one JSON line each, in the order 0, 1, 7, 10, 11, 2, 8, 9, 12,
-13, 3, 4, 5, 6, 14, 15:
+16, 13, 3, 4, 5, 6, 14, 15:
   0  the card's name and power limit; build every CUDA kernel from
      src/repro_torch/kernels/csrc (one nvcc per source, all at once);
      every kernel function's registers and spills (ptxas) and each
      library's count of tensor-core instructions (cuobjdump);
   1  the paged-attention kernel against its plain PyTorch version on the
      card, at the decode path's shapes (gemma3-1b's in every variant it
-     takes, deepseek-7b's and jamba's in bf16), with its time (cold L2),
-     the plain version's, one library call's, the bound and the number
-     of blocks each row's pages are split over;
+     takes, deepseek-7b's and jamba's in bf16, deepseek-v2's absorbed
+     MLA decode in bf16 and f32: 128 heads over one latent "kv head", r
+     512 + rope 64 as k_extra, the latent plane as keys and values), with
+     its time (cold L2), the plain version's, one library call's, the
+     bound, the query heads a block holds and the number of blocks each
+     row's pages are split over;
   7  the flash-attention kernel likewise, f32 and bf16, at the prefill's
      shapes (gemma3-1b over a 512 ring and over 576 gathered positions,
      deepseek-7b over 576, each plus a 128-token chunk, mid-prompt and
@@ -55,9 +58,16 @@ Phases, one JSON line each, in the order 0, 1, 7, 10, 11, 2, 8, 9, 12,
      (the 32-layer model does not fit one card): ssm_scan once per Mamba
      layer per decode step and per 128-token piece of a prefill call,
      paged attention on the attention layer per decode step, flash
-     attention per prefill call, wkv6 never; init below 60 GB.
-     Phases 2, 8, 9 and 12 give each kernel's device time per launch in
-     situ (profiler sum over launches, decode and prefill apart);
+     attention per prefill call, wkv6 never; init below 60 GB;
+ 16  the same for deepseek-v2-236b at full width (bf16, MLA of 128 heads
+     over a 512 latent, 160 experts top-6 with 2 shared), K = 4, cut to
+     2 of 60 layers (the dense first layer and one MoE layer; 42.9 GB of
+     weights, three layers would be 74.6): the absorbed paged decode
+     launches paged attention once per MLA layer per decode step; MLA
+     prefill takes the plain attend, as the JAX package does, so flash
+     attention never; init below 60 GB.
+     Phases 2, 8, 9, 12 and 16 give each kernel's device time per launch
+     in situ (profiler sum over launches, decode and prefill apart);
  13  continuous batching at full width: gemma3-1b in f32 (greedy
      decisive), K=4, paged (page 16, every layer: max_prompt 448 +
      max_out 64 = the local window), 4 slots over a pool cut to 3 slots
@@ -73,12 +83,12 @@ Phases, one JSON line each, in the order 0, 1, 7, 10, 11, 2, 8, 9, 12,
      percentiles, tick phases, and decode over shared pages (ms per
      step, idle share, both kernels' time per launch in situ);
   3  the card against the CPU end to end on reduced gemma3-1b,
-     deepseek-7b, rwkv6-7b and jamba-v0.1-52b at f32: identical greedy
-     tokens and allclose fused log-probs; Scheduler.run gives identical
-     completions and preemptions on both (prefix cache on for gemma3-1b
-     and deepseek-7b, off with a pool that preempts for rwkv6-7b and
-     jamba), and engine.score agrees within 1e-4 and keeps the Jensen
-     bound;
+     deepseek-7b, rwkv6-7b, jamba-v0.1-52b and deepseek-v2-236b at f32:
+     identical greedy tokens and allclose fused log-probs; Scheduler.run
+     gives identical completions and preemptions on both (prefix cache
+     on for gemma3-1b, deepseek-7b and deepseek-v2-236b, off with a pool
+     that preempts for rwkv6-7b and jamba), and engine.score agrees
+     within 1e-4 and keeps the Jensen bound;
   4  the fused distillation-loss kernels (forward and backward) against
      their plain version on the card: the NiN training path's shape, a
      262k bf16 vocab (gemma3-1b's distill step), rwkv6-7b's in phase 15
@@ -147,6 +157,11 @@ MAIN = dict(rows=16, H=4, Hkv=1, d=256, page=16, max_len=576)
 DEEPSEEK = dict(rows=16, H=32, Hkv=32, d=128, page=16, min_len=300,
                 max_len=544)
 JAMBA = dict(rows=8, H=32, Hkv=8, d=128, page=16, min_len=300, max_len=544)
+# deepseek-v2's absorbed MLA decode (K = 4 x 4 slots): 128 heads over one
+# latent "kv head" of 512 features, 64 rope features as k_extra, the
+# softmax scale 1/sqrt(qk_nope 128 + rope 64)
+DEEPSEEK_V2 = dict(rows=16, H=128, Hkv=1, page=16, min_len=300,
+                   max_len=544, scale=192 ** -0.5)
 FLUSH_BYTES = 64 << 20             # > the 50 MB L2: each timed call starts cold
 SLEEP_CYCLES = 5_000_000           # ~2.5 ms of GPU clock: outlasts any enqueue
 
@@ -224,10 +239,12 @@ def time_ms(fn, torch, flush, iters: int = 30, warmup: int = 3) -> float:
 # phase 1: paged_attention against its plain version
 # ---------------------------------------------------------------------------
 
-def paged_case(torch, gen, *, qdt, kvdt, dk, dv, dr=0, window=0, shape=None):
+def paged_case(torch, gen, *, qdt, kvdt, dk, dv, dr=0, window=0, shape=None,
+               shared=False):
     """Main-path-shaped inputs: ragged lens in 1..576 (or the shape's
     range), each row's live pages scattered over the pool, sentinel (>=
-    n_pages) entries past them."""
+    n_pages) entries past them; shared: the value pages are the key
+    pages (absorbed MLA's latent plane)."""
     m = shape or MAIN
     B, H, Hkv, page = m["rows"], m["H"], m["Hkv"], m["page"]
     P = -(-m["max_len"] // page)
@@ -263,6 +280,10 @@ def paged_case(torch, gen, *, qdt, kvdt, dk, dv, dr=0, window=0, shape=None):
                                      device=dev) * 0.05
     if dr:
         case["k_extra"] = rnd(n_pages, page, Hkv, dr, dtype=qdt)
+    if shared:
+        case["v_pages"] = case["k_pages"]
+    if "scale" in m:
+        case["scale"] = m["scale"]
     return case
 
 
@@ -275,7 +296,8 @@ def paged_bound(case, torch):
     Hkv, dk, dv = kp.shape[2], kp.shape[3], vp.shape[3]
     lens = case["lens"].long()
     live_tok = int(((lens + page - 1) // page).sum()) * page
-    per_tok = Hkv * (dk + dv) * kp.element_size()
+    # a plane passed as both keys and values is read once
+    per_tok = Hkv * (dk + (0 if vp is kp else dv)) * kp.element_size()
     for name in ("k_scale", "v_scale"):
         if case.get(name) is not None:
             per_tok += Hkv * 4
@@ -292,7 +314,10 @@ def paged_bound(case, torch):
 
 def sdpa_call(case, torch):
     """One PyTorch call computing the same attention over K/V gathered
-    into contiguous per-row tensors beforehand (the yardstick)."""
+    into contiguous per-row tensors beforehand (the yardstick).  With
+    k_extra (absorbed MLA) the keys are the gathered latent and rope
+    keys, one kv head that the call shares over the query heads
+    (enable_gqa)."""
     import torch.nn.functional as F
     q, kp, vp, table = (case["q"], case["k_pages"], case["v_pages"],
                         case["table"])
@@ -301,13 +326,20 @@ def sdpa_call(case, torch):
     g = H // Hkv
     t = table.long().clamp(0, n_pages - 1)
     S = t.shape[1] * page
-    k = kp[t].reshape(B, S, Hkv, dk).transpose(1, 2)
+    k = kp[t].reshape(B, S, Hkv, dk)
     v = vp[t].reshape(B, S, Hkv, -1).transpose(1, 2)
-    k = k.repeat_interleave(g, dim=1).contiguous()
-    v = v.repeat_interleave(g, dim=1).contiguous()
     pos = torch.arange(S, device=q.device)
     mask = (pos[None, :] < case["lens"].long()[:, None])[:, None, None]
     qq = q[:, :, None]
+    if case.get("k_extra") is not None:
+        ke = case["k_extra"][t].reshape(B, S, Hkv, -1)
+        k = torch.cat([k, ke], -1).transpose(1, 2).contiguous()
+        v = v.contiguous()
+        return lambda: F.scaled_dot_product_attention(
+            qq, k, v, attn_mask=mask, scale=case.get("scale"),
+            enable_gqa=True)
+    k = k.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
+    v = v.repeat_interleave(g, dim=1).contiguous()
     return lambda: F.scaled_dot_product_attention(qq, k, v, attn_mask=mask)
 
 
@@ -337,6 +369,13 @@ def phase1(torch, flush, card):
         # 40-byte rows: the kernel's element-wise staging path
         ("int8_dk40_rows_unvectorized",
          dict(qdt=f32, kvdt=torch.int8, dk=40, dv=40), 2e-5),
+        # deepseek-v2's absorbed decode: several head groups a kv head,
+        # the latent staged once; f32 stages one page a step
+        ("bf16_deepseek_v2_mla", dict(qdt=bf16, kvdt=bf16, dk=512, dv=512,
+                                      dr=64, shape=DEEPSEEK_V2,
+                                      shared=True), 2e-2),
+        ("f32_mla", dict(qdt=f32, kvdt=f32, dk=512, dv=512, dr=64,
+                         shape=DEEPSEEK_V2, shared=True), 2e-5),
     ]
     # tolerances are those of the JAX package's kernel tests: the kernel
     # sums an online softmax page by page, the plain version all at once
@@ -345,7 +384,14 @@ def phase1(torch, flush, card):
         case = paged_case(torch, gen, **kw)
         args = {k: v for k, v in case.items()}
         B, P = case["table"].shape
-        splits = pa.n_splits(B, case["k_pages"].shape[2], P, n_sm)
+        n_pages, page, Hkv, dk = case["k_pages"].shape
+        H, dkq = case["q"].shape[1:]
+        dims = (dk, case["v_pages"].shape[-1], dkq - dk, page, P)
+        sizes = (case["k_pages"].element_size(), case["q"].element_size(),
+                 case["v_pages"] is case["k_pages"])
+        gh, ppt, splits = pa.launch_plan(B, H, Hkv, *dims, *sizes, n_sm)
+        groups = H // Hkv // gh
+        per_sm = pa.blocks_per_sm(pa.smem_bytes(gh, *dims, ppt, *sizes))
         got = pa.paged_attention(**args)
         want = ref.paged_attention(**args)
         torch.cuda.synchronize()
@@ -356,14 +402,17 @@ def phase1(torch, flush, card):
         plain_ms = time_ms(lambda: ref.paged_attention(**args), torch, flush,
                            iters=10)
         lib_ms = None
-        if "k_scale" not in case and "k_extra" not in case \
-                and case["k_pages"].shape[-1] == case["v_pages"].shape[-1] \
-                and not case["window"]:
+        mla = "scale" in case     # the absorbed MLA shape: k_extra too
+        if mla or ("k_scale" not in case and "k_extra" not in case
+                   and dk == case["v_pages"].shape[-1]
+                   and not case["window"]):
             lib_ms = time_ms(sdpa_call(case, torch), torch, flush)
         bound_ms, bound_by = paged_bound(case, torch)
         row = {"phase": 1, "card": card, "kernel": "paged_attention",
                "case": name, "rows": B, "H": case["q"].shape[1],
-               "Hkv": case["k_pages"].shape[2], "P": P, "splits": splits,
+               "Hkv": Hkv, "P": P, "head_group": gh, "groups": groups,
+               "pages_a_stage": ppt, "blocks_per_sm": per_sm,
+               "splits": splits,
                "lens_sum": int(case["lens"].sum()),
                "max_abs_err": err, "tol": tol, "ms": ms,
                "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -371,7 +420,9 @@ def phase1(torch, flush, card):
         emit(row)
         rows[name] = row
     emit({"phase": 1, "paged_attention_splits": {
-        name: row["splits"] for name, row in rows.items()}, "sms": n_sm})
+        name: row["splits"] for name, row in rows.items()},
+        "head_groups": {name: row["groups"] for name, row in rows.items()},
+        "sms": n_sm})
     return rows
 
 
@@ -773,7 +824,7 @@ def serve_phase(torch, np, card, arch: str, phase: int, members: int = 4,
     from repro_torch.models import ssm
     from repro_torch.models import transformer as tf
     from repro_torch.serving.engine import EnsembleEngine
-    cfg = registry.get_config(arch)
+    cfg = full = registry.get_config(arch)
     if n_layers is not None:
         cfg = cfg.with_(n_layers=n_layers)
     K, n_new, plens = members, SERVE["new_tokens"], SERVE["prompt_lens"]
@@ -798,8 +849,10 @@ def serve_phase(torch, np, card, arch: str, phase: int, members: int = 4,
     n_layers = lambda mixers: sum(  # noqa: E731
         count for count, specs in cfg.segments() for sp in specs
         if sp.mixer in mixers)
-    n_attn, n_rwkv = n_layers(("attn", "attn_local")), n_layers(("rwkv",))
-    n_mamba = n_layers(("mamba",))
+    # MLA layers prefill through the plain attend, as the JAX package does
+    n_attn = n_layers(("attn_local",)) + (
+        0 if cfg.attn.kind == "mla" else n_layers(("attn",)))
+    n_rwkv, n_mamba = n_layers(("rwkv",)), n_layers(("mamba",))
     calls = sum(-(-n // eng.prefill_chunk) for n in plens)
     pieces = -(-eng.prefill_chunk // ssm.MAMBA_CHUNK)
     expected = {"paged_attention": n_paged * (n_new - 1),
@@ -809,8 +862,8 @@ def serve_phase(torch, np, card, arch: str, phase: int, members: int = 4,
     formulas = {
         "paged_attention": f"{n_paged} paged layers x ({n_new} - 1) decode "
                            f"steps = {expected['paged_attention']}",
-        "flash_attention": f"{n_attn} attention layers x {calls} prefill "
-                           f"calls = {expected['flash_attention']}",
+        "flash_attention": f"{n_attn} GQA attention layers x {calls} "
+                           f"prefill calls = {expected['flash_attention']}",
         "wkv6": f"{n_rwkv} rwkv layers x (({n_new} - 1) decode steps + "
                 f"{calls} prefill calls) = {expected['wkv6']}",
         "ssm_scan": f"{n_mamba} mamba layers x (({n_new} - 1) decode steps "
@@ -883,7 +936,8 @@ def serve_phase(torch, np, card, arch: str, phase: int, members: int = 4,
                       if per_prefill[k] else None}
                   for k, n in expected.items() if n}
     emit({"phase": phase, "card": card, "arch": cfg.name, "dtype": cfg.dtype,
-          "members": K, "n_layers": cfg.n_layers, "slots": SERVE["slots"],
+          "members": K, "n_layers": cfg.n_layers,
+          "published_layers": full.n_layers, "slots": SERVE["slots"],
           "prompt_lens": plens,
           "new_tokens": n_new, "prefill_chunk": eng.prefill_chunk,
           "paged_layers": n_paged, "attention_layers": n_attn,
@@ -1192,7 +1246,9 @@ PHASE3_CONT = {
     "deepseek-7b": dict(n_slots=3, max_prompt=24, max_out=6, n_pages=14,
                         prefix_cache=True),
     "rwkv6-7b": dict(n_slots=3, max_prompt=24, max_out=6, n_pages=6),
-    "jamba-v0.1-52b": dict(n_slots=3, max_prompt=24, max_out=6, n_pages=6)}
+    "jamba-v0.1-52b": dict(n_slots=3, max_prompt=24, max_out=6, n_pages=6),
+    "deepseek-v2-236b": dict(n_slots=3, max_prompt=24, max_out=6,
+                             n_pages=14, prefix_cache=True)}
 
 
 def phase3_continuous(torch, np, arch: str):
@@ -2169,7 +2225,13 @@ def main() -> int:
                 "jamba-v0.1-52b": serve_phase(torch, np, card,
                                               "jamba-v0.1-52b", 12,
                                               members=2, n_layers=8,
-                                              init_limit=60e9)}
+                                              init_limit=60e9),
+                # the dense first layer and one MoE layer of 60 at K = 4
+                # (42.9 GB of bf16 weights; a third layer makes 74.6 GB)
+                "deepseek-v2-236b": serve_phase(torch, np, card,
+                                                "deepseek-v2-236b", 16,
+                                                n_layers=2,
+                                                init_limit=60e9)}
     launches_cont = phase13(torch, np, card)
     for arch in launches:
         phase3(torch, np, arch)
@@ -2212,14 +2274,16 @@ def main() -> int:
 
     dsrc = "src/repro_torch/kernels/csrc/distill_loss.cu"
     emit({"kernels": [
-        # gemma3-1b's decode row; the deepseek-7b and jamba shapes too
+        # gemma3-1b's decode row; the deepseek-7b, jamba and deepseek-v2
+        # (absorbed MLA) shapes too
         dict(entry("paged_attention",
                    "src/repro_torch/kernels/csrc/paged_attention.cu",
                    "src/repro/kernels/paged_attention.py:117",
                    launches["gemma3-1b"]["paged_attention"],
                    paged_rows["bf16"], serving("paged_attention")),
              by_shape=by_shape({k: paged_rows[k] for k in (
-                 "bf16", "bf16_deepseek_7b", "bf16_jamba")})),
+                 "bf16", "bf16_deepseek_7b", "bf16_jamba",
+                 "bf16_deepseek_v2_mla", "f32_mla")})),
         # deepseek-7b's bf16 chunk; every bf16 case too
         dict(entry("flash_attention",
                    "src/repro_torch/kernels/csrc/flash_attention.cu",

@@ -9,8 +9,10 @@ card, to compare two versions of the port end to end: each run builds
 the checkout's kernels into its own build/ and imports its chip_smoke.py
 and src/, so a phase's code and its asserts are that checkout's.  A
 phase takes (torch, np, card) or, for the kernel phases, (torch, flush,
-card).  The last line is one JSON object: the checkout, the card and
-each phase's wall seconds.
+card).  The serving phases (2, 8, 9, 12, 16) run the checkout's
+`serve_phase` with the arguments its `main` gives them.  The last line
+is one JSON object: the checkout, the card and each phase's wall
+seconds.
 """
 from __future__ import annotations
 
@@ -22,6 +24,13 @@ import os
 import sys
 import time
 
+# serving phase -> serve_phase's (arch, keyword arguments), as in main()
+SERVE = {2: ("gemma3-1b", {}),
+         8: ("deepseek-7b", dict(init_limit=60e9)),
+         9: ("rwkv6-7b", dict(init_limit=60e9)),
+         12: ("jamba-v0.1-52b", dict(members=2, n_layers=8,
+                                     init_limit=60e9)),
+         16: ("deepseek-v2-236b", dict(n_layers=2, init_limit=60e9))}
 
 def main() -> int:
     ap = argparse.ArgumentParser()
@@ -51,9 +60,16 @@ def main() -> int:
     build.build_all()
     seconds = {"build": time.perf_counter() - t0}
     for n in args.phases.split(","):
+        t0 = time.perf_counter()
+        if int(n) in SERVE:
+            arch, kw = SERVE[int(n)]
+            cs.serve_phase(torch, np, card, arch, int(n), **kw)
+            torch.cuda.synchronize()
+            seconds[f"phase{n}"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+            continue
         fn = getattr(cs, f"phase{n}")
         names = list(inspect.signature(fn).parameters)
-        t0 = time.perf_counter()
         if names[:2] == ["torch", "flush"]:
             flush = torch.empty(cs.FLUSH_BYTES, dtype=torch.uint8,
                                 device="cuda")

@@ -11,11 +11,14 @@ _MODULES = {
     "paper_nin": "repro_torch.configs.paper_nin",
     "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
     "jamba-v0.1-52b": "repro_torch.configs.jamba_52b",
+    "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
+    "starcoder2-7b": "repro_torch.configs.starcoder2_7b",
+    "llama3-405b": "repro_torch.configs.llama3_405b",
+    "arctic-480b": "repro_torch.configs.arctic_480b",
 }
 
 # archs the JAX package serves that this package does not run yet
-NOT_PORTED = ("llama3-405b", "starcoder2-7b", "deepseek-v2-236b",
-              "arctic-480b", "qwen2-vl-2b", "whisper-tiny")
+NOT_PORTED = ("qwen2-vl-2b", "whisper-tiny")
 
 ARCH_IDS = tuple(_MODULES)
 

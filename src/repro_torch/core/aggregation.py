@@ -11,9 +11,10 @@ allgather_relabel: every member scores every member's relabel batch and
   relabel set of 22 sequences of 64 tokens a member would be 5.9 GB in
   f32.  A model that routes tokens by pool (a MoE: which tokens share a
   call decides which are dropped) scores each batch as its own pool,
-  as the JAX package does: a chunk then holds whole batches, at least
-  one, and the MoE layers pool each batch's rows apart
-  (transformer.apply's pool_rows).
+  as the JAX package does: a chunk holds whole batches, and the MoE
+  layers pool each batch's rows apart (transformer.apply's pool_rows),
+  or, where one batch does not fit, a piece of one, its MoE layers
+  carrying their arrival counts from piece to piece (apply's carry).
 
 ma_aggregate: parameter mean over the member axis (MA-DNN).
 
@@ -55,17 +56,25 @@ def stream_logits(stacked_params, inputs: dict, logits_fn: Callable,
     fold=True scores the K members in one call when all their logits
     fit CHUNK_BYTES (the eval's test rows; the relabel's rows are
     already K members' batches, so it scores a member at a time).
-    pool_rows: the rows of one token pool, passed on to logits_fn; a
-    chunk then holds whole pools, as many as fit, at least one.
+    pool_rows: the rows of one token pool, passed on to logits_fn.  A
+    chunk then holds whole pools, as many as fit; where one pool does
+    not fit, its chunks are pieces of it, and each member carries its
+    MoE layers' arrival counts from one piece to the next (logits_fn's
+    carry, a dict started afresh at each pool).
     logits_fn takes member-stacked params and a batch with a leading
     member axis, as steps.make_logits_fn's do."""
     K = tree_leaves(stacked_params)[0].shape[0]
     n = tree_leaves(inputs)[0].shape[0]
     rows = chunk_rows(inputs, n_out)
-    kw = {}
-    if pool_rows is not None:
-        rows = max(1, rows // pool_rows) * pool_rows
-        kw = {"pool_rows": pool_rows}
+    kw = {} if pool_rows is None else {"pool_rows": pool_rows}
+
+    def members(sl, carries=None):
+        chunk = {name: v[None, sl] for name, v in inputs.items()}
+        for k in range(K):
+            member = tree_map(lambda x: x[k:k + 1], stacked_params)
+            carry = {} if carries is None else {"carry": carries[k]}
+            yield sl, k, logits_fn(member, chunk, **kw, **carry)[0]
+
     if fold and K * n <= rows:
         logits = logits_fn(stacked_params, {
             name: v[None].expand(K, *v.shape) for name, v in inputs.items()},
@@ -73,12 +82,17 @@ def stream_logits(stacked_params, inputs: dict, logits_fn: Callable,
         for k in range(K):
             yield slice(0, n), k, logits[k]
         return
-    for s in range(0, n, rows):
-        sl = slice(s, min(s + rows, n))
-        chunk = {name: v[None, sl] for name, v in inputs.items()}
-        for k in range(K):
-            member = tree_map(lambda x: x[k:k + 1], stacked_params)
-            yield sl, k, logits_fn(member, chunk, **kw)[0]
+    if pool_rows is None or pool_rows <= rows:
+        if pool_rows is not None:
+            rows = rows // pool_rows * pool_rows
+        for s in range(0, n, rows):
+            yield from members(slice(s, min(s + rows, n)))
+        return
+    for p0 in range(0, n, pool_rows):
+        end = min(p0 + pool_rows, n)
+        carries = [{} for _ in range(K)]
+        for s in range(p0, end, rows):
+            yield from members(slice(s, min(s + rows, end)), carries)
 
 
 @torch.no_grad()

@@ -19,12 +19,18 @@
 // SMs) and one page's memory latency after another.
 //
 // Design (flash-decoding):
-//   - the grid is (row, kv head, split): a row's live pages [first,
-//     ceil(len/page)) (first honours the window) are divided evenly over
-//     n_split blocks on the device, from lens[b], so ragged rows stay
-//     balanced and the host never reads lens.  n_split comes from shapes
-//     the host knows (rows, Hkv, P and the SM count: about two blocks
-//     per SM, see kernels/paged_attention.n_splits);
+//   - the grid is (row, kv head, head group, split).  A block holds the
+//     q rows and accumulators of `gh` of the kv head's g query heads:
+//     gh = g where that fits the shared memory; absorbed MLA's g = 128
+//     heads of 576 / 512 features do not, and kernels/paged_attention.plan
+//     picks the largest divisor of g at which two blocks share an SM (a
+//     block alone has 4 warps to hide the shared memory's latency).  A
+//     row's live pages [first, ceil(len/page)) (first honours the
+//     window) are divided over n_split blocks on the device, from
+//     lens[b], so ragged rows stay balanced and the host never reads
+//     lens.  n_split comes from shapes the host knows (rows, Hkv, P, the
+//     SM count and the blocks an SM holds at this layout: about two
+//     blocks per SM, see kernels/paged_attention.n_splits);
 //   - a block reads its row's page ids into shared memory once, then
 //     stages `ppt` pages a step (32 tokens at page 16) in their stored
 //     type with 16-byte cp.async (a warp copies whole rows, each lane a
@@ -45,9 +51,17 @@
 //     (attention_combine.cuh) merges a row's partials.  A split with no
 //     live page writes acc = 0, m = NEG_INF, l = 0;
 //   - table entries >= n_pages (unallocated) are clamped to a real page
-//     and masked by position, like the TPU kernel's index map.
+//     and masked by position, like the TPU kernel's index map;
+//   - when the value pages are the key pages (absorbed MLA passes its
+//     latent plane as both), the plane is staged once and read as both.
 // Decode scores stay on the CUDA cores in f32: at g <= 4 a tensor-core
 // tile would be mostly padding, and the bytes bound the kernel anyway.
+// Absorbed MLA is the exception: its 128 heads share one latent "kv
+// head", so a token's scores and values are 2 x 128 x (576 + 512) flops
+// for 1,152 bytes read, operations bound it, and on the CUDA cores in
+// f32 the kernel cannot come within about a tenth of its bf16
+// tensor-core bound; a wgmma kernel over the head group (FlashMLA's
+// design) is the fix, after this first one that launches and is right.
 // Still left: at deepseek-7b's shape (g = 1, 512 blocks of ~14 tiles)
 // the kernel reads at about 2 TB/s with no compute (copies alone) and
 // the per-tile block barriers keep the products from hiding under the
@@ -136,9 +150,10 @@ __host__ __device__ __forceinline__ int q_ld(int dk, int dr) {
 
 // Byte offsets of the shared-memory regions: the block's own state
 // first (its page ids, q as f32, the accumulator, the tile's
-// probabilities, m, l and the rescale per head), then kStages tiles of
-// `tt` tokens in their stored types (K rows, V rows, k_extra rows, K
-// and V scales).
+// probabilities, m, l and the rescale per head, for the block's g
+// heads), then kStages tiles of `tt` tokens in their stored types (K
+// rows, V rows unless share_v (V reads the K rows), k_extra rows, K and
+// V scales).  kernels/paged_attention.smem_bytes is its Python twin.
 struct Layout {
   long long tab, q, acc, p, m, l, a, stage0, stage_bytes;
   long long k, v, ke, ks, vs;  // offsets within a stage
@@ -147,7 +162,7 @@ struct Layout {
 
 __host__ __device__ inline Layout layout(int g, int dk, int dv, int dr,
                                          int tt, int P, int kv_size,
-                                         int q_size) {
+                                         int q_size, int share_v) {
   Layout L;
   long long at = 0;
   L.tab = at; at += align16(4LL * P);
@@ -160,7 +175,8 @@ __host__ __device__ inline Layout layout(int g, int dk, int dv, int dr,
   L.stage0 = at;
   long long s = 0;
   L.k = s; s += align16(static_cast<long long>(tt) * dk * kv_size);
-  L.v = s; s += align16(static_cast<long long>(tt) * dv * kv_size);
+  L.v = share_v ? L.k : s;
+  if (!share_v) s += align16(static_cast<long long>(tt) * dv * kv_size);
   L.ke = s; s += align16(static_cast<long long>(tt) * dr * q_size);
   L.ks = s; s += align16(4LL * tt);
   L.vs = s; s += align16(4LL * tt);
@@ -181,6 +197,8 @@ struct Params {
   void* out;
   float* part;  // (B * H, n_split, dv + 2) partials, or null at one split
   int H, Hkv, dk, dv, dr, n_pages, page, P, window, ppt, n_split;
+  int gh, n_group;     // query heads a block holds; blocks a kv head's g
+  int share_v;         // v is the k plane: staged once
   int vec_kv, vec_ke;  // rows 16-byte copyable
   float scale;
 };
@@ -251,7 +269,8 @@ __device__ __forceinline__ void stage_tile(const Params& a, const Layout& L,
   const char* ep = static_cast<const char*>(a.ke);
   if (a.vec_kv) {
     stage_plane(st + L.k, kp, kb, tab, p0, p1, a.page, a.Hkv, h, tid);
-    stage_plane(st + L.v, vp, vb, tab, p0, p1, a.page, a.Hkv, h, tid);
+    if (!a.share_v)
+      stage_plane(st + L.v, vp, vb, tab, p0, p1, a.page, a.Hkv, h, tid);
   }
   if (!a.vec_kv || a.dr > 0 || a.ks != nullptr || a.vs != nullptr) {
     // the rest a warp a token at a time: k_extra rows, the scales, and
@@ -267,7 +286,8 @@ __device__ __forceinline__ void stage_tile(const Params& a, const Layout& L,
         const int t = t0 + u;
         if (!a.vec_kv) {
           copy_row(st + L.k + t * kb, kp + r * kb, kb, sizeof(KT), lane);
-          copy_row(st + L.v + t * vb, vp + r * vb, vb, sizeof(KT), lane);
+          if (!a.share_v)
+            copy_row(st + L.v + t * vb, vp + r * vb, vb, sizeof(KT), lane);
         }
         if (a.dr > 0) {
           if (a.vec_ke) {
@@ -287,17 +307,17 @@ __device__ __forceinline__ void stage_tile(const Params& a, const Layout& L,
 // q (B, H, dk + dr); k/v pages (n_pages, page, Hkv, dk | dv);
 // table (B, P); lens (B,); ks/vs (n_pages, page, Hkv) or null; ke
 // (n_pages, page, Hkv, dr) or null; out (B, H, dv).
-// Grid: B * Hkv * n_split blocks, split fastest; four blocks an SM (at
-// most 128 registers a thread).
+// Grid: B * Hkv * n_group * n_split blocks, split fastest, then the head
+// group; four blocks an SM (at most 128 registers a thread).
 template <typename QT, typename KT>
 __global__ void __launch_bounds__(kThreads, 4) paged_kernel(Params a) {
   extern __shared__ __align__(16) char smem[];
-  const int g = a.H / a.Hkv;
+  const int g = a.gh;  // the query heads this block holds
   const int dkq = a.dk + a.dr;
   const int qld = q_ld(a.dk, a.dr);
   const int tt = a.ppt * a.page;
-  const Layout L =
-      layout(g, a.dk, a.dv, a.dr, tt, a.P, sizeof(KT), sizeof(QT));
+  const Layout L = layout(g, a.dk, a.dv, a.dr, tt, a.P, sizeof(KT),
+                          sizeof(QT), a.share_v);
   int* tab_s = reinterpret_cast<int*>(smem + L.tab);      // (P,)
   float* q_s = reinterpret_cast<float*>(smem + L.q);      // (g, qld)
   float* acc = reinterpret_cast<float*>(smem + L.acc);    // (g, dv)
@@ -308,9 +328,12 @@ __global__ void __launch_bounds__(kThreads, 4) paged_kernel(Params a) {
   char* stages = smem + L.stage0;
 
   const int split = blockIdx.x % a.n_split;
-  const int bh = blockIdx.x / a.n_split;
+  const int rest = blockIdx.x / a.n_split;
+  const int grp = rest % a.n_group;
+  const int bh = rest / a.n_group;
   const int b = bh / a.Hkv;
   const int h = bh - b * a.Hkv;
+  const int head0 = h * (a.H / a.Hkv) + grp * g;  // the block's first head
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -337,7 +360,7 @@ __global__ void __launch_bounds__(kThreads, 4) paged_kernel(Params a) {
   cp_async_commit();
 
   const QT* qb = static_cast<const QT*>(a.q) +
-                 (static_cast<long long>(b) * a.H + h * g) * dkq;
+                 (static_cast<long long>(b) * a.H + head0) * dkq;
   for (int i = tid; i < g * dkq; i += kThreads)
     q_s[(i / dkq) * qld + i % dkq] = to_f(qb[i]);
   for (int i = tid; i < g * a.dv; i += kThreads) acc[i] = 0.f;
@@ -509,7 +532,7 @@ __global__ void __launch_bounds__(kThreads, 4) paged_kernel(Params a) {
   cp_async_wait<0>();
   __syncthreads();  // a split with no page: the initial state is written
 
-  const long long row0 = static_cast<long long>(b) * a.H + h * g;
+  const long long row0 = static_cast<long long>(b) * a.H + head0;
   if (a.n_split == 1) {
     QT* ob = static_cast<QT*>(a.out) + row0 * a.dv;
     for (int i = tid; i < g * a.dv; i += kThreads)
@@ -542,7 +565,8 @@ cudaError_t launch(const Params& a, int B, size_t smem, cudaStream_t stream) {
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  const long long blocks = static_cast<long long>(B) * a.Hkv * a.n_split;
+  const long long blocks =
+      static_cast<long long>(B) * a.Hkv * a.n_group * a.n_split;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   kern<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(a);
   cudaError_t e = cudaGetLastError();
@@ -571,39 +595,42 @@ int elem_size(int dtype) {
 
 }  // namespace
 
-// Shared memory the split kernel needs for these shapes (bytes), with
-// `ppt` pages staged a step.
-extern "C" long long paged_attention_smem(int H, int Hkv, int dk, int dv,
-                                          int dr, int page, int P, int ppt,
-                                          int q_dtype, int kv_dtype) {
-  return layout(H / Hkv, dk, dv, dr, ppt * page, P, elem_size(kv_dtype),
-                elem_size(q_dtype)).total;
+// Shared memory the split kernel needs for these shapes (bytes): a
+// block of `gh` query heads, `ppt` pages staged a step.
+extern "C" long long paged_attention_smem(int gh, int dk, int dv, int dr,
+                                          int page, int P, int ppt,
+                                          int q_dtype, int kv_dtype,
+                                          int share_v) {
+  return layout(gh, dk, dv, dr, ppt * page, P, elem_size(kv_dtype),
+                elem_size(q_dtype), share_v).total;
 }
 
 // Launches on `stream` (the split kernel, then the combine when n_split
 // > 1; `part` holds B * H * n_split * (dv + 2) floats then); returns
-// cudaGetLastError() (0 = launched).
+// cudaGetLastError() (0 = launched).  gh divides H / Hkv; share_v says
+// v is k (the same plane, dv == dk).
 extern "C" int paged_attention_launch(
     const void* q, const void* k, const void* v, const int* table,
     const int* lens, const float* k_scale, const float* v_scale,
     const void* k_extra, void* out, float* part, int B, int H, int Hkv,
     int dk, int dv, int dr, int n_pages, int page, int P, int window,
-    int ppt, int n_split, float scale, int q_dtype, int kv_dtype,
-    void* stream) {
-  if (ppt < 1 || n_split < 1 ||
+    int ppt, int n_split, int gh, int share_v, float scale, int q_dtype,
+    int kv_dtype, void* stream) {
+  if (ppt < 1 || n_split < 1 || gh < 1 || Hkv < 1 || H % Hkv != 0 ||
+      (H / Hkv) % gh != 0 || (share_v && (k != v || dk != dv)) ||
       n_split > attn::kCombineMaxSplit || (n_split > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int kvs = elem_size(kv_dtype), qs = elem_size(q_dtype);
   Params a{q, k, v, table, lens, k_scale, v_scale, k_extra, out, part,
            H, Hkv, dk, dv, dr, n_pages, page, P, window, ppt, n_split,
-           0, 0, scale};
+           gh, H / Hkv / gh, share_v, 0, 0, scale};
   auto al = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
   a.vec_kv = al(k) && al(v) && (dk * kvs) % 16 == 0 && (dv * kvs) % 16 == 0;
   a.vec_ke = dr > 0 && al(k_extra) && (dr * qs) % 16 == 0;
   const size_t smem = static_cast<size_t>(paged_attention_smem(
-      H, Hkv, dk, dv, dr, page, P, ppt, q_dtype, kv_dtype));
+      gh, dk, dv, dr, page, P, ppt, q_dtype, kv_dtype, share_v));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (q_dtype == kF32) {

@@ -12,8 +12,13 @@ kernel (one per paged layer per decode step): the serving path's use of
 the kernel is proven by reading it around a run.
 `paged_attention.combine_launches` counts the calls that split their
 rows' pages over several blocks and so also launched the combine.
-The split count comes from `n_splits`, on shapes the host knows: the
-wrapper never reads `lens` back, so a call makes no device-to-host copy.
+`launch_plan` lays a launch out from shapes the host knows: the wrapper
+never reads `lens` back, so a call makes no device-to-host copy.
+`plan` picks how many of a kv head's query heads a block holds (all of
+them unless they overflow the shared memory, as absorbed MLA's 128 do)
+and how many pages a stage holds; `smem_bytes` is the Python twin of
+the kernel's shared-memory layout, `blocks_per_sm` how many such blocks
+an SM holds, and `n_splits` the split count.
 """
 from __future__ import annotations
 
@@ -25,6 +30,8 @@ import torch
 from repro_torch.kernels import build
 
 SMEM_MAX = 232_448  # bytes of shared memory one block may use on sm_90
+SMEM_SM = 233_472   # bytes of shared memory of one SM on sm_90
+SMEM_RESERVED = 1_024  # bytes the runtime keeps of an SM's for each block
 
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
@@ -32,6 +39,7 @@ _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
 
 TILE_TOKENS = 32   # tokens staged a step (whole pages; fewer if smem is short)
 WAVES = 2          # blocks the split rule aims for, in SM counts
+STAGES = 2         # tiles in shared memory (the kernel's kStages)
 
 _lib: Optional[ctypes.CDLL] = None
 _sm_count = {}
@@ -43,7 +51,7 @@ def _library() -> ctypes.CDLL:
         lib = build.load("paged_attention")
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.paged_attention_launch.argtypes = (
-            [P] * 10 + [I] * 12 + [F, I, I, P])
+            [P] * 10 + [I] * 14 + [F, I, I, P])
         lib.paged_attention_launch.restype = I
         lib.paged_attention_smem.argtypes = [I] * 10
         lib.paged_attention_smem.restype = ctypes.c_longlong
@@ -61,12 +69,84 @@ def sm_count(device: torch.device) -> int:
     return _sm_count[idx]
 
 
-def n_splits(rows: int, Hkv: int, P: int, n_sm: int) -> int:
-    """Blocks a (row, kv head) pair's live pages are divided over: enough
-    for about WAVES blocks per SM, at most one per page of the table.
-    Only shapes the host knows enter, never `lens`."""
-    pairs = max(rows * Hkv, 1)
-    return max(1, min(P, -(-WAVES * n_sm // pairs)))
+def blocks_per_sm(smem: int) -> int:
+    """Blocks of `smem` bytes of shared memory that one SM holds at once,
+    as far as its shared memory limits them."""
+    return max(1, SMEM_SM // (smem + SMEM_RESERVED))
+
+
+def n_splits(rows: int, Hkv: int, P: int, n_sm: int, n_group: int = 1,
+             per_sm: int = WAVES) -> int:
+    """Blocks a (row, kv head, head group)'s live pages are divided over:
+    enough for about WAVES blocks per SM, or as many as share an SM
+    (`per_sm`, from the block's shared memory) where that is fewer, at
+    most one per page of the table.  Only shapes the host knows enter,
+    never `lens`."""
+    pairs = max(rows * Hkv * n_group, 1)
+    return max(1, min(P, -(-min(WAVES, per_sm) * n_sm // pairs)))
+
+
+def _align16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def smem_bytes(gh: int, dk: int, dv: int, dr: int, page: int, P: int,
+               ppt: int, kv_size: int, q_size: int,
+               share_v: bool = False) -> int:
+    """Shared memory one block takes (bytes): the twin of layout() in
+    csrc/paged_attention.cu.  Its own state for gh query heads (page
+    ids, q in f32 padded to 4 features, accumulators, a tile's
+    probabilities, m, l, the rescale), then STAGES tiles of ppt pages
+    (K rows, V rows unless share_v, k_extra rows, two scales)."""
+    tt = ppt * page
+    q_ld = (dk + dr + 3) & ~3
+    own = (_align16(4 * P) + _align16(4 * gh * q_ld) + _align16(4 * gh * dv)
+           + _align16(4 * gh * tt) + 3 * _align16(4 * gh))
+    stage = (_align16(tt * dk * kv_size)
+             + (0 if share_v else _align16(tt * dv * kv_size))
+             + _align16(tt * dr * q_size) + 2 * _align16(4 * tt))
+    return own + STAGES * stage
+
+
+def plan(H: int, Hkv: int, dk: int, dv: int, dr: int, page: int, P: int,
+         kv_size: int, q_size: int, share_v: bool = False):
+    """-> (gh, ppt): the query heads a block holds, a divisor of g = H /
+    Hkv, and the pages a stage holds, from TILE_TOKENS tokens halved
+    down to one page.  At the most pages a stage whose layout fits
+    SMEM_MAX, all g heads where they fit (one group: every GQA shape);
+    otherwise the largest gh at which WAVES blocks share an SM (a block
+    alone on an SM leaves its 4 warps to hide the latency of the shared
+    memory: scripts/paged_group_sweep.py finds absorbed MLA's decode
+    1.6-1.8x slower so); failing that, the largest that fits."""
+    g = H // Hkv
+    size = lambda gh, ppt: smem_bytes(  # noqa: E731
+        gh, dk, dv, dr, page, P, ppt, kv_size, q_size, share_v)
+    ppts = [max(1, TILE_TOKENS // page)]
+    while ppts[-1] > 1:
+        ppts.append(ppts[-1] // 2)
+    fits = [(gh, ppt) for ppt in ppts
+            for gh in (d for d in range(g, 0, -1) if g % d == 0)
+            if size(gh, ppt) <= SMEM_MAX]
+    if not fits:
+        raise ValueError(f"paged_attention needs {size(1, 1)} B of shared "
+                         f"memory for one head, dk={dk + dr}, dv={dv}, "
+                         f"page={page}; a block has {SMEM_MAX}")
+    for gh, ppt in fits:
+        if gh == g or blocks_per_sm(size(gh, ppt)) >= WAVES:
+            return gh, ppt
+    return fits[0]
+
+
+def launch_plan(B: int, H: int, Hkv: int, dk: int, dv: int, dr: int,
+                page: int, P: int, kv_size: int, q_size: int, share_v: bool,
+                n_sm: int):
+    """-> (gh, ppt, n_split) of a launch: `plan`'s head group and pages a
+    stage, then `n_splits` over the (row, kv head, head group) triples
+    with as many blocks an SM as that layout lets share one."""
+    gh, ppt = plan(H, Hkv, dk, dv, dr, page, P, kv_size, q_size, share_v)
+    per_sm = blocks_per_sm(smem_bytes(gh, dk, dv, dr, page, P, ppt,
+                                      kv_size, q_size, share_v))
+    return gh, ppt, n_splits(B, Hkv, P, n_sm, H // Hkv // gh, per_sm)
 
 
 def _check(name: str, x: torch.Tensor, device, shape, dtypes) -> None:
@@ -131,21 +211,17 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                          f"dr={dr}")
     lib = _library()
     qc, kvc = _Q_CODES[q.dtype], _KV_CODES[k_pages.dtype]
-    ppt = max(1, TILE_TOKENS // page)
     P = table.shape[1]
-    smem = lambda n: lib.paged_attention_smem(  # noqa: E731
-        H, Hkv, dk, dv, dr, page, P, n, qc, kvc)
-    while ppt > 1 and smem(ppt) > SMEM_MAX:
-        ppt //= 2
-    if smem(ppt) > SMEM_MAX:
-        raise ValueError(f"paged_attention needs {smem(ppt)} B of shared "
-                         f"memory for g={H // Hkv}, dk={dkq}, dv={dv}, "
-                         f"page={page}; a block has {SMEM_MAX}")
+    # the value pages are the key pages (absorbed MLA's latent plane)
+    share = (v_pages.data_ptr() == k_pages.data_ptr()
+             and v_pages.shape == k_pages.shape)
+    gh, ppt, split = launch_plan(B, H, Hkv, dk, dv, dr, page, P,
+                                 k_pages.element_size(), q.element_size(),
+                                 share, sm_count(dev))
     scale = float(scale) if scale is not None else dkq ** -0.5
     out = torch.empty((B, H, dv), dtype=q.dtype, device=dev)
     if B == 0:
         return out
-    split = n_splits(B, Hkv, P, sm_count(dev))
     part = (torch.empty((B * H, split, dv + 2), dtype=torch.float32,
                         device=dev) if split > 1 else None)
     with torch.cuda.device(dev):
@@ -154,7 +230,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
             _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(table), _ptr(lens),
             _ptr(k_scale), _ptr(v_scale), _ptr(k_extra), _ptr(out),
             _ptr(part), B, H, Hkv, dk, dv, dr, n_pages, page, P,
-            int(window), ppt, split, scale, qc, kvc, stream)
+            int(window), ppt, split, gh, int(share), scale, qc, kvc, stream)
     if err != 0:
         raise RuntimeError(f"paged_attention launch failed: CUDA error "
                            f"{err}")

@@ -1,5 +1,6 @@
-"""GQA attention: full-sequence apply, ring-cache decode and prefill, and
-the paged-pool decode and prefill of the serving engine.
+"""GQA and MLA attention: full-sequence apply, ring or contiguous cache
+decode and prefill, and the paged-pool decode and prefill of the serving
+engine.
 
 Shapes carry the member axis K first: x is (K, B, T, d).  The core math
 (`attend`) folds members into the batch, (K*B, T, H, dh).  Positions are
@@ -20,6 +21,14 @@ hand-written CUDA kernels.  Ring-layer decode (`gqa_decode`) stays on
 `attend`, whose two paths are numerically identical: `_attend_dense`
 materializes the score matrix, `_attend_chunked` loops over KV chunks
 with an online-softmax accumulator.
+
+MLA (deepseek-v2's multi-head latent attention) caches a per-token
+latent and one shared rope key.  Its paged decode runs in the absorbed
+form through kernels/ops.paged_attention (one launch per layer for all
+K members, the latent pages as keys and values, the rope keys as
+`k_extra`); its apply and prefills expand the latent and take `attend`,
+as the JAX package does (the flash kernel takes only dk = dv).  The
+JAX package's MLA has no norm on the latents, so neither has this.
 
 Numerics: `attend` rounds the probabilities to the input dtype before
 the value product, as the JAX package's `attend` does; the flash path
@@ -50,11 +59,31 @@ ATTN_CHUNK = 1024
 # ---------------------------------------------------------------------------
 
 def attn_init(gen, lead, cfg: ModelConfig, a: AttnConfig, dtype) -> dict:
-    if a.kind != "gqa":
+    if a.mrope_sections is not None:
         raise NotImplementedError(
-            f"attention kind {a.kind!r} is not ported yet (MLA comes with "
-            f"the deepseek-v2 slice)")
+            "M-RoPE (qwen2-vl's mrope_sections) is not ported yet")
     d = cfg.d_model
+    if a.kind == "mla":
+        p = {
+            "kv_down": dense_init(gen, lead, (d, a.kv_lora_rank), dtype),
+            "k_rope": dense_init(gen, lead, (d, a.qk_rope_dim), dtype),
+            # per-head up-projections from the shared latent
+            "kv_up": dense_init(
+                gen, lead, (a.kv_lora_rank,
+                            a.n_heads * (a.qk_nope_dim + a.v_head_dim)),
+                dtype),
+            "w_o": dense_init(gen, lead, (a.n_heads * a.v_head_dim, d),
+                              dtype),
+        }
+        if a.q_lora_rank:
+            p["q_down"] = dense_init(gen, lead, (d, a.q_lora_rank), dtype)
+            p["q_up"] = dense_init(gen, lead, (a.q_lora_rank, a.q_dim),
+                                   dtype)
+        else:
+            p["w_q"] = dense_init(gen, lead, (d, a.q_dim), dtype)
+        return p
+    if a.kind != "gqa":
+        raise NotImplementedError(f"attention kind {a.kind!r} is not ported")
     p = {
         "w_q": dense_init(gen, lead, (d, a.n_heads * a.head_dim), dtype),
         "w_k": dense_init(gen, lead, (d, a.n_kv_heads * a.head_dim), dtype),
@@ -520,3 +549,203 @@ def gqa_prefill_paged(params: dict, x: torch.Tensor, cache: dict,
     paged_write_chunk(cache, "k_pages", k, table, idx, n_tok)
     paged_write_chunk(cache, "v_pages", v, table, idx, n_tok)
     return _out(params, o, K, B)
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v2): latent-compressed KV
+# ---------------------------------------------------------------------------
+# The cache holds, per token, the latent c_kv (r = kv_lora_rank features)
+# and one rope key k_r (qk_rope_dim) shared by all heads: contiguous
+# planes {"c_kv": (K, B, S, r), "k_r": (K, B, S, rope)}, or paged ones
+# {"c_kv_pages": (N, page, r), "k_r_pages": (N, page, rope)} folded as
+# the GQA pages are.  MLA layers attend over the whole sequence (no
+# window), so under paged serving every MLA layer pages.
+
+def _mla_qkv(params, x, a: AttnConfig):
+    """x (K, B, T, d) -> (q (K, B, T, H, nope + rope), c_kv (K, B, T, r),
+    k_r (K, B, T, rope)), none of them rotated yet."""
+    K, B, T, _ = x.shape
+    if "q_down" in params:
+        q = mm(mm(x, params["q_down"]), params["q_up"])
+    else:
+        q = mm(x, params["w_q"])
+    q = q.reshape(K, B, T, a.n_heads, a.qk_nope_dim + a.qk_rope_dim)
+    return q, mm(x, params["kv_down"]), mm(x, params["k_rope"])
+
+
+def _mla_rope(q, k_r, pos, a: AttnConfig, theta: float):
+    """Rotate q's rope features and the shared rope key at positions pos
+    (B, T) -> (q_c (K, B, T, H, nope), q_r (..., rope), k_r (K, B, T,
+    rope)): the key takes a head axis of 1 through the rotation."""
+    q_c, q_r = q[..., :a.qk_nope_dim], q[..., a.qk_nope_dim:]
+    q_r = apply_rope(q_r, pos, theta)
+    k_r = apply_rope(k_r[..., None, :], pos, theta)[..., 0, :]
+    return q_c, q_r, k_r
+
+
+def _mla_expand(params, c_kv, a: AttnConfig):
+    """Latents (K, B, S, r) -> per-head (k_c (K, B, S, H, nope), v (K, B,
+    S, H, v))."""
+    K, B, S, _ = c_kv.shape
+    kv = mm(c_kv, params["kv_up"]).reshape(
+        K, B, S, a.n_heads, a.qk_nope_dim + a.v_head_dim)
+    return kv[..., :a.qk_nope_dim], kv[..., a.qk_nope_dim:]
+
+
+def _mla_attend(params, q_c, q_r, c_kv, k_r, q_pos, k_pos, a: AttnConfig):
+    """The expanded form: queries (K, B, Tq, H, *) over latents (K, B, S,
+    r) and rope keys (K, B, S, rope) at positions q_pos (B, Tq), k_pos
+    (B, S), causal, through `attend` -> (K, B, Tq, d)."""
+    K, B = q_c.shape[:2]
+    k_c, v = _mla_expand(params, c_kv, a)
+    k_full = torch.cat([k_c, k_r[..., None, :].expand(
+        *k_c.shape[:-1], a.qk_rope_dim)], -1)
+    o = attend(_fold(torch.cat([q_c, q_r], -1)), _fold(k_full), _fold(v),
+               _rows(q_pos, K), _rows(k_pos, K), window=0, causal=True,
+               scale=1.0 / math.sqrt(a.qk_nope_dim + a.qk_rope_dim))
+    return _out(params, o, K, B)
+
+
+def mla_absorbed(params: dict, a: AttnConfig):
+    """(W_UK (K, r, H, nope), W_UV (K, r, H, v)): kv_up split for the
+    absorbed decode, as VIEWS of kv_up (a reshape, then slices), so no
+    copy is made and the param tree keeps its leaves."""
+    w = params["kv_up"]
+    w = w.view(*w.shape[:-1], a.n_heads, a.qk_nope_dim + a.v_head_dim)
+    return w[..., :a.qk_nope_dim], w[..., a.qk_nope_dim:]
+
+
+def mla_apply(params: dict, x: torch.Tensor, a: AttnConfig,
+              cfg: ModelConfig, positions: torch.Tensor,
+              theta: float) -> torch.Tensor:
+    """x (K, B, T, d), positions (B, T) -> (K, B, T, d): the expanded
+    form through `attend`, forward and training alike (autograd
+    differentiates it), as the JAX package's mla_apply."""
+    q, c_kv, k_r = _mla_qkv(params, x, a)
+    q_c, q_r, k_r = _mla_rope(q, k_r, positions, a, theta)
+    return _mla_attend(params, q_c, q_r, c_kv, k_r, positions, positions, a)
+
+
+def mla_cache_init(a: AttnConfig, lead, batch: int, max_seq: int, dtype,
+                   device) -> dict:
+    # the latent and the rope key, not per-head K/V: MLA's point
+    return {"c_kv": torch.zeros(*lead, batch, max_seq, a.kv_lora_rank,
+                                dtype=dtype, device=device),
+            "k_r": torch.zeros(*lead, batch, max_seq, a.qk_rope_dim,
+                               dtype=dtype, device=device)}
+
+
+def mla_decode(params: dict, x: torch.Tensor, cache: dict,
+               idx: torch.Tensor, a: AttnConfig, cfg: ModelConfig,
+               theta: float) -> torch.Tensor:
+    """One-token decode over contiguous latent planes, every row at its
+    OWN position (the JAX package's row vmap of mla_decode): the new
+    latent lands at idx in place, then the whole plane is expanded and
+    attended, entries past idx masked.  x (K, B, 1, d); idx (B,) ->
+    (K, B, 1, d)."""
+    B = x.shape[1]
+    pos = idx.long()[:, None]
+    q, c_kv, k_r = _mla_qkv(params, x, a)
+    q_c, q_r, k_r = _mla_rope(q, k_r, pos, a, theta)
+    rows = torch.arange(B, device=x.device)
+    cache["c_kv"][:, rows, pos[:, 0]] = c_kv[:, :, 0]
+    cache["k_r"][:, rows, pos[:, 0]] = k_r[:, :, 0]
+    S = cache["c_kv"].shape[2]
+    slot_ids = torch.arange(S, device=x.device)
+    k_pos = torch.where(slot_ids <= pos, slot_ids, FAR)
+    return _mla_attend(params, q_c, q_r, cache["c_kv"], cache["k_r"], pos,
+                       k_pos, a)
+
+
+def mla_prefill(params: dict, x: torch.Tensor, cache: dict,
+                idx: torch.Tensor, n_tok: torch.Tensor, a: AttnConfig,
+                cfg: ModelConfig, theta: float) -> torch.Tensor:
+    """Multi-token prefill over contiguous latent planes: the chunk's
+    latents land first (positions idx..idx+n_tok-1, in place), then the
+    expanded plane is attended, entries past idx+n_tok masked, as the
+    JAX package's mla_prefill.  x (K, B, C, d) -> (K, B, C, d)."""
+    C = x.shape[2]
+    q_pos, _ = _chunk_pos(idx, n_tok, C)
+    q, c_kv, k_r = _mla_qkv(params, x, a)
+    q_c, q_r, k_r = _mla_rope(q, k_r, q_pos, a, theta)
+    for name, new in (("c_kv", c_kv), ("k_r", k_r)):
+        chunk_cache_write(cache[name].unsqueeze(-2), new.unsqueeze(-2), idx,
+                          n_tok, 0)
+    S = cache["c_kv"].shape[2]
+    slot_ids = torch.arange(S, device=x.device)
+    k_pos = torch.where(slot_ids < (idx.long() + n_tok.long())[:, None],
+                        slot_ids, FAR)
+    return _mla_attend(params, q_c, q_r, cache["c_kv"], cache["k_r"], q_pos,
+                       k_pos, a)
+
+
+def mla_paged_cache_init(a: AttnConfig, lead, n_pages: int, page_size: int,
+                         dtype, device) -> dict:
+    return {"c_kv_pages": torch.zeros(*lead, n_pages, page_size,
+                                      a.kv_lora_rank, dtype=dtype,
+                                      device=device),
+            "k_r_pages": torch.zeros(*lead, n_pages, page_size,
+                                     a.qk_rope_dim, dtype=dtype,
+                                     device=device)}
+
+
+def mla_decode_paged(params: dict, x: torch.Tensor, cache: dict,
+                     pos: torch.Tensor, table: torch.Tensor,
+                     read_table: torch.Tensor, a: AttnConfig,
+                     cfg: ModelConfig, theta: float) -> torch.Tensor:
+    """MLA one-token decode over the paged latent pool in the ABSORBED
+    form, every row at its own position.
+
+    The new token's latent and rope key scatter into the slot's pages in
+    place.  W_UK folds into the queries (q_lat = q_c . W_UK, so the
+    latent is the key) and W_UV into the output (the latent is the
+    value), so one kernels/ops.paged_attention call over all K members'
+    rows reads the latent pages as keys and values, dk = dv = r, with
+    the rope keys as `k_extra`: no expansion of the gathered sequence.
+    x (K, B, 1, d); pos (B,); table / read_table (K, B, P) global ids.
+    -> (K, B, 1, d)."""
+    K, B = x.shape[:2]
+    p2 = pos.long()[:, None]
+    q, c_kv, k_r = _mla_qkv(params, x, a)
+    q_c, q_r, k_r = _mla_rope(q, k_r, p2, a, theta)
+    paged_write_token(cache, "c_kv_pages", c_kv[:, :, 0], table, pos)
+    paged_write_token(cache, "k_r_pages", k_r[:, :, 0], table, pos)
+    w_uk, w_uv = mla_absorbed(params, a)
+    q_lat = torch.einsum("kbhn,krhn->kbhr", q_c[:, :, 0], w_uk)
+    q_abs = torch.cat([q_lat, q_r[:, :, 0]], -1)     # (K, B, H, r + rope)
+    latent = cache["c_kv_pages"][:, :, None]          # one "kv head"
+    o_lat = ops.paged_attention(
+        _fold(q_abs).contiguous(), latent, latent,
+        read_table.reshape(K * B, -1).int().contiguous(),
+        (pos.int() + 1).repeat(K),
+        scale=1.0 / math.sqrt(a.qk_nope_dim + a.qk_rope_dim),
+        k_extra=cache["k_r_pages"][:, :, None])       # (K*B, H, r)
+    o = torch.einsum("kbhr,krhv->kbhv",
+                     o_lat.view(K, B, a.n_heads, -1), w_uv)
+    return mm(o.reshape(K, B, 1, -1), params["w_o"])
+
+
+def mla_prefill_paged(params: dict, x: torch.Tensor, cache: dict,
+                      idx: torch.Tensor, n_tok: torch.Tensor,
+                      table: torch.Tensor, read_table: torch.Tensor,
+                      a: AttnConfig, cfg: ModelConfig,
+                      theta: float) -> torch.Tensor:
+    """Multi-token MLA prefill over the paged latent pool: the chunk's
+    latents scatter first, then the slot's pages are gathered, expanded
+    and attended with entries past idx+n_tok masked (the JAX package's
+    mla_prefill_paged).  x (K, B, C, d) -> (K, B, C, d)."""
+    C = x.shape[2]
+    q_pos, _ = _chunk_pos(idx, n_tok, C)
+    q, c_kv, k_r = _mla_qkv(params, x, a)
+    q_c, q_r, k_r = _mla_rope(q, k_r, q_pos, a, theta)
+    paged_write_chunk(cache, "c_kv_pages", c_kv, table, idx, n_tok)
+    paged_write_chunk(cache, "k_r_pages", k_r, table, idx, n_tok)
+    K, B = x.shape[:2]
+    lat = paged_gather(cache, "c_kv_pages", read_table, c_kv.dtype)
+    rop = paged_gather(cache, "k_r_pages", read_table, k_r.dtype)
+    S = lat.shape[1]
+    slot_ids = torch.arange(S, device=x.device)
+    k_pos = torch.where(slot_ids < (idx.long() + n_tok.long())[:, None],
+                        slot_ids, FAR)
+    return _mla_attend(params, q_c, q_r, lat.view(K, B, S, -1),
+                       rop.view(K, B, S, -1), q_pos, k_pos, a)

@@ -12,7 +12,12 @@ Routing and capacity are per token pool, and every member routes its own
 tokens: x is (K, G, S, d), G pools of S tokens for each of the K
 members.  The pool is what one call of the JAX package's moe_apply sees
 (all tokens of a forward, of a paged decode step, or one row's chunk of
-a prefill); models/transformer.py picks it.
+a prefill); models/transformer.py picks it.  A pool too large for one
+call (the eval's test rows at a large vocabulary) is scored in pieces:
+each piece carries the per-expert arrival counts of the pieces before
+it and takes the whole pool's capacity.  That is exact, because the
+JAX package ranks arrivals token first, so every token of a piece
+arrives after every token of the pieces before it.
 
 The per-expert FFN is one batched product over the E experts of each
 member (torch.bmm), as the JAX package leaves it to XLA: a layer's
@@ -21,7 +26,7 @@ segment, so a single (K*E) batch would need a copy of the weights.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -74,15 +79,24 @@ def _experts(params: dict, xe: torch.Tensor) -> torch.Tensor:
     return torch.stack(outs)
 
 
-def moe_apply(params: dict, x: torch.Tensor, f: FFNConfig
+def moe_apply(params: dict, x: torch.Tensor, f: FFNConfig,
+              arrived: Optional[torch.Tensor] = None,
+              pool_tokens: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (K, G, T, d), G token pools of T tokens per member -> (out (K,
-    G, T, d), aux (K, G) already scaled by router_aux_coef)."""
+    G, T, d), aux (K, G) already scaled by router_aux_coef).
+
+    A call over a piece of each pool passes arrived, (K, G, E) int64:
+    the assignments each expert took in the pool's earlier pieces (which
+    rank before this piece's), advanced in place by this call's; and
+    pool_tokens, the tokens of a whole pool, which set the capacity.
+    The aux loss is then the piece's own."""
     K, G, T, d = x.shape
     E, k = f.n_experts, f.top_k
-    # per-expert capacity; floor of min(T*k, 64) makes small token counts
+    n = T if pool_tokens is None else pool_tokens
+    # per-expert capacity; floor of min(n*k, 64) makes small token counts
     # (decode steps, unit tests) effectively dropless
-    C = max(int(T * k * f.capacity_factor / E), min(T * k, 64))
+    cap = max(int(n * k * f.capacity_factor / E), min(n * k, 64))
     w, ids, aux = _route(params["router"], x.float(), k)
 
     # --- capacity-slot assignment: arrival rank, token first ------------
@@ -90,8 +104,15 @@ def moe_apply(params: dict, x: torch.Tensor, f: FFNConfig
     flat_w = w.reshape(K, G, T * k)
     onehot = F.one_hot(flat_ids, E)                        # (K, G, Tk, E)
     rank = torch.cumsum(onehot, 2) - onehot
-    slot = rank.gather(3, flat_ids[..., None])[..., 0]
-    dest = torch.where(slot < C, flat_ids * C + slot, E * C)  # E*C: trash
+    local = rank.gather(3, flat_ids[..., None])[..., 0]    # rank in the call
+    slot = local                                           # rank in the pool
+    if arrived is not None:
+        slot = local + arrived.gather(2, flat_ids)
+        arrived += onehot.sum(2)
+    # the buffer's slots per expert: a kept assignment has local <= slot
+    # < cap, and local < T since a token takes an expert once
+    C = min(cap, T)
+    dest = torch.where(slot < cap, flat_ids * C + local, E * C)  # trash
 
     # --- dispatch: slot -> source token (T, the zero row, where empty) --
     pools = torch.arange(K * G, device=x.device).reshape(K, G, 1)

@@ -1,7 +1,8 @@
 """Transformer LM assembly for serving and training: pattern-driven blocks
 over the member-stacked params.  A block is a pre-norm mixer, attention
-(GQA, ring or paged), Mamba or rwkv6's time-mix (models/ssm.py), then a
-pre-norm FFN: a dense MLP, a MoE (models/moe.py) or rwkv6's channel-mix.
+(GQA, ring or paged; or deepseek-v2's MLA, contiguous or paged), Mamba
+or rwkv6's time-mix (models/ssm.py), then a pre-norm FFN: a dense MLP,
+a MoE (models/moe.py) or rwkv6's channel-mix.
 
 Params keep the JAX package's tree: {"embed", ["head"], "final_norm",
 "segments": [per-segment dict of "slot_<i>" blocks]}, every leaf with a
@@ -113,6 +114,10 @@ def _layer(tree, c: int):
     return tree[:, c]
 
 
+def _is_mla(cfg: ModelConfig, spec: LayerSpec) -> bool:
+    return spec.mixer == "attn" and cfg.attn.kind == "mla"
+
+
 def _mixer_window(cfg: ModelConfig, spec: LayerSpec) -> Tuple[int, float]:
     if spec.mixer == "attn":
         return cfg.attn.window, cfg.attn.rope_theta
@@ -123,14 +128,26 @@ def _mixer_window(cfg: ModelConfig, spec: LayerSpec) -> Tuple[int, float]:
 # forward (full sequence)
 # ---------------------------------------------------------------------------
 
-def _moe(p, cfg: ModelConfig, h: torch.Tensor, pool_rows: Optional[int]):
+def _moe(p, cfg: ModelConfig, h: torch.Tensor, pool_rows: Optional[int],
+         carry: Optional[dict] = None, key=None):
     """The MoE FFN over h (K, B, S, d), every member routing its own
     tokens with one capacity per pool of pool_rows rows: each row's S
     tokens (1, as the JAX package's row-vmapped prefill and contiguous
     decode see them), each batch's where a call holds several (a
     relabel's), or all B*S tokens of the call (None: apply, paged
-    decode).  -> (out (K, B, S, d), aux (K,) summed over the pools)."""
+    decode).  With a carry the call's B rows are a piece of one pool of
+    pool_rows rows: carry[key] holds this layer's per-expert arrivals of
+    the pool's earlier pieces (moe.moe_apply).  -> (out (K, B, S, d),
+    aux (K,) summed over the pools)."""
     K, B, S, d = h.shape
+    if carry is not None:
+        arrived = carry.get(key)
+        if arrived is None:
+            arrived = carry[key] = torch.zeros(
+                K, 1, cfg.ffn.n_experts, dtype=torch.long, device=h.device)
+        y, aux = moe.moe_apply(p["moe"], h.reshape(K, 1, B * S, d), cfg.ffn,
+                               arrived, pool_rows * S)
+        return y.reshape(K, B, S, d), aux.sum(1)
     G = B // (pool_rows or B)
     y, aux = moe.moe_apply(p["moe"], h.reshape(K, G, B // G * S, d),
                            cfg.ffn)
@@ -138,7 +155,8 @@ def _moe(p, cfg: ModelConfig, h: torch.Tensor, pool_rows: Optional[int]):
 
 
 def _block(p, spec: LayerSpec, cfg: ModelConfig, x: torch.Tensor,
-           pos: torch.Tensor, train: bool, pool_rows: Optional[int]):
+           pos: torch.Tensor, train: bool, pool_rows: Optional[int],
+           carry: Optional[dict] = None, key=None):
     """One block of the full-sequence forward -> (x, aux of its MoE, or
     0.0)."""
     T = x.shape[2]
@@ -147,6 +165,9 @@ def _block(p, spec: LayerSpec, cfg: ModelConfig, x: torch.Tensor,
         x = x + ssm.rwkv_apply(p["rwkv"], h_in, cfg, train=train)
     elif spec.mixer == "mamba":
         x = x + ssm.mamba_apply(p["mamba"], h_in, cfg, train=train)
+    elif _is_mla(cfg, spec):
+        x = x + attn.mla_apply(p["attn"], h_in, cfg.attn, cfg, pos,
+                               cfg.attn.rope_theta)
     else:
         window, theta = _mixer_window(cfg, spec)
         x = x + attn.gqa_apply(p["attn"], h_in, cfg.attn, cfg, pos, window,
@@ -157,7 +178,7 @@ def _block(p, spec: LayerSpec, cfg: ModelConfig, x: torch.Tensor,
         x_prev = F.pad(h_f, (0, 0, 1, 0))[:, :, :T]
         x = x + ssm.cmix_apply(p["cmix"], h_f, x_prev)
     elif spec.ffn == "moe":
-        h, aux = _moe(p, cfg, h_f, pool_rows)
+        h, aux = _moe(p, cfg, h_f, pool_rows, carry, key)
         x = x + h
     else:
         x = x + mlp_apply(p["mlp"], h_f, cfg.ffn.mlp_type)
@@ -165,7 +186,8 @@ def _block(p, spec: LayerSpec, cfg: ModelConfig, x: torch.Tensor,
 
 
 def apply(params, cfg: ModelConfig, tokens: torch.Tensor,
-          remat: bool = False, pool_rows: Optional[int] = None):
+          remat: bool = False, pool_rows: Optional[int] = None,
+          carry: Optional[dict] = None):
     """tokens (B, T) shared by all members, or (K, B, T) with one batch
     per member -> (logits (K, B, T, V), aux): aux is the MoE layers'
     summed load-balance loss per member, (K,), or 0.0 for a model
@@ -173,7 +195,10 @@ def apply(params, cfg: ModelConfig, tokens: torch.Tensor,
     routes each run of pool_rows rows as one token pool, with one
     capacity (None: all B rows, as one call of the JAX package's apply
     sees them), so that a call over several batches routes each as the
-    JAX package does.
+    JAX package does.  carry (a dict, empty for a pool's first piece):
+    the B rows are a piece of one pool of pool_rows rows, scored in
+    several calls; the MoE layers keep their arrival counts in it from
+    one piece to the next (_moe).
 
     remat=False is the forward-only route (relabel, eval, serving):
     attention and the recurrences go through ops.flash_attention,
@@ -188,7 +213,8 @@ def apply(params, cfg: ModelConfig, tokens: torch.Tensor,
     B, T = tokens.shape[-2:]
     pos = torch.arange(T, device=x.device).expand(B, T)
     aux = 0.0
-    for seg, (count, specs) in zip(params["segments"], cfg.segments()):
+    for si, (seg, (count, specs)) in enumerate(zip(params["segments"],
+                                                   cfg.segments())):
         for c in range(count):
             for i, spec in enumerate(specs):
                 p = _layer(seg[f"slot_{i}"], c)
@@ -197,7 +223,8 @@ def apply(params, cfg: ModelConfig, tokens: torch.Tensor,
                                       pool_rows, use_reentrant=False,
                                       preserve_rng_state=False)
                 else:
-                    x, a = _block(p, spec, cfg, x, pos, False, pool_rows)
+                    x, a = _block(p, spec, cfg, x, pos, False, pool_rows,
+                                  carry, (si, c, i))
                 aux = aux + a
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return lm_logits(params, x, cfg), aux
@@ -211,9 +238,11 @@ def layer_pages(cfg: ModelConfig, spec: LayerSpec, max_seq: int) -> bool:
     """Does this layer page its positional cache under paged serving?
     Full-attention layers (window 0 or >= max_seq) hold O(max_seq) per
     slot, which is what paging fixes; ring-bounded sliding-window layers
-    keep their per-slot rings."""
+    keep their per-slot rings.  MLA layers always attend over the whole
+    sequence, so they always page."""
     if spec.mixer == "attn":
-        return cfg.attn.window <= 0 or cfg.attn.window >= max_seq
+        return (cfg.attn.kind == "mla" or cfg.attn.window <= 0
+                or cfg.attn.window >= max_seq)
     if spec.mixer == "attn_local":
         return cfg.local_window <= 0 or cfg.local_window >= max_seq
     return False
@@ -225,8 +254,11 @@ def init_slot_cache(cfg: ModelConfig, batch: int, max_seq: int,
     """Slot-addressable decode cache for `members` stacked members.
 
       idx            (K, B) int32           per-slot position
-      ring planes    (K, count, B, S, Hkv, dh)
-      paged planes   (K, count, n_pages, page_size, Hkv, dh)
+      ring planes    (K, count, B, S, Hkv, dh); MLA "c_kv" (K, count, B,
+                     S, r), "k_r" (K, count, B, S, rope)
+      paged planes   (K, count, n_pages, page_size, Hkv, dh); MLA
+                     "c_kv_pages" (K, count, n_pages, page_size, r),
+                     "k_r_pages" (..., rope)
       page_table     (K, B, ceil(max_seq / page_size)) int32, all
                      sentinel (n_pages = unallocated)
       recurrent      mamba "conv" (K, count, B, conv_w-1, d_inner), "ssm"
@@ -252,8 +284,13 @@ def init_slot_cache(cfg: ModelConfig, batch: int, max_seq: int,
             elif spec.mixer == "mamba":
                 c = ssm.mamba_cache_init(cfg, lead, batch, dtype, dev)
             elif page_size > 0 and layer_pages(cfg, spec, max_seq):
-                c = attn.gqa_paged_cache_init(cfg.attn, lead, n_pages,
-                                              page_size, dtype, dev)
+                init_pages = (attn.mla_paged_cache_init if _is_mla(cfg, spec)
+                              else attn.gqa_paged_cache_init)
+                c = init_pages(cfg.attn, lead, n_pages, page_size, dtype,
+                               dev)
+            elif _is_mla(cfg, spec):
+                c = attn.mla_cache_init(cfg.attn, lead, batch, max_seq,
+                                        dtype, dev)
             else:
                 c = attn.gqa_cache_init(cfg.attn, lead, batch, max_seq,
                                         window, dtype, dev)
@@ -294,12 +331,37 @@ def global_table(table: torch.Tensor, c: int, count: int,
 def _layer_cache(lc: dict, c: int, count: int,
                  table: Optional[torch.Tensor]):
     """One layer's cache views (+ its global (write, read) page tables
-    when paged)."""
-    if "k_pages" in lc:
-        n_pages = lc["k_pages"].shape[2]
+    when paged: any "*_pages" plane, GQA's or MLA's)."""
+    pages = [v for k, v in lc.items() if k.endswith("_pages")]
+    if pages:
+        n_pages = pages[0].shape[2]
         fold = {k: v.view(-1, *v.shape[3:]) for k, v in lc.items()}
         return fold, global_table(table, c, count, n_pages)
     return {k: v[:, c] for k, v in lc.items()}, None
+
+
+def absorb_mla_params(cfg: ModelConfig, params: dict) -> dict:
+    """A tree with the absorbed-MLA projections beside every MLA layer's
+    kv_up: kv_uk (..., r, H, nope) and kv_uv (..., r, H, v), the JAX
+    package's absorb_mla_params.  Here they are views of kv_up
+    (attention.mla_absorbed), which the paged decode takes from kv_up
+    itself, so the engine installs no extra leaves.  Non-MLA configs
+    pass through."""
+    a = cfg.attn
+    if a.kind != "mla":
+        return params
+    out = dict(params)
+    out["segments"] = []
+    for seg, (_, specs) in zip(params["segments"], cfg.segments()):
+        seg = dict(seg)
+        for i, spec in enumerate(specs):
+            slot = seg[f"slot_{i}"]
+            if _is_mla(cfg, spec) and "kv_up" in slot.get("attn", {}):
+                p = dict(slot["attn"])
+                p["kv_uk"], p["kv_uv"] = attn.mla_absorbed(p, a)
+                seg[f"slot_{i}"] = {**slot, "attn": p}
+        out["segments"].append(seg)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -346,10 +408,16 @@ def _decode(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor):
                     h = ssm.rwkv_decode(p["rwkv"], h_in, lc, cfg)
                 elif spec.mixer == "mamba":
                     h = ssm.mamba_decode(p["mamba"], h_in, lc, cfg)
+                elif tbl is not None and "c_kv_pages" in lc:
+                    h = attn.mla_decode_paged(p["attn"], h_in, lc, pos,
+                                              *tbl, cfg.attn, cfg, theta)
                 elif tbl is not None:
                     h = attn.gqa_decode_paged(p["attn"], h_in, lc, pos,
                                               *tbl, cfg.attn, cfg, window,
                                               theta)
+                elif _is_mla(cfg, spec):
+                    h = attn.mla_decode(p["attn"], h_in, lc, pos, cfg.attn,
+                                        cfg, theta)
                 else:
                     h = attn.gqa_decode(p["attn"], h_in, lc, pos, cfg.attn,
                                         cfg, window, theta)
@@ -404,10 +472,17 @@ def _prefill(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
                     h = ssm.rwkv_prefill(p["rwkv"], h_in, lc, n_tok, cfg)
                 elif spec.mixer == "mamba":
                     h = ssm.mamba_prefill(p["mamba"], h_in, lc, n_tok, cfg)
+                elif tbl is not None and "c_kv_pages" in lc:
+                    h = attn.mla_prefill_paged(p["attn"], h_in, lc, idx,
+                                               n_tok, *tbl, cfg.attn, cfg,
+                                               theta)
                 elif tbl is not None:
                     h = attn.gqa_prefill_paged(p["attn"], h_in, lc, idx,
                                                n_tok, *tbl, cfg.attn, cfg,
                                                window, theta)
+                elif _is_mla(cfg, spec):
+                    h = attn.mla_prefill(p["attn"], h_in, lc, idx, n_tok,
+                                         cfg.attn, cfg, theta)
                 else:
                     h = attn.gqa_prefill(p["attn"], h_in, lc, idx, n_tok,
                                          cfg.attn, cfg, window, theta)

@@ -31,13 +31,15 @@ def make_logits_fn(cfg: ModelConfig) -> Callable:
     (K, B, T)}) -> logits (K, B, [T,] V), forward only (relabel, eval):
     the transformer's attention and recurrences go through the flash,
     wkv6 and ssm_scan kernels.  The transformer's also takes pool_rows,
-    the rows of one MoE token pool (transformer.apply)."""
+    the rows of one MoE token pool, and carry, for a call over a piece
+    of one (transformer.apply)."""
     if cfg.family == "cnn":
         from repro_torch.models import cnn
         return lambda params, batch: cnn.nin_apply(params, batch["images"])
     from repro_torch.models import transformer
-    return lambda params, batch, pool_rows=None: transformer.apply(
-        params, cfg, batch["tokens"], pool_rows=pool_rows)[0]
+    return lambda params, batch, pool_rows=None, carry=None: \
+        transformer.apply(params, cfg, batch["tokens"], pool_rows=pool_rows,
+                          carry=carry)[0]
 
 
 def routes_by_pool(cfg: ModelConfig) -> bool:

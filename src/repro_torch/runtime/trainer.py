@@ -114,6 +114,7 @@ class Trainer:
         self.state = {"params": params, "opt": opt.init(params)}
 
         self._logits = steps.make_logits_fn(cfg)
+        self._pooled = steps.routes_by_pool(cfg)
         self._member_loss = steps.make_member_loss(cfg)
         self._plain_step = steps.make_local_step(cfg, opt, grad_accum)
         self._sync_step = steps.make_local_step(cfg, opt, grad_accum,
@@ -131,7 +132,7 @@ class Trainer:
         pseudo = agg.allgather_relabel(self.state["params"], subset,
                                        self._logits, self.ec, quorum=quorum,
                                        n_out=self.cfg.vocab_size,
-                                       pooled=steps.routes_by_pool(self.cfg))
+                                       pooled=self._pooled)
         self.pseudo_buffer = (subset, pseudo)
 
     # ------------------------------------------------------------------
@@ -192,17 +193,17 @@ class Trainer:
     def _eval_members(self, params, test_b: dict):
         """-> (mean member NLL, ensemble NLL, mean member error, ensemble
         error) on test_b, shared by the members; as the JAX package's
-        eval, scored a chunk and a member at a time.  A MoE model's
-        chunk is its own token pool: where the test rows' logits pass
-        CHUNK_BYTES (full-width jamba: 64 of the 256 rows a chunk), its
-        capacity drops other tokens than the JAX package's one pool of
-        all rows does (ROADMAP queue 3)."""
+        eval, scored a chunk and a member at a time.  A MoE model routes
+        a member's test rows as one token pool, as the JAX package does:
+        where their logits pass CHUNK_BYTES (full-width jamba: 64 of the
+        256 rows a chunk), its chunks are pieces of that pool."""
         K = tree_leaves(params)[0].shape[0]
         labels = test_b["labels"]
         m_nll = m_err = e_nll = e_err = 0.0
+        pool = labels.shape[0] if self._pooled else None
         for sl, k, logits in agg.stream_logits(
                 params, test_b, self._logits, self.cfg.vocab_size,
-                fold=True):
+                fold=True, pool_rows=pool):
             y = labels[sl]
             m_nll = m_nll + ens.member_nll(logits, y).sum()
             m_err = m_err + (logits.argmax(-1) != y).sum()

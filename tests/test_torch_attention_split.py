@@ -2,9 +2,13 @@
 kernel's tile skipping, held on the CPU through their plain twins.
 
 - The split rule (`paged_attention.n_splits`, `flash_attention.n_splits`)
-  reads only shapes, and the page division (`ref.paged_split_pages`)
-  puts every live page of every row in exactly one split, for windows
-  and for lens of 1 and of P * page.
+  reads only shapes, and the blocks an SM holds (`blocks_per_sm`); the
+  head-group rule (`paged_attention.plan`, over `smem_bytes`, the twin
+  of the kernel's shared-memory layout) keeps one group at every shape
+  the kernel ran before and takes several at deepseek-v2's absorbed MLA
+  decode, small enough for two blocks an SM; the page division
+  (`ref.paged_split_pages`) puts every live page of every row in
+  exactly one split, for windows and for lens of 1 and of P * page.
 - The two-pass twin of the split kernel (`ref.paged_attention_split`:
   partials per split, then the combine) equals JAX
   `repro.kernels.paged_attention` (the Pallas kernel in interpret mode)
@@ -45,6 +49,142 @@ def test_split_rule_reads_only_shapes(rows, Hkv, P_, n_sm):
     if ns < P_:       # not capped by the table: about WAVES blocks an SM
         assert pairs * ns >= pa.WAVES * n_sm
         assert ns == 1 or pairs * (ns - 1) < pa.WAVES * n_sm
+
+
+# the head-group rule: a block holds gh of a kv head's g query heads,
+# all g where they fit, else the largest divisor of g at which WAVES
+# blocks share an SM
+
+# phase 1's shapes before the MLA cases: (H, Hkv, dk, dv, dr, page, P,
+# page bytes, q bytes): gemma3-1b's decode in bf16, f32, window, dk 192
+# / dv 128, int8, fp8, k_extra and 40-byte rows; deepseek-7b's; jamba's
+PHASE1 = [(4, 1, 256, 256, 0, 16, 36, 2, 2), (4, 1, 256, 256, 0, 16, 36, 4, 4),
+          (4, 1, 192, 128, 0, 16, 36, 4, 4), (4, 1, 256, 256, 0, 16, 36, 1, 4),
+          (4, 1, 256, 256, 64, 16, 36, 4, 4), (4, 1, 40, 40, 0, 16, 36, 1, 4),
+          (32, 32, 128, 128, 0, 16, 34, 2, 2),
+          (32, 8, 128, 128, 0, 16, 34, 2, 2)]
+# deepseek-v2's absorbed decode: 128 heads over the latent, r 512 + rope
+# 64, P 34 (544 tokens at page 16)
+MLA = (128, 1, 512, 512, 64, 16, 34)
+
+
+# layout() of csrc/paged_attention.cu at the MLA shape, region by region
+# (16-byte aligned): page ids 144; q 4 gh x 576; acc 4 gh x 512; p 4 gh x
+# tokens a stage; m, l and the rescale; then two stages of K, V (none when
+# shared), rope keys and two scales.  The card test against the
+# library's paged_attention_smem is tests/test_torch_cuda.py's.
+MLA_LAYOUT = {
+    # 16 heads in bf16: q 36.9 KB + acc 32.8 KB + p 2 KB + two stages of
+    # 32 tokens x (512 + 512 + 64) x 2 B, about 212 KB
+    (16, 2, 2, False): 144 + 36_864 + 32_768 + 2_048 + 3 * 64
+    + 2 * (32_768 + 32_768 + 4_096 + 2 * 128),
+    (32, 2, 2, True): 144 + 73_728 + 65_536 + 4_096 + 3 * 128
+    + 2 * (32_768 + 4_096 + 2 * 128),
+    (32, 1, 4, True): 144 + 73_728 + 65_536 + 2_048 + 3 * 128
+    + 2 * (32_768 + 4_096 + 2 * 64),
+    (4, 2, 1, False): 144 + 9_216 + 8_192 + 512 + 3 * 16
+    + 2 * (16_384 + 16_384 + 2_048 + 2 * 128),
+    (3, 1, 4, False): 144 + 6_912 + 6_144 + 192 + 3 * 16
+    + 2 * (32_768 + 32_768 + 4_096 + 2 * 64)}
+
+
+@pytest.mark.parametrize("gh,ppt,kv,share", list(MLA_LAYOUT))
+def test_smem_twin_is_the_kernel_layout(gh, ppt, kv, share):
+    H, Hkv, dk, dv, dr, page, P_ = MLA
+    assert pa.smem_bytes(gh, dk, dv, dr, page, P_, ppt, kv, kv,
+                         share) == MLA_LAYOUT[gh, ppt, kv, share]
+
+
+@pytest.mark.parametrize("shape", PHASE1)
+def test_every_earlier_shape_keeps_one_group(shape):
+    """Every shape the kernel ran before keeps all g heads in one block
+    and the pages a stage the old rule took (TILE_TOKENS / page, halved
+    while the layout overflows)."""
+    H, Hkv, dk, dv, dr, page, P_, kv, qs = shape
+    gh, ppt = pa.plan(H, Hkv, dk, dv, dr, page, P_, kv, qs)
+    assert gh == H // Hkv
+    old = pa.TILE_TOKENS // page
+    while old > 1 and pa.smem_bytes(gh, dk, dv, dr, page, P_, old, kv,
+                                    qs) > pa.SMEM_MAX:
+        old //= 2
+    assert ppt == old
+
+
+@pytest.mark.parametrize("size", [4, 2])
+@pytest.mark.parametrize("share", [True, False])
+def test_mla_shape_takes_several_groups(size, share):
+    """deepseek-v2's absorbed decode cannot hold 128 heads in a block:
+    at least two groups, each layout under SMEM_MAX, and the largest gh
+    at the most pages a stage that lets WAVES blocks share an SM, where
+    one does (bf16; f32 with the plane staged once); else the largest
+    gh that fits at the most pages a stage."""
+    H, Hkv, dk, dv, dr, page, P_ = MLA
+    size_of = lambda gh, ppt: pa.smem_bytes(  # noqa: E731
+        gh, dk, dv, dr, page, P_, ppt, size, size, share)
+    gh, ppt = pa.plan(H, Hkv, dk, dv, dr, page, P_, size, size, share)
+    assert (H // Hkv) % gh == 0 and H // Hkv // gh >= 2
+    assert size_of(gh, ppt) <= pa.SMEM_MAX
+    shares = pa.blocks_per_sm(size_of(gh, ppt)) >= pa.WAVES
+    assert shares == (size == 2 or share)
+    if shares:      # twice gh, or twice the pages, leaves a block alone
+        assert pa.blocks_per_sm(size_of(2 * gh, ppt)) < pa.WAVES
+        if ppt < pa.TILE_TOKENS // page:
+            assert all(pa.blocks_per_sm(size_of(d, 2 * ppt)) < pa.WAVES
+                       for d in range(1, H // Hkv + 1) if H % d == 0)
+    else:
+        assert size_of(2 * gh, ppt) > pa.SMEM_MAX
+    assert (gh, ppt) == {(2, True): (8, 2), (2, False): (8, 1),
+                         (4, True): (8, 1), (4, False): (16, 1)}[size, share]
+
+
+@pytest.mark.parametrize("smem,per_sm", [
+    (1, 227), (34_624, 6), (74_944, 3), (110_320, 2), (115_712, 2),
+    (115_713, 1), (218_128, 1), (pa.SMEM_MAX, 1)])
+def test_blocks_an_sm_holds(smem, per_sm):
+    """An SM's 228 KB of shared memory, less 1 KB the runtime keeps for
+    each block, over the block's own."""
+    assert pa.blocks_per_sm(smem) == per_sm
+
+
+@pytest.mark.parametrize("rows,Hkv,P_,n_group,per_sm", [
+    (16, 1, 36, 1, 1), (16, 1, 36, 1, 3), (16, 1, 34, 16, 2),
+    (16, 1, 34, 4, 1), (300, 1, 40, 1, 1)])
+def test_split_rule_counts_blocks_an_sm_holds(rows, Hkv, P_, n_group,
+                                              per_sm):
+    """Where fewer than WAVES blocks share an SM, n_splits aims at as
+    many blocks as do: one wave of them, not WAVES."""
+    ns = pa.n_splits(rows, Hkv, P_, 132, n_group, per_sm)
+    assert ns == pa.n_splits(rows, Hkv, P_, 132 * min(per_sm, pa.WAVES)
+                             // pa.WAVES, n_group)
+    pairs = rows * Hkv * n_group
+    if 1 < ns < P_:
+        assert pairs * (ns - 1) < min(per_sm, pa.WAVES) * 132 <= pairs * ns
+
+
+@pytest.mark.parametrize("shape", PHASE1)
+def test_launch_plan_at_earlier_shapes(shape):
+    """launch_plan is plan, then n_splits with the blocks an SM holds at
+    that layout: at every bf16 shape phase 1 ran before that is the
+    split count it took then (two blocks or more share an SM)."""
+    H, Hkv, dk, dv, dr, page, P_, kv, qs = shape
+    gh, ppt, ns = pa.launch_plan(16, H, Hkv, dk, dv, dr, page, P_, kv, qs,
+                                 False, 132)
+    assert (gh, ppt) == pa.plan(H, Hkv, dk, dv, dr, page, P_, kv, qs)
+    per_sm = pa.blocks_per_sm(pa.smem_bytes(gh, dk, dv, dr, page, P_, ppt,
+                                            kv, qs))
+    assert ns == pa.n_splits(16, Hkv, P_, 132, H // Hkv // gh, per_sm)
+    if kv == qs == 2:
+        assert per_sm >= pa.WAVES and ns == pa.n_splits(16, Hkv, P_, 132)
+
+
+@pytest.mark.parametrize("rows,Hkv,P_,n_group", [
+    (16, 1, 34, 4), (16, 1, 34, 8), (4, 2, 40, 3), (1, 1, 8, 128)])
+def test_split_rule_counts_head_groups(rows, Hkv, P_, n_group):
+    """n_splits aims at about WAVES blocks an SM over the (row, kv head,
+    head group) triples: a group counts as a row would."""
+    ns = pa.n_splits(rows, Hkv, P_, 132, n_group)
+    assert ns == pa.n_splits(rows * n_group, Hkv, P_, 132)
+    assert ns <= pa.n_splits(rows, Hkv, P_, 132)
 
 
 @pytest.mark.parametrize("window", [0, 1, 5, 13, 64])

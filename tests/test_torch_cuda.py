@@ -1,6 +1,7 @@
 """Tests of the PyTorch port that need the card (marker `cuda`).
 
-The hand-written CUDA kernels (paged attention; flash attention; the
+The hand-written CUDA kernels (paged attention, also at deepseek-v2's
+absorbed MLA shape with several head groups a block; flash attention; the
 fused distillation loss, forward and backward; the rwkv6 wkv
 recurrence, chunked and single-step; Mamba's selective scan, short-T
 and long-T) against their plain PyTorch versions in every option, their
@@ -122,6 +123,87 @@ def test_kernel_at_jamba_attention_shape(cuda, dtype):
     want = ref.paged_attention(**c)
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
+
+
+def _mla_case(dev, dtype, seed=11, B=16):
+    """deepseek-v2's absorbed decode: 128 heads over one latent "kv
+    head" (r 512, rope keys 64 as k_extra), lens 300-544, page 16, the
+    latent pages passed as both keys and values."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    page, P = 16, 34
+    lens = torch.randint(300, 545, (B,), generator=g, device=dev).int()
+    n_pages = B * P
+    table = torch.randperm(n_pages, generator=g, device=dev).int() \
+        .reshape(B, P)
+    lat = torch.randn(n_pages, page, 1, 512, generator=g,
+                      device=dev).to(dtype)
+    return dict(q=torch.randn(B, 128, 576, generator=g, device=dev)
+                .to(dtype), k_pages=lat, v_pages=lat, table=table,
+                lens=lens, scale=192 ** -0.5,
+                k_extra=torch.randn(n_pages, page, 1, 64, generator=g,
+                                    device=dev).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shared", [True, False])
+def test_kernel_at_mla_shape(cuda, dtype, shared):
+    """Several head groups a kv head (plan), the latent plane staged once
+    where v is k, or twice from a copy: both against the plain version."""
+    c = _mla_case(cuda, dtype)
+    if not shared:
+        c["v_pages"] = c["k_pages"].clone()
+    gh, _ = pa.plan(128, 1, 512, 512, 64, 16, 34,
+                    c["k_pages"].element_size(), c["q"].element_size(),
+                    shared)
+    assert 128 // gh >= 2
+    before = pa.paged_attention.launches
+    got = pa.paged_attention(**c)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == before + 1
+    want = ref.paged_attention(**c)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("name", ["f32", "k_extra", "int8_odd_rows",
+                                  "gqa_hkv2"])
+def test_head_groups_at_small_shapes(cuda, monkeypatch, name):
+    """A shared-memory cap cut so that plan takes gh = 2 of g = 8 heads
+    (at a full stage of TILE_TOKENS): four head groups a kv head, with
+    splits, against the plain version."""
+    c = make_case(name, cuda, seed=12, B=5, H=8 * CASES[name][2])
+    qdt, kvdt, Hkv, dk, dv, dr, _ = CASES[name]
+    P = c["table"].shape[1]
+    sizes = (c["k_pages"].element_size(), c["q"].element_size())
+    cap = pa.smem_bytes(2, dk, dv, dr, 4, P, pa.TILE_TOKENS // 4, *sizes)
+    monkeypatch.setattr(pa, "SMEM_MAX", cap)
+    assert pa.plan(8 * Hkv, Hkv, dk, dv, dr, 4, P, *sizes)[0] == 2
+    got = pa.paged_attention(**c)
+    torch.cuda.synchronize()
+    want = ref.paged_attention(**c)
+    tol = TOL[qdt]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+
+
+def test_smem_twin_equals_the_kernel_layout(cuda):
+    """paged_attention.smem_bytes, which plan reads, against the
+    library's own layout() (paged_attention_smem) over the head groups,
+    widths, types and stage depths the wrapper can pick."""
+    lib = pa._library()
+    codes = {4: 0, 2: 1, 1: 2}
+    for gh in (1, 3, 4, 16, 32):
+        for dk, dv, dr in ((512, 512, 64), (256, 256, 0), (40, 40, 8),
+                           (192, 128, 0)):
+            for kv, qs in ((4, 4), (2, 2), (1, 4)):
+                for ppt in (1, 2):
+                    for share in (0, 1) if dk == dv else (0,):
+                        want = lib.paged_attention_smem(
+                            gh, dk, dv, dr, 16, 34, ppt,
+                            0 if qs == 4 else 1, codes[kv], share)
+                        assert pa.smem_bytes(gh, dk, dv, dr, 16, 34, ppt,
+                                             kv, qs, bool(share)) == want
 
 
 def test_kernel_checks_its_inputs(cuda):
@@ -815,6 +897,30 @@ def test_jamba_engine_on_card_matches_cpu(cuda):
                              max_out=12, paged=True, page_size=4,
                              prefill_chunk=4, device=dev)
         outs.append(eng.generate(prompts, 10))
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_deepseek_v2_engine_on_card_matches_cpu(cuda, paged):
+    """Reduced deepseek-v2 (MLA, a dense first layer, MoE with a shared
+    expert): paged, the absorbed decode through the kernel; contiguous,
+    the expanded one; the card's greedy tokens are the CPU's."""
+    cfg = registry.get_config("deepseek-v2-236b", reduced=True).with_(
+        dtype="float32")
+    params = tf.init(cfg, seed=0, device="cpu", members=2)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (3, 11, 16)]
+    outs = []
+    for dev in (cuda, "cpu"):
+        before = pa.paged_attention.launches
+        eng = EnsembleEngine(cfg, params, n_slots=3, max_prompt=16,
+                             max_out=12, paged=paged, page_size=4,
+                             prefill_chunk=4, device=dev)
+        outs.append(eng.generate(prompts, 10))
+        if dev == cuda:
+            assert pa.paged_attention.launches - before == (
+                cfg.n_layers * eng.steps_run if paged else 0)
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
 

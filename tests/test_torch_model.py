@@ -5,7 +5,9 @@ numpy tokens go through both packages.  Logits must agree to
 atol=rtol=1e-4: seven layers of f32 matmuls summed in another order.
 Both cache layouts are covered: ring + paged (max_seq > local_window:
 the local layers keep per-slot rings, the global layer pages) and all
-paged (local_window >= max_seq).
+paged (local_window >= max_seq).  Also: every ported config equals the
+JAX package's, the unported ones are refused, and reduced starcoder2-7b,
+llama3-405b and arctic-480b give repro's logits and greedy tokens.
 """
 
 import jax
@@ -42,16 +44,49 @@ def close(got: torch.Tensor, want, tol=TOL) -> None:
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **tol)
 
 
-def test_configs_match_jax_package():
-    for arch in ("gemma3-1b", "deepseek-7b", "rwkv6-7b", "jamba-v0.1-52b"):
-        for reduced in (False, True):
-            j = jreg.get_config(arch, reduced=reduced)
-            t = treg.get_config(arch, reduced=reduced)
-            assert repr(j) == repr(t)
-            assert repr(j.segments()) == repr(t.segments())
-    for arch in ("deepseek-v2-236b", "whisper-tiny"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            treg.get_config(arch)
+@pytest.mark.parametrize("arch", [
+    "gemma3-1b", "deepseek-7b", "rwkv6-7b", "jamba-v0.1-52b",
+    "deepseek-v2-236b", "starcoder2-7b", "llama3-405b", "arctic-480b"])
+def test_configs_match_jax_package(arch):
+    for reduced in (False, True):
+        j = jreg.get_config(arch, reduced=reduced)
+        t = treg.get_config(arch, reduced=reduced)
+        assert repr(j) == repr(t)
+        assert repr(j.segments()) == repr(t.segments())
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "whisper-tiny"])
+def test_unported_configs_are_refused(arch):
+    assert arch in treg.NOT_PORTED and arch not in treg.ARCH_IDS
+    with pytest.raises(NotImplementedError, match="not ported"):
+        treg.get_config(arch)
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-7b", "llama3-405b",
+                                  "arctic-480b"])
+def test_reduced_archs_match_jax(arch):
+    """Archs that need no layer code of their own (gelu MLP, GQA of 6
+    over 2 heads, arctic's MoE beside a dense residual FFN), reduced,
+    f32, K = 2: apply logits within TOL and the JAX engine's greedy
+    tokens (paged, chunked prefill)."""
+    from repro.serving import EnsembleEngine as JaxEngine
+    from repro_torch.serving.engine import EnsembleEngine
+    jcfg = jreg.get_config(arch, reduced=True).with_(dtype="float32")
+    tcfg = treg.get_config(arch, reduced=True).with_(dtype="float32")
+    jp = jax.vmap(lambda k: jtf.init(k, jcfg))(
+        jax.random.split(jax.random.PRNGKey(0), K))
+    tp = params_from_numpy(jax.device_get(jp), "cpu")
+    rng = np.random.default_rng(1)
+    tok = rng.integers(0, 512, (2, 24)).astype(np.int32)
+    want = jax.jit(jax.vmap(
+        lambda p: jtf.apply(p, jcfg, tokens=tok, remat=False)[0]))(jp)
+    close(ttf.apply(tp, tcfg, torch.from_numpy(tok))[0], want)
+    kw = dict(n_slots=3, max_prompt=16, max_out=8, page_size=4, paged=True,
+              prefill_chunk=8)
+    prompts = [rng.integers(0, 512, n).astype(np.int32) for n in (5, 16)]
+    got = EnsembleEngine(tcfg, tp, device="cpu", **kw).generate(prompts, 8)
+    for w, g in zip(JaxEngine(jcfg, jp, **kw).generate(prompts, 8), got):
+        np.testing.assert_array_equal(g, w)
 
 
 @pytest.mark.parametrize("layer", ["rmsnorm", "rope", "mlp", "embed",

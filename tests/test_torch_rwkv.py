@@ -192,14 +192,17 @@ def test_torch_init_has_the_jax_tree(models):
     check_init_has_the_jax_tree(tcfg, jp)
 
 
-@pytest.mark.parametrize("layer", ["mla_attention", "enc_dec"])
+@pytest.mark.parametrize("layer", ["mrope", "enc_dec"])
 def test_jamba_layers_are_still_refused(models, layer):
-    """What the port still refuses, at rwkv's reduced widths: MLA
-    attention (deepseek-v2-236b's) and an encoder-decoder (whisper-tiny's)."""
+    """What the port still refuses, at rwkv's reduced widths: M-RoPE
+    attention (qwen2-vl-2b's mrope_sections, which attn_init refuses
+    rather than rotate without its sections) and an encoder-decoder
+    (whisper-tiny's)."""
     cfg = models[1]
-    if layer == "mla_attention":
-        cfg = cfg.with_(attn=AttnConfig(kind="mla", n_heads=4, n_kv_heads=4,
-                                        head_dim=32),
+    if layer == "mrope":
+        cfg = cfg.with_(attn=AttnConfig(kind="gqa", n_heads=4, n_kv_heads=4,
+                                        head_dim=32,
+                                        mrope_sections=(4, 6, 6)),
                         pattern=(LayerSpec("attn", "dense"),))
     else:
         cfg = cfg.with_(enc_dec=True)

@@ -516,8 +516,9 @@ def test_training_route_skips_the_recurrence_kernels(shards, arch,
     per_call = _layers(tcfg, mixer)            # one 16-token piece
     # the relabel scores the K batches of 16 sequences concatenated,
     # member by member: rwkv in 4 chunks of 10 rows; jamba's MoE pools
-    # each batch, so its chunk holds one batch, 2 chunks
-    assert counted[name] == per_call * K * (4 if arch == RWKV else 2)
+    # each batch, whose 16 rows do not fit a chunk: pieces of 10 and 6
+    # rows carrying the arrival counts, 4 chunks too
+    assert counted[name] == per_call * K * 4
     counted.update(wkv6=0, ssm_scan=0)
     tr.evaluate()
     # the 32 test sequences: K members' 64 rows do not fit, 4 chunks
@@ -545,13 +546,14 @@ def jamba_relabel(shards, jax_trainers):
         params, subset, jsteps.make_logits_fn(jcfg), _ec(JEC)))
 
 
-@pytest.mark.parametrize("rows", [10, 40, 64])
+@pytest.mark.parametrize("rows", [6, 10, 40, 64])
 def test_jamba_relabel_pools_each_batch_in_chunks(monkeypatch, jamba_relabel,
                                                   rows):
     """allgather_relabel of reduced jamba against the JAX package's: each
     member's batch of 16 sequences is one MoE pool, whether a chunk holds
-    less than a batch (10 rows: one batch a chunk), more (40: both
-    batches) or all.  Scored as one pool of both batches, the same
+    less than a batch (6 and 10 rows: the batch in pieces of 6, 6 and 4
+    or 10 and 6, carrying the MoE layers' arrival counts), more (40:
+    both batches) or all.  Scored as one pool of both batches, the same
     relabel drops other tokens (the fault this guards against)."""
     _, tcfg = _cfgs(JAMBA)
     monkeypatch.setattr(tagg, "CHUNK_BYTES", 4 * 16 * 512 * rows)
@@ -563,3 +565,44 @@ def test_jamba_relabel_pools_each_batch_in_chunks(monkeypatch, jamba_relabel,
     if rows == 64:
         gap = np.abs(relabel(False) - want).max()
         assert gap > 100 * PSEUDO["atol"], gap
+
+
+@pytest.fixture(scope="module")
+def jamba_after_a_round(jax_trainers):
+    """(the JAX trainer's params after one EC round from reduced
+    jamba's init, numpy; its evaluate() there, the JAX package's one
+    MoE pool of the 32 test rows a member)."""
+    jtr, init = jax_trainers(JAMBA)
+    jtr.ec, jtr.state = _ec(JEC), jax.tree.map(jnp.array, init)
+    jtr.rng, jtr.pseudo_buffer, jtr.round = np.random.default_rng(2), None, 0
+    jtr.run_round()
+    return jax.device_get(jtr.state["params"]), jtr.evaluate(record=False)
+
+
+@pytest.mark.parametrize("rows", [16, 8])
+def test_jamba_evaluate_in_chunks_is_one_pool(monkeypatch, shards,
+                                              jamba_after_a_round, rows):
+    """evaluate() of reduced jamba after a round, with CHUNK_BYTES cut to
+    16 / 8 test rows, against the JAX package's, which routes a member's
+    32 test rows as one MoE pool: the port scores them in pieces of one
+    pool, each carrying the MoE layers' arrival counts (rtol 1e-4).
+    Each piece routed as its own pool (the fault of an earlier port,
+    ROADMAP queue 3) moves the losses by more than that."""
+    _, tcfg = _cfgs(JAMBA)
+    train, test = shards
+    params, want = jamba_after_a_round
+    monkeypatch.setattr(tagg, "CHUNK_BYTES", 4 * 16 * 512 * rows)
+
+    def port():
+        tr = TTrainer(tcfg, _ec(TEC), tadamw(1e-3), K, 0,
+                      _torch(train), _torch(test), batch_size=4, seed=2,
+                      params=params, device="cpu")
+        return tr.evaluate(record=False)
+    got = port()
+    for k in want:
+        _close(got[k], want[k])
+    monkeypatch.setattr(tsteps, "routes_by_pool", lambda cfg: False)
+    split = port()
+    gap = max(abs(split[k] - want[k]) / abs(want[k])
+              for k in ("local_loss", "global_loss"))
+    assert gap > 1e-4, gap
