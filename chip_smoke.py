@@ -4,14 +4,15 @@
     python3 chip_smoke.py
 
 Phases, one JSON line each, in the order 0, 1, 7, 10, 11, 2, 8, 9, 12,
-16, 13, 3, 4, 5, 6, 14, 15:
+16, 17, 18, 13, 3, 4, 5, 6, 14, 15:
   0  the card's name and power limit; build every CUDA kernel from
      src/repro_torch/kernels/csrc (one nvcc per source, all at once);
      every kernel function's registers and spills (ptxas) and each
      library's count of tensor-core instructions (cuobjdump);
   1  the paged-attention kernel against its plain PyTorch version on the
      card, at the decode path's shapes (gemma3-1b's in every variant it
-     takes, deepseek-7b's and jamba's in bf16, deepseek-v2's absorbed
+     takes, deepseek-7b's, jamba's and qwen2-vl-2b's (12 heads over 2 kv
+     heads, g = 6) in bf16, deepseek-v2's absorbed
      MLA decode in bf16 and f32: 128 heads over one latent "kv head", r
      512 + rope 64 as k_extra, the latent plane as keys and values), with
      its time (cold L2), the plain version's, one library call's, the
@@ -22,7 +23,10 @@ Phases, one JSON line each, in the order 0, 1, 7, 10, 11, 2, 8, 9, 12,
      deepseek-7b over 576, each plus a 128-token chunk, mid-prompt and
      ragged tail), the full forward's (top-left causal, T = S = 2048)
      and phase 14's relabel and eval chunk (16 sequences, T = S = 64,
-     gemma3-1b's heads, window 0 and 512), beside one
+     gemma3-1b's heads, window 0 and 512), whisper-tiny's encoder (no
+     mask, 16 rows, T = S = 1500: ragged tiles), its prefill chunk's
+     cross-attention (no mask, 128 queries over 1500 frames) and
+     self-attention, and qwen2-vl-2b's prefill chunk (g = 6), beside one
      scaled_dot_product_attention call with the same boolean mask, and
      the share of key tiles the kernel skips (its predicate's twin,
      kernels/ref.flash_tile_live);
@@ -65,9 +69,20 @@ Phases, one JSON line each, in the order 0, 1, 7, 10, 11, 2, 8, 9, 12,
      weights, three layers would be 74.6): the absorbed paged decode
      launches paged attention once per MLA layer per decode step; MLA
      prefill takes the plain attend, as the JAX package does, so flash
-     attention never; init below 60 GB.
-     Phases 2, 8, 9, 12 and 16 give each kernel's device time per launch
-     in situ (profiler sum over launches, decode and prefill apart);
+     attention never; init below 60 GB;
+ 17  the same for whisper-tiny at full width and depth (bf16, 4 encoder
+     and 4 decoder layers, d 384, 1500 frames), K = 4, from the
+     contiguous pool (an enc-dec engine refuses pages, as the JAX one
+     does), prompts of 16-128 tokens (one chunk each) and 64 new tokens:
+     flash attention twice per decoder layer per prefill call (self and
+     cross), decode on the plain attend (no kernel), as the JAX package
+     decodes; the engine's encoder stub over 4 slots timed and counted
+     apart (flash once per encoder layer, no mask);
+ 18  the same for qwen2-vl-2b at full width and depth (bf16, 28 layers,
+     M-RoPE, 12 heads over 2 kv heads), K = 4, paged as phase 2; init
+     below 60 GB.
+     Phases 2, 8, 9, 12, 16, 17 and 18 give each kernel's device time per
+     launch in situ (profiler sum over launches, decode and prefill apart);
  13  continuous batching at full width: gemma3-1b in f32 (greedy
      decisive), K=4, paged (page 16, every layer: max_prompt 448 +
      max_out 64 = the local window), 4 slots over a pool cut to 3 slots
@@ -83,12 +98,14 @@ Phases, one JSON line each, in the order 0, 1, 7, 10, 11, 2, 8, 9, 12,
      percentiles, tick phases, and decode over shared pages (ms per
      step, idle share, both kernels' time per launch in situ);
   3  the card against the CPU end to end on reduced gemma3-1b,
-     deepseek-7b, rwkv6-7b, jamba-v0.1-52b and deepseek-v2-236b at f32:
-     identical greedy tokens and allclose fused log-probs; Scheduler.run
-     gives identical completions and preemptions on both (prefix cache
-     on for gemma3-1b, deepseek-7b and deepseek-v2-236b, off with a pool
-     that preempts for rwkv6-7b and jamba), and engine.score agrees
-     within 1e-4 and keeps the Jensen bound;
+     deepseek-7b, rwkv6-7b, jamba-v0.1-52b, deepseek-v2-236b, whisper-tiny
+     (contiguous) and qwen2-vl-2b at f32: identical greedy tokens and
+     allclose fused log-probs; Scheduler.run gives identical completions
+     and preemptions on both (prefix cache on for gemma3-1b, deepseek-7b,
+     deepseek-v2-236b and qwen2-vl-2b, off with a pool that preempts for
+     rwkv6-7b, jamba and qwen2-vl-2b, the contiguous pool for
+     whisper-tiny), and engine.score agrees within 1e-4 and keeps the
+     Jensen bound;
   4  the fused distillation-loss kernels (forward and backward) against
      their plain version on the card: the NiN training path's shape, a
      262k bf16 vocab (gemma3-1b's distill step), rwkv6-7b's in phase 15
@@ -162,6 +179,10 @@ JAMBA = dict(rows=8, H=32, Hkv=8, d=128, page=16, min_len=300, max_len=544)
 # softmax scale 1/sqrt(qk_nope 128 + rope 64)
 DEEPSEEK_V2 = dict(rows=16, H=128, Hkv=1, page=16, min_len=300,
                    max_len=544, scale=192 ** -0.5)
+# qwen2-vl-2b's decode (K = 4 x 4 slots): 12 query heads over 2 kv heads
+# (g = 6) at dh 128, prompts of 300-512 plus 32 new tokens
+QWEN2_VL = dict(rows=16, H=12, Hkv=2, d=128, page=16, min_len=300,
+                max_len=544)
 FLUSH_BYTES = 64 << 20             # > the 50 MB L2: each timed call starts cold
 SLEEP_CYCLES = 5_000_000           # ~2.5 ms of GPU clock: outlasts any enqueue
 
@@ -376,6 +397,9 @@ def phase1(torch, flush, card):
                                       shared=True), 2e-2),
         ("f32_mla", dict(qdt=f32, kvdt=f32, dk=512, dv=512, dr=64,
                          shape=DEEPSEEK_V2, shared=True), 2e-5),
+        # qwen2-vl-2b's decode: one head group of six a kv head
+        ("bf16_qwen2_vl", dict(qdt=bf16, kvdt=bf16, dk=128, dv=128,
+                               shape=QWEN2_VL), 2e-2),
     ]
     # tolerances are those of the JAX package's kernel tests: the kernel
     # sums an online softmax page by page, the plain version all at once
@@ -450,11 +474,16 @@ def flash_positions(torch, N, S, C, idx, n_tok, ring_window):
         torch.cat([cache_pos, c_pos], 1).int().contiguous()
 
 
-# name: (N, T, cache S (0: top-left T = S), H, Hkv, dh, window, idx, n_tok)
+# name: (N, T, cache S (0: top-left T = S), H, Hkv, dh, window, idx, n_tok
+# [, causal: False is no mask at all, top-left, over S keys (0: S = T)])
 # gemma3-1b: ring of 512 (local layers, window 512) and 576 gathered
 # positions (global layer) plus a 128 chunk; deepseek-7b: 576 gathered
 # plus the chunk; apply at T = S = 2048, top-left causal; phase 14's
-# relabel and eval: one member's chunk of 16 sequences at T = S = 64
+# relabel and eval: one member's chunk of 16 sequences at T = S = 64;
+# whisper-tiny's encoder stub (K 4 x 4 slots over 1500 frames), a
+# 128-token prefill chunk's cross-attention over the frames and its
+# self-attention over the slot's 192 positions (one chunk a prompt);
+# qwen2-vl-2b's chunk over 576 gathered positions (g = 6)
 FLASH_CASES = {
     "gemma3_ring_mid": (4, 128, 512, 4, 1, 256, 512, 256, 128),
     "gemma3_ring_tail": (4, 128, 512, 4, 1, 256, 512, 256, 44),
@@ -467,16 +496,23 @@ FLASH_CASES = {
     "deepseek_apply_2048": (4, 2048, 0, 32, 32, 128, 0, 0, 0),
     "gemma3_relabel_64": (16, 64, 0, 4, 1, 256, 0, 0, 0),
     "gemma3_relabel_64_w512": (16, 64, 0, 4, 1, 256, 512, 0, 0),
+    "whisper_encoder": (16, 1500, 0, 6, 6, 64, 0, 0, 0, False),
+    "whisper_cross_chunk": (4, 128, 1500, 6, 6, 64, 0, 0, 0, False),
+    "whisper_self_chunk": (4, 128, 192, 6, 6, 64, 0, 0, 96),
+    "qwen2_vl_chunk": (4, 128, 576, 12, 2, 128, 0, 256, 128),
 }
 
 
-def flash_valid(torch, q_pos, k_pos, T, S, window, dev="cuda"):
+def flash_valid(torch, q_pos, k_pos, T, S, window, dev="cuda",
+                causal=True):
     """(N or 1, T, S) mask of the (query, key) pairs that count."""
     if q_pos is None:
         q_pos = torch.arange(T, device=dev)[None]
         k_pos = torch.arange(S, device=dev)[None]
     qp, kp = q_pos.long()[:, :, None], k_pos.long()[:, None, :]
-    ok = (kp >= 0) & (kp <= qp)
+    ok = (kp >= 0).expand(max(qp.shape[0], kp.shape[0]), T, S)
+    if causal:
+        ok = ok & (kp <= qp)
     if window:
         ok &= kp > qp - window
     return ok
@@ -509,22 +545,23 @@ def phase7(torch, flush, card):
     gen.manual_seed(2)
     n_sm = pa.sm_count(torch.device("cuda"))
     out = {}
-    for name, (N, T, S0, H, Hkv, dh, window, idx, n_tok) in \
+    for name, (N, T, S0, H, Hkv, dh, window, idx, n_tok, *rest) in \
             FLASH_CASES.items():
+        causal = rest[0] if rest else True
         for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
-            S = S0 + T if S0 else T
+            S = (S0 + T if causal else S0) if S0 else T
             q, k, v = (torch.randn(N, n, h, dh, generator=gen,
                                    device="cuda").to(dt)
                        for n, h in ((T, H), (S, Hkv), (S, Hkv)))
-            kw = dict(causal=True, window=window)
-            if S0:
+            kw = dict(causal=causal, window=window)
+            if S0 and causal:
                 kw["q_pos"], kw["k_pos"] = flash_positions(
                     torch, N, S0, T, idx, n_tok, window)
             got = fa.flash_attention(q, k, v, **kw)
             want = ref.attention(q, k, v, **kw)
             torch.cuda.synchronize()
             ok = flash_valid(torch, kw.get("q_pos"), kw.get("k_pos"), T, S,
-                             window)
+                             window, causal=causal)
             rows = ok.any(-1).expand(N, T)      # rows with a valid key
             if not torch.isfinite(got.float()).all():
                 raise AssertionError(f"flash {name}: non-finite output")
@@ -547,13 +584,14 @@ def phase7(torch, flush, card):
                                              kw.get("k_pos"), ok)
             # the key tiles the kernel reads, by its predicate's twin
             bq, bk = fa.tiles(dh, dt)
-            live = ref.flash_tile_live(N, T, S, H // Hkv, bq, bk, True,
+            live = ref.flash_tile_live(N, T, S, H // Hkv, bq, bk, causal,
                                        window, kw.get("q_pos"),
                                        kw.get("k_pos"))
             row = {"phase": 7, "card": card, "kernel": "flash_attention",
                    "case": name, "dtype": str(dt).split(".")[-1],
                    "N": N, "T": T, "S": S, "H": H, "Hkv": Hkv, "dh": dh,
-                   "window": window, "idx": idx, "n_tok": n_tok,
+                   "causal": causal, "window": window, "idx": idx,
+                   "n_tok": n_tok,
                    "splits": fa.n_splits(N, T, H, Hkv, S, bk, n_sm),
                    "key_tiles": [int(live.sum()), live.numel()],
                    "tiles_skipped_share": 1.0 - live.float().mean().item(),
@@ -799,6 +837,12 @@ def profile_steps(torch, run, n: int, names=()) -> dict:
 
 SERVE = dict(slots=4, max_prompt=512, max_out=64, page=16,
              prompt_lens=[300, 377, 451, 512], new_tokens=32)
+# whisper-tiny: contiguous (the JAX engine refuses enc-dec paged), prompts
+# of one 128-token chunk each plus 64 new tokens, within the 448 tokens
+# it was trained on
+WHISPER_SERVE = dict(slots=4, max_prompt=128, max_out=64, page=0,
+                     prompt_lens=[16, 48, 96, 128], new_tokens=64,
+                     chunk=128)
 # kernel wrapper -> the symbol of its kernel in a profile
 SYMBOL = {"paged_attention": "paged_kernel",
           "flash_attention": "flash_kernel", "wkv6": "wkv6_",
@@ -806,16 +850,22 @@ SYMBOL = {"paged_attention": "paged_kernel",
 
 
 def serve_phase(torch, np, card, arch: str, phase: int, members: int = 4,
-                n_layers: int = None, init_limit: float = None) -> dict:
+                n_layers: int = None, init_limit: float = None,
+                serve: dict = SERVE) -> dict:
     """`arch` at full width, bf16, `members` members, paged KV (page 16),
     its depth cut to `n_layers` where given: 4 requests of 300-512 prompt
-    tokens through EnsembleEngine.generate for 32 new tokens, greedy.
+    tokens through EnsembleEngine.generate for 32 new tokens, greedy
+    (or `serve`'s; page 0 is the contiguous pool).
     Every kernel's launch count must equal its formula: paged_attention
     once per paged layer per decode step after the first token (which
     prefill emits); flash_attention once per attention layer per prefill
-    call; wkv6 once per rwkv layer, and ssm_scan once per Mamba layer
-    and 128-token piece, per decode step and per prefill call.  -> the
-    kernels' launch counts."""
+    call, and once more per cross-attention layer of an encoder-decoder;
+    wkv6 once per rwkv layer, and ssm_scan once per Mamba layer
+    and 128-token piece, per decode step and per prefill call.  An
+    encoder-decoder's encoder stub (the engine's frames for every slot)
+    is timed and counted on its own: flash_attention once per encoder
+    layer.  -> the kernels' launch counts (and the stub's flash
+    launches)."""
     from repro_torch.configs import registry
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
@@ -827,7 +877,8 @@ def serve_phase(torch, np, card, arch: str, phase: int, members: int = 4,
     cfg = full = registry.get_config(arch)
     if n_layers is not None:
         cfg = cfg.with_(n_layers=n_layers)
-    K, n_new, plens = members, SERVE["new_tokens"], SERVE["prompt_lens"]
+    K, n_new, plens = members, serve["new_tokens"], serve["prompt_lens"]
+    paged = serve["page"] > 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -838,20 +889,23 @@ def serve_phase(torch, np, card, arch: str, phase: int, members: int = 4,
     if init_limit is not None and init_peak >= init_limit:
         raise AssertionError(f"{arch} init peaked at {init_peak} B, limit "
                              f"{init_limit}")
-    eng = EnsembleEngine(cfg, params, n_slots=SERVE["slots"],
-                         max_prompt=SERVE["max_prompt"],
-                         max_out=SERVE["max_out"], paged=True,
-                         page_size=SERVE["page"], device="cuda")
+    eng = EnsembleEngine(cfg, params, n_slots=serve["slots"],
+                         max_prompt=serve["max_prompt"],
+                         max_out=serve["max_out"], paged=paged,
+                         page_size=serve["page"] or 16,
+                         prefill_chunk=serve.get("chunk"), device="cuda")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in plens]
     eng.generate(prompts, max_new=2)            # warm-up (cuBLAS, kernel load)
-    n_paged = n_paged_layers(cfg, eng.max_seq, tf)
+    n_paged = n_paged_layers(cfg, eng.max_seq, tf) if paged else 0
     n_layers = lambda mixers: sum(  # noqa: E731
         count for count, specs in cfg.segments() for sp in specs
         if sp.mixer in mixers)
-    # MLA layers prefill through the plain attend, as the JAX package does
+    # MLA layers prefill through the plain attend, as the JAX package does;
+    # an encoder-decoder's blocks cross-attend the frames, each a launch
     n_attn = n_layers(("attn_local",)) + (
-        0 if cfg.attn.kind == "mla" else n_layers(("attn",)))
+        0 if cfg.attn.kind == "mla" else n_layers(("attn",))) + (
+        cfg.n_layers if cfg.enc_dec else 0)
     n_rwkv, n_mamba = n_layers(("rwkv",)), n_layers(("mamba",))
     calls = sum(-(-n // eng.prefill_chunk) for n in plens)
     pieces = -(-eng.prefill_chunk // ssm.MAMBA_CHUNK)
@@ -862,8 +916,12 @@ def serve_phase(torch, np, card, arch: str, phase: int, members: int = 4,
     formulas = {
         "paged_attention": f"{n_paged} paged layers x ({n_new} - 1) decode "
                            f"steps = {expected['paged_attention']}",
-        "flash_attention": f"{n_attn} GQA attention layers x {calls} "
-                           f"prefill calls = {expected['flash_attention']}",
+        "flash_attention": (f"{n_attn - cfg.n_layers} self- + "
+                            f"{cfg.n_layers} cross-attention layers"
+                            if cfg.enc_dec else
+                            f"{n_attn} GQA attention layers")
+                           + f" x {calls} prefill calls = "
+                           f"{expected['flash_attention']}",
         "wkv6": f"{n_rwkv} rwkv layers x (({n_new} - 1) decode steps + "
                 f"{calls} prefill calls) = {expected['wkv6']}",
         "ssm_scan": f"{n_mamba} mamba layers x (({n_new} - 1) decode steps "
@@ -894,6 +952,33 @@ def serve_phase(torch, np, card, arch: str, phase: int, members: int = 4,
     for o in outs:
         if len(o) != n_new or o.min() < 0 or o.max() >= cfg.vocab_size:
             raise AssertionError(f"bad output {o}")
+    stub = {}
+    if cfg.enc_dec:
+        # the encoder over every slot's stub frames, as the engine runs
+        # it at construction and on every swap_params
+        fa.flash_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = eng._encode_stub(eng.n_slots)
+        torch.cuda.synchronize()
+        stub_s = time.perf_counter() - t0
+        stub_launches = fa.flash_attention.launches
+        if stub_launches != cfg.n_enc_layers:
+            raise AssertionError(f"{arch}: the encoder stub launched flash "
+                                 f"{stub_launches} times, expected "
+                                 f"{cfg.n_enc_layers} encoder layers x 1")
+        want = (K, eng.n_slots, cfg.enc_max_frames, cfg.d_model)
+        if tuple(enc.shape) != want or not torch.isfinite(enc).all():
+            raise AssertionError(f"{arch}: bad encoder frames "
+                                 f"{tuple(enc.shape)}, want {want}")
+        del enc
+        sp = profile_steps(torch, lambda: eng._encode_stub(eng.n_slots), 1,
+                           ["flash_kernel"])
+        stub = {"encoder_stub_s": stub_s,
+                "encoder_stub_device_busy_ms": sp["busy_ms"],
+                "encoder_stub_flash_ms": sp["name_ms"]["flash_kernel"],
+                "encoder_stub_top_kernels_ms": sp["top"],
+                "encoder_stub_launches": stub_launches}
 
     def admit():
         eng.update_slots(release=range(eng.n_slots),
@@ -937,8 +1022,8 @@ def serve_phase(torch, np, card, arch: str, phase: int, members: int = 4,
                   for k, n in expected.items() if n}
     emit({"phase": phase, "card": card, "arch": cfg.name, "dtype": cfg.dtype,
           "members": K, "n_layers": cfg.n_layers,
-          "published_layers": full.n_layers, "slots": SERVE["slots"],
-          "prompt_lens": plens,
+          "published_layers": full.n_layers, "slots": serve["slots"],
+          "paged": paged, "prompt_lens": plens,
           "new_tokens": n_new, "prefill_chunk": eng.prefill_chunk,
           "paged_layers": n_paged, "attention_layers": n_attn,
           "rwkv_layers": n_rwkv, "mamba_layers": n_mamba,
@@ -958,9 +1043,12 @@ def serve_phase(torch, np, card, arch: str, phase: int, members: int = 4,
           "kernel_ms_per_step": prof["name_ms"],
           "kernel_ms_per_launch": per_launch,
           "top_kernels_ms_per_step": prof["top"],
-          "sample": outs[0][:8].tolist()})
+          **stub, "sample": outs[0][:8].tolist()})
     del eng, params
     torch.cuda.empty_cache()
+    if stub:
+        launches["flash_attention_encoder_stub"] = \
+            stub["encoder_stub_launches"]
     return launches
 
 
@@ -1198,8 +1286,9 @@ def phase13(torch, np, card) -> dict:
 # ---------------------------------------------------------------------------
 
 def phase3(torch, np, arch: str):
-    """Reduced `arch`, f32, K = 4, paged: greedy tokens identical on the
-    card and the CPU, fused log-probs within 1e-4."""
+    """Reduced `arch`, f32, K = 4, paged (an encoder-decoder contiguous,
+    as the engine serves it): greedy tokens identical on the card and the
+    CPU, fused log-probs within 1e-4."""
     from repro_torch.configs import registry
     from repro_torch.core import ensemble as ens
     from repro_torch.models import transformer as tf
@@ -1208,7 +1297,9 @@ def phase3(torch, np, arch: str):
     params = tf.init(cfg, seed=0, device="cpu", members=4)
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in (7, 19, 25, 32)]
-    kw = dict(n_slots=4, max_prompt=32, max_out=16, paged=True, page_size=8)
+    paged = not cfg.enc_dec
+    kw = dict(n_slots=4, max_prompt=32, max_out=16, paged=paged,
+              page_size=8)
     toks, lps = {}, {}
     for dev in ("cuda", "cpu"):
         eng = EnsembleEngine(cfg, params, device=dev, **kw)
@@ -1220,15 +1311,16 @@ def phase3(torch, np, arch: str):
             for _ in range(-(-len(p) // eng.prefill_chunk)):
                 eng.prefill(i)
         eng.reserve_decode_pages()
-        logits, _ = tf.decode_step_paged(eng.params, cfg, eng.cache,
-                                         eng.state.tok[:, None])
+        step = tf.decode_step_paged if paged else tf.decode_step_slots
+        logits, _ = step(eng.params, cfg, eng.cache, eng.state.tok[:, None])
         lps[dev] = ens.ensemble_log_probs(logits[:, :, 0],
                                           eng.quorum).cpu()
     same = all(np.array_equal(a, b) for a, b in zip(toks["cuda"],
                                                      toks["cpu"]))
     err = (lps["cuda"] - lps["cpu"]).abs().max().item()
     emit({"phase": 3, "arch": cfg.name, "dtype": cfg.dtype, "members": 4,
-          "tokens_identical": same, "logp_max_abs_err": err, "tol": 1e-4})
+          "paged": paged, "tokens_identical": same, "logp_max_abs_err": err,
+          "tol": 1e-4})
     if not same:
         raise AssertionError(f"{arch}: greedy tokens differ: {toks}")
     # tolerance: the same f32 math summed in another order on each device
@@ -1239,31 +1331,40 @@ def phase3(torch, np, arch: str):
 # phase 3's continuous-batching half: reduced configs, f32, K = 4.
 # gemma3-1b's reduced local window is 16, so max_prompt + max_out stays
 # at 16 for every layer to page (the prefix cache needs it); rwkv6-7b and
-# jamba refuse the prefix cache and run a pool small enough to preempt
-PHASE3_CONT = {
-    "gemma3-1b": dict(n_slots=3, max_prompt=12, max_out=4, n_pages=9,
-                      prefix_cache=True),
-    "deepseek-7b": dict(n_slots=3, max_prompt=24, max_out=6, n_pages=14,
-                        prefix_cache=True),
-    "rwkv6-7b": dict(n_slots=3, max_prompt=24, max_out=6, n_pages=6),
-    "jamba-v0.1-52b": dict(n_slots=3, max_prompt=24, max_out=6, n_pages=6),
-    "deepseek-v2-236b": dict(n_slots=3, max_prompt=24, max_out=6,
-                             n_pages=14, prefix_cache=True)}
+# jamba refuse the prefix cache and run a pool small enough to preempt;
+# qwen2-vl-2b runs both ways; whisper-tiny serves from the contiguous
+# pool (no pages: nothing to preempt)
+PHASE3_CONT = [
+    ("gemma3-1b", dict(n_slots=3, max_prompt=12, max_out=4, n_pages=9,
+                       prefix_cache=True)),
+    ("deepseek-7b", dict(n_slots=3, max_prompt=24, max_out=6, n_pages=14,
+                         prefix_cache=True)),
+    ("rwkv6-7b", dict(n_slots=3, max_prompt=24, max_out=6, n_pages=6)),
+    ("jamba-v0.1-52b", dict(n_slots=3, max_prompt=24, max_out=6,
+                            n_pages=6)),
+    ("deepseek-v2-236b", dict(n_slots=3, max_prompt=24, max_out=6,
+                              n_pages=14, prefix_cache=True)),
+    ("qwen2-vl-2b", dict(n_slots=3, max_prompt=24, max_out=6, n_pages=14,
+                         prefix_cache=True)),
+    ("qwen2-vl-2b", dict(n_slots=3, max_prompt=24, max_out=6, n_pages=6)),
+    ("whisper-tiny", dict(n_slots=3, max_prompt=24, max_out=6,
+                          paged=False))]
 
 
-def phase3_continuous(torch, np, arch: str):
-    """Reduced `arch`, f32, K = 4, paged (page 4, chunk 4): the same
-    requests (a shared prefix cut at random plus a short tail) through
-    Scheduler.run on the card and on the CPU give identical completions
-    and preemptions, and the pool is whole after the drain; engine.score
-    agrees within 1e-4 and keeps the Jensen bound."""
+def phase3_continuous(torch, np, arch: str, run: dict):
+    """Reduced `arch`, f32, K = 4, paged (page 4, chunk 4) unless `run`
+    says paged=False: the same requests (a shared prefix cut at random
+    plus a short tail) through Scheduler.run on the card and on the CPU
+    give identical completions and preemptions, and the pool is whole
+    after the drain; engine.score agrees within 1e-4 and keeps the
+    Jensen bound."""
     from repro_torch.configs import registry
     from repro_torch.models import transformer as tf
     from repro_torch.serving.engine import EnsembleEngine
     from repro_torch.serving.scheduler import Scheduler
     cfg = registry.get_config(arch, reduced=True).with_(dtype="float32")
     params = tf.init(cfg, seed=0, device="cpu", members=4)
-    kw = dict(PHASE3_CONT[arch], prefill_chunk=4, paged=True, page_size=4)
+    kw = dict(dict(paged=True, page_size=4, prefill_chunk=4), **run)
     rng = np.random.default_rng(5)
     shared = rng.integers(0, cfg.vocab_size, 16)
     reqs = []
@@ -1273,7 +1374,7 @@ def phase3_continuous(torch, np, arch: str):
         max_new = kw["max_out"] - i % 2
         # the whole request fits the pool, so it can always complete
         plen = min(cut + len(tail), kw["max_prompt"],
-                   kw["n_pages"] * 4 - max_new)
+                   kw.get("n_pages", kw["max_prompt"]) * 4 - max_new)
         reqs.append((np.concatenate([shared[:cut], tail])[:plen], max_new))
     toks = rng.integers(0, cfg.vocab_size, (3, 9))
     labels = np.roll(toks, -1, axis=1)
@@ -1292,7 +1393,7 @@ def phase3_continuous(torch, np, arch: str):
     m_err = (got["cuda"][3] - got["cpu"][3]).abs().max().item()
     e_err = abs(got["cuda"][4].item() - got["cpu"][4].item())
     emit({"phase": 3, "arch": cfg.name, "path": "continuous",
-          "prefix_cache": kw.get("prefix_cache", False),
+          "paged": kw["paged"], "prefix_cache": kw.get("prefix_cache", False),
           "completions_identical": same,
           "preemptions": got["cuda"][1], "prefix_hits": got["cuda"][2],
           "score_member_max_abs_err": m_err, "score_ensemble_abs_err": e_err,
@@ -1302,7 +1403,7 @@ def phase3_continuous(torch, np, arch: str):
                              f"{got['cuda'][:3]} vs {got['cpu'][:3]}")
     if kw.get("prefix_cache") and not got["cuda"][2]:
         raise AssertionError(f"{arch}: the prefix cache never hit")
-    if not kw.get("prefix_cache") and got["cuda"][1] == 0:
+    if kw["paged"] and not kw.get("prefix_cache") and got["cuda"][1] == 0:
         raise AssertionError(f"{arch}: the small pool never preempted")
     torch.testing.assert_close(got["cuda"][3], got["cpu"][3], atol=1e-4,
                                rtol=1e-4)
@@ -2231,11 +2332,18 @@ def main() -> int:
                 "deepseek-v2-236b": serve_phase(torch, np, card,
                                                 "deepseek-v2-236b", 16,
                                                 n_layers=2,
-                                                init_limit=60e9)}
+                                                init_limit=60e9),
+                # every layer and width: 4 + 4 layers, d 384, 1500 frames
+                "whisper-tiny": serve_phase(torch, np, card, "whisper-tiny",
+                                            17, serve=WHISPER_SERVE),
+                # every layer and width: 28 layers, d 1536, 3.1 GB a member
+                "qwen2-vl-2b": serve_phase(torch, np, card, "qwen2-vl-2b",
+                                           18, init_limit=60e9)}
     launches_cont = phase13(torch, np, card)
     for arch in launches:
         phase3(torch, np, arch)
-        phase3_continuous(torch, np, arch)
+    for arch, run in PHASE3_CONT:
+        phase3_continuous(torch, np, arch, run)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     distill_rows, distill_cases = phase4(torch, flush, card)
     del flush
@@ -2257,6 +2365,9 @@ def main() -> int:
 
     def serving(kernel):
         out = {f"{arch} serve": n[kernel] for arch, n in launches.items()}
+        for arch, n in launches.items():
+            if f"{kernel}_encoder_stub" in n:
+                out[f"{arch} encoder stub"] = n[f"{kernel}_encoder_stub"]
         if kernel in launches_cont:
             out["gemma3-1b continuous"] = launches_cont[kernel]
         if kernel in lm_launches:
@@ -2274,8 +2385,8 @@ def main() -> int:
 
     dsrc = "src/repro_torch/kernels/csrc/distill_loss.cu"
     emit({"kernels": [
-        # gemma3-1b's decode row; the deepseek-7b, jamba and deepseek-v2
-        # (absorbed MLA) shapes too
+        # gemma3-1b's decode row; the deepseek-7b, jamba, deepseek-v2
+        # (absorbed MLA) and qwen2-vl-2b shapes too
         dict(entry("paged_attention",
                    "src/repro_torch/kernels/csrc/paged_attention.cu",
                    "src/repro/kernels/paged_attention.py:117",
@@ -2283,7 +2394,7 @@ def main() -> int:
                    paged_rows["bf16"], serving("paged_attention")),
              by_shape=by_shape({k: paged_rows[k] for k in (
                  "bf16", "bf16_deepseek_7b", "bf16_jamba",
-                 "bf16_deepseek_v2_mla", "f32_mla")})),
+                 "bf16_deepseek_v2_mla", "f32_mla", "bf16_qwen2_vl")})),
         # deepseek-7b's bf16 chunk; every bf16 case too
         dict(entry("flash_attention",
                    "src/repro_torch/kernels/csrc/flash_attention.cu",

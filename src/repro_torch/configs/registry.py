@@ -1,4 +1,5 @@
-"""Architecture registry: --arch <id> -> ModelConfig, for the archs ported so far."""
+"""Architecture registry: --arch <id> -> ModelConfig, every arch of the
+JAX package's registry."""
 from __future__ import annotations
 
 import importlib
@@ -15,19 +16,17 @@ _MODULES = {
     "starcoder2-7b": "repro_torch.configs.starcoder2_7b",
     "llama3-405b": "repro_torch.configs.llama3_405b",
     "arctic-480b": "repro_torch.configs.arctic_480b",
+    "qwen2-vl-2b": "repro_torch.configs.qwen2_vl_2b",
+    "whisper-tiny": "repro_torch.configs.whisper_tiny",
 }
 
-# archs the JAX package serves that this package does not run yet
-NOT_PORTED = ("qwen2-vl-2b", "whisper-tiny")
+# archs the JAX package serves that this package does not run: none
+NOT_PORTED: tuple = ()
 
 ARCH_IDS = tuple(_MODULES)
 
 
 def get_config(arch: str, reduced: bool = False) -> ModelConfig:
-    if arch in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported to repro_torch yet; ported: "
-            f"{sorted(_MODULES)}")
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
     m = importlib.import_module(_MODULES[arch])

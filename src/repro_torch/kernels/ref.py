@@ -93,7 +93,7 @@ def flash_tile_live(N: int, T: int, S: int, g: int, bq: int, bk: int,
     kp = torch.full((N, nk * bk), -1, dtype=torch.long, device=dev)
     kp[:, :S] = k_pos.long()
     kp = kp.reshape(N, 1, nk, bk)
-    ok = kp >= 0
+    ok = (kp >= 0).expand(N, nq, nk, bk)    # every block, masked or not
     if causal:
         ok = ok & (kp <= qmax[:, :, None, None])
     if window > 0:

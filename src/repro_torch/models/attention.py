@@ -22,6 +22,12 @@ hand-written CUDA kernels.  Ring-layer decode (`gqa_decode`) stays on
 materializes the score matrix, `_attend_chunked` loops over KV chunks
 with an online-softmax accumulator.
 
+M-RoPE (qwen2-vl) rotates by three position streams that coincide for
+text, wherever RoPE rotates (`_qkv`).  Cross-attention
+(whisper's decoder) attends over the encoder's frames unmasked: through
+the flash kernel, non-causal, where the forward-only routes run it, and
+through `attend` in training and the one-token decode.
+
 MLA (deepseek-v2's multi-head latent attention) caches a per-token
 latent and one shared rope key.  Its paged decode runs in the absorbed
 form through kernels/ops.paged_attention (one launch per layer for all
@@ -59,9 +65,6 @@ ATTN_CHUNK = 1024
 # ---------------------------------------------------------------------------
 
 def attn_init(gen, lead, cfg: ModelConfig, a: AttnConfig, dtype) -> dict:
-    if a.mrope_sections is not None:
-        raise NotImplementedError(
-            "M-RoPE (qwen2-vl's mrope_sections) is not ported yet")
     d = cfg.d_model
     if a.kind == "mla":
         p = {
@@ -209,8 +212,11 @@ def _qkv(params, x, a: AttnConfig, cfg: ModelConfig, pos, theta):
     v = mm(x, params["w_v"]).reshape(K, B, T, a.n_kv_heads, a.head_dim)
     q, k = _maybe_qknorm(params, q, k, cfg.norm_eps)
     if a.use_rope:
-        q = apply_rope(q, pos, theta)
-        k = apply_rope(k, pos, theta)
+        # M-RoPE's three position streams (temporal, height, width)
+        # coincide for text, as in the JAX package's _positions_for
+        rp = pos if a.mrope_sections is None else pos.expand(3, *pos.shape)
+        q = apply_rope(q, rp, theta, a.mrope_sections)
+        k = apply_rope(k, rp, theta, a.mrope_sections)
     return q, k, v
 
 
@@ -749,3 +755,46 @@ def mla_prefill_paged(params: dict, x: torch.Tensor, cache: dict,
                         slot_ids, FAR)
     return _mla_attend(params, q_c, q_r, lat.view(K, B, S, -1),
                        rop.view(K, B, S, -1), q_pos, k_pos, a)
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (whisper's decoder over the encoder's frames)
+# ---------------------------------------------------------------------------
+
+def cross_attn_init(gen, lead, cfg: ModelConfig, a: AttnConfig,
+                    dtype) -> dict:
+    d = cfg.d_model
+    return {
+        "w_cross_q": dense_init(gen, lead, (d, a.n_heads * a.head_dim),
+                                dtype),
+        "w_k": dense_init(gen, lead, (d, a.n_kv_heads * a.head_dim), dtype),
+        "w_v": dense_init(gen, lead, (d, a.n_kv_heads * a.head_dim), dtype),
+        "w_o": dense_init(gen, lead, (a.n_heads * a.head_dim, d), dtype),
+    }
+
+
+def cross_attn_apply(params: dict, x: torch.Tensor, enc: torch.Tensor,
+                     a: AttnConfig, flash: bool) -> torch.Tensor:
+    """x (K, B, T, d) decoder tokens over enc (K, B, S, d) encoder frames,
+    every query seeing every frame (no mask) -> (K, B, T, d).  The frames
+    are projected through w_k / w_v on every call, as the JAX package
+    does.  flash=True (apply's forward-only route, the encoder's
+    consumers at prefill) goes through kernels/ops.flash_attention,
+    non-causal, T queries over S frames; flash=False (training, and the
+    one-token decode, as the port's contiguous gqa_decode) takes
+    `attend`."""
+    K, B, T, _ = x.shape
+    S = enc.shape[2]
+    q = mm(x, params["w_cross_q"]).reshape(K, B, T, a.n_heads, a.head_dim)
+    k = mm(enc, params["w_k"]).reshape(K, B, S, a.n_kv_heads, a.head_dim)
+    v = mm(enc, params["w_v"]).reshape(K, B, S, a.n_kv_heads, a.head_dim)
+    scale = 1.0 / math.sqrt(a.head_dim)
+    if flash:
+        o = ops.flash_attention(_fold(q), _fold(k), _fold(v), causal=False,
+                                scale=scale)
+    else:
+        o = attend(_fold(q), _fold(k), _fold(v),
+                   torch.arange(T, device=x.device),
+                   torch.arange(S, device=x.device), window=0, causal=False,
+                   scale=scale)
+    return _out(params, o, K, B)

@@ -60,7 +60,7 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# RoPE
+# RoPE (+ M-RoPE) and sinusoidal positions
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -69,18 +69,42 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
                                          device=device) / half))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """Rotate x (..., seq, heads, head_dim) by positions (..., seq),
-    where positions broadcasts against x's leading axes."""
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               sections: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """Rotate x (..., seq, heads, head_dim) by positions (..., seq), where
+    positions broadcasts against x's leading axes.  With `sections`
+    (M-RoPE, qwen2-vl) positions are (3, ..., seq): frequency j of
+    section s rotates by positions[s], the sections splitting the half
+    dim in order."""
     half = x.shape[-1] // 2
     freqs = rope_freqs(x.shape[-1], theta, x.device)
-    angles = positions[..., None].float() * freqs  # (..., seq, half)
+    if sections is None:
+        angles = positions[..., None].float() * freqs  # (..., seq, half)
+    else:
+        ids = [s for s, n in enumerate(sections) for _ in range(n)]
+        pos = positions[torch.tensor(ids, device=positions.device)]
+        angles = pos.movedim(0, -1).float() * freqs
     cos = torch.cos(angles)[..., None, :]          # broadcast over heads
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(n: int, d: int, device=None,
+                         start: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """(n, d) f32 table: sin(p * w_i) at even features, cos at odd ones,
+    w_i = 10000^(-2i/d), for positions p = 0..n-1, or, given `start`
+    (B,) int, positions start[b] + 0..n-1 per row -> (B, n, d)."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)
+    if start is not None:
+        pos = start.float()[:, None] + pos
+    rate = torch.tensor(-math.log(10000.0) / d, dtype=torch.float32)
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32,
+                                 device=device) * rate.to(device))
+    ang = pos[..., None] * div
+    return torch.stack([torch.sin(ang), torch.cos(ang)], -1).flatten(-2)
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,14 @@
 """Transformer LM assembly for serving and training: pattern-driven blocks
 over the member-stacked params.  A block is a pre-norm mixer, attention
-(GQA, ring or paged; or deepseek-v2's MLA, contiguous or paged), Mamba
-or rwkv6's time-mix (models/ssm.py), then a pre-norm FFN: a dense MLP,
-a MoE (models/moe.py) or rwkv6's channel-mix.
+(GQA, ring or paged, M-RoPE for qwen2-vl; or deepseek-v2's MLA,
+contiguous or paged), Mamba or rwkv6's time-mix (models/ssm.py), then,
+in an encoder-decoder (whisper), a pre-norm cross-attention over the
+encoder's frames, then a pre-norm FFN: a dense MLP, a MoE
+(models/moe.py) or rwkv6's channel-mix.
 
 Params keep the JAX package's tree: {"embed", ["head"], "final_norm",
-"segments": [per-segment dict of "slot_<i>" blocks]}, every leaf with a
+"segments": [per-segment dict of "slot_<i>" blocks], and for an
+encoder-decoder "enc_segments" and "enc_norm"}, every leaf with a
 leading member axis K and segment leaves with the segment's `count`
 axis next, (K, count, ...).  The JAX package scans each segment over
 `count`; here it is a Python loop over the count axis, and the K members
@@ -13,10 +16,18 @@ run batched inside every op.
 
 Entry points
   init(cfg, seed, device, members)          -> stacked params
-  apply(params, cfg, tokens, remat)         -> (logits (K,B,T,V), aux (K,))
+  apply(params, cfg, tokens, remat,         -> (logits (K,B,T,V), aux (K,))
+        embeds=, enc_embeds=)
+  encode(params, cfg, enc_embeds)           -> encoder frames (K,B,S,d)
   init_slot_cache(cfg, batch, max_seq, ...) -> slot-addressable cache
   decode_step_slots / decode_step_paged     -> (logits (K,B,1,V), cache)
   prefill_slots / prefill_step_paged        -> (last logits (K,B,V), cache)
+
+`embeds` (B, T, d) or (K, B, T, d) replaces the token embedding (the
+stub frontends' input, qwen2-vl's patches); `enc_embeds` (B, S, d) or
+(K, B, S, d) are whisper's frame embeddings, which `encode` turns into
+the frames every decoder block cross-attends (the slot cache carries
+them as "enc", (K, B, S, d)).
 
 Caches are updated in place (see models/attention.py and
 models/ssm.py); the returned cache dict shares every plane with the one
@@ -37,7 +48,7 @@ from repro_torch.models import moe
 from repro_torch.models import ssm
 from repro_torch.models.layers import (embed_init, embed_lookup, head_init,
                                        lm_logits, mlp_apply, mlp_init,
-                                       rmsnorm)
+                                       rmsnorm, sinusoidal_positions)
 
 
 # (mixer, ffn) pairs of the ported layers
@@ -45,10 +56,11 @@ _PORTED = {("attn", "dense"), ("attn_local", "dense"), ("rwkv", "rwkv_cmix"),
            ("mamba", "dense"), ("mamba", "moe"), ("attn", "moe")}
 
 
+# the encoder's one block, repeated n_enc_layers times
+_ENC_SPEC = LayerSpec("attn", "dense")
+
+
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.enc_dec:
-        raise NotImplementedError("enc-dec models (whisper) are not ported "
-                                  "yet; they come with a later slice")
     for _, specs in cfg.segments():
         for s in specs:
             if (s.mixer, s.ffn) not in _PORTED:
@@ -64,11 +76,36 @@ def _rmsnorm_init(lead, d, device) -> dict:
                                      device=device)}
 
 
+def _block_init(gen, lead, cfg: ModelConfig, spec: LayerSpec, dtype, dev,
+                cross: bool = False) -> dict:
+    p = {"norm_mix": _rmsnorm_init(lead, cfg.d_model, dev)}
+    if spec.mixer == "rwkv":
+        p["rwkv"] = ssm.rwkv_init(gen, lead, cfg, dtype)
+    elif spec.mixer == "mamba":
+        p["mamba"] = ssm.mamba_init(gen, lead, cfg, dtype)
+    else:
+        p["attn"] = attn.attn_init(gen, lead, cfg, cfg.attn, dtype)
+    if cross:
+        p["norm_cross"] = _rmsnorm_init(lead, cfg.d_model, dev)
+        p["cross"] = attn.cross_attn_init(gen, lead, cfg, cfg.attn, dtype)
+    p["norm_ffn"] = _rmsnorm_init(lead, cfg.d_model, dev)
+    if spec.ffn == "rwkv_cmix":
+        p["cmix"] = ssm.cmix_init(gen, lead, cfg, cfg.ffn.d_ff, dtype)
+    elif spec.ffn == "moe":
+        p["moe"] = moe.moe_init(gen, lead, cfg.d_model, cfg.ffn, dtype)
+    else:
+        p["mlp"] = mlp_init(gen, lead, cfg.d_model, cfg.ffn.d_ff,
+                            cfg.ffn.mlp_type, dtype)
+    return p
+
+
 def init(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
          members: int = 1) -> dict:
     """Member-stacked params, torch-seeded: the names, shapes and init
     scales of the JAX package's transformer.init, stacked over `members`
-    (the numbers differ: torch's generator is not jax.random)."""
+    (the numbers differ: torch's generator is not jax.random).  An
+    encoder-decoder's decoder blocks carry "norm_cross" and "cross"; its
+    encoder is one segment of n_enc_layers plain attention blocks."""
     _check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
@@ -80,30 +117,15 @@ def init(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
     if not cfg.tie_embeddings:
         params.update(head_init(gen, K, cfg.vocab_size, cfg.d_model, dtype))
     params["final_norm"] = _rmsnorm_init(K, cfg.d_model, dev)
-    params["segments"] = []
-    for count, specs in cfg.segments():
-        lead = (members, count)
-        seg = {}
-        for i, spec in enumerate(specs):
-            p = {"norm_mix": _rmsnorm_init(lead, cfg.d_model, dev)}
-            if spec.mixer == "rwkv":
-                p["rwkv"] = ssm.rwkv_init(gen, lead, cfg, dtype)
-            elif spec.mixer == "mamba":
-                p["mamba"] = ssm.mamba_init(gen, lead, cfg, dtype)
-            else:
-                p["attn"] = attn.attn_init(gen, lead, cfg, cfg.attn, dtype)
-            p["norm_ffn"] = _rmsnorm_init(lead, cfg.d_model, dev)
-            if spec.ffn == "rwkv_cmix":
-                p["cmix"] = ssm.cmix_init(gen, lead, cfg, cfg.ffn.d_ff,
-                                          dtype)
-            elif spec.ffn == "moe":
-                p["moe"] = moe.moe_init(gen, lead, cfg.d_model, cfg.ffn,
-                                        dtype)
-            else:
-                p["mlp"] = mlp_init(gen, lead, cfg.d_model, cfg.ffn.d_ff,
-                                    cfg.ffn.mlp_type, dtype)
-            seg[f"slot_{i}"] = p
-        params["segments"].append(seg)
+    params["segments"] = [
+        {f"slot_{i}": _block_init(gen, (members, count), cfg, spec, dtype,
+                                  dev, cross=cfg.enc_dec)
+         for i, spec in enumerate(specs)}
+        for count, specs in cfg.segments()]
+    if cfg.enc_dec:
+        params["enc_segments"] = [{"slot_0": _block_init(
+            gen, (members, cfg.n_enc_layers), cfg, _ENC_SPEC, dtype, dev)}]
+        params["enc_norm"] = _rmsnorm_init(K, cfg.d_model, dev)
     return params
 
 
@@ -156,9 +178,11 @@ def _moe(p, cfg: ModelConfig, h: torch.Tensor, pool_rows: Optional[int],
 
 def _block(p, spec: LayerSpec, cfg: ModelConfig, x: torch.Tensor,
            pos: torch.Tensor, train: bool, pool_rows: Optional[int],
-           carry: Optional[dict] = None, key=None):
+           carry: Optional[dict] = None, key=None,
+           enc: Optional[torch.Tensor] = None, causal: bool = True):
     """One block of the full-sequence forward -> (x, aux of its MoE, or
-    0.0)."""
+    0.0).  causal=False is the encoder's full attention; enc (K, B, S,
+    d) the frames a decoder block with "cross" attends."""
     T = x.shape[2]
     h_in = rmsnorm(p["norm_mix"], x, cfg.norm_eps)
     if spec.mixer == "rwkv":
@@ -171,7 +195,11 @@ def _block(p, spec: LayerSpec, cfg: ModelConfig, x: torch.Tensor,
     else:
         window, theta = _mixer_window(cfg, spec)
         x = x + attn.gqa_apply(p["attn"], h_in, cfg.attn, cfg, pos, window,
-                               theta, train=train)
+                               theta, causal=causal, train=train)
+    if "cross" in p:
+        x = x + attn.cross_attn_apply(
+            p["cross"], rmsnorm(p["norm_cross"], x, cfg.norm_eps), enc,
+            cfg.attn, flash=not train)
     h_f = rmsnorm(p["norm_ffn"], x, cfg.norm_eps)
     aux = 0.0
     if spec.ffn == "rwkv_cmix":
@@ -185,13 +213,52 @@ def _block(p, spec: LayerSpec, cfg: ModelConfig, x: torch.Tensor,
     return x, aux
 
 
-def apply(params, cfg: ModelConfig, tokens: torch.Tensor,
+def _member_input(x: torch.Tensor, K: int) -> torch.Tensor:
+    """(B, T, d) shared by all members, or (K, B, T, d) -> (K, B, T, d)."""
+    return x if x.dim() == 4 else x.unsqueeze(0).expand(K, *x.shape)
+
+
+def _run_block(p, spec, cfg, x, pos, remat: bool, pool_rows, carry, key,
+               enc=None, causal: bool = True):
+    if remat:
+        return checkpoint(_block, p, spec, cfg, x, pos, True, pool_rows,
+                          enc=enc, causal=causal, use_reentrant=False,
+                          preserve_rng_state=False)
+    return _block(p, spec, cfg, x, pos, False, pool_rows, carry, key,
+                  enc=enc, causal=causal)
+
+
+def encode(params, cfg: ModelConfig, enc_embeds: torch.Tensor,
+           remat: bool = False) -> torch.Tensor:
+    """Whisper's encoder over frame embeddings (B, S, d) shared by all
+    members or (K, B, S, d) (the stub of the mel + conv frontend) ->
+    frames (K, B, S, d): the sinusoid added, n_enc_layers blocks of full
+    (non-causal) attention, the final norm.  remat=False runs attention
+    through the flash kernel (non-causal, T = S), remat=True takes the
+    training route, as apply does."""
+    x = _member_input(enc_embeds, params["embed"].shape[0])
+    B, S = x.shape[1:3]
+    x = x + sinusoidal_positions(S, cfg.d_model, x.device).to(x.dtype)
+    pos = torch.arange(S, device=x.device).expand(B, S)
+    seg = params["enc_segments"][0]["slot_0"]
+    for c in range(cfg.n_enc_layers):
+        x, _ = _run_block(_layer(seg, c), _ENC_SPEC, cfg, x, pos, remat,
+                          None, None, None, causal=False)
+    return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def apply(params, cfg: ModelConfig, tokens: Optional[torch.Tensor] = None,
           remat: bool = False, pool_rows: Optional[int] = None,
-          carry: Optional[dict] = None):
+          carry: Optional[dict] = None,
+          embeds: Optional[torch.Tensor] = None,
+          enc_embeds: Optional[torch.Tensor] = None):
     """tokens (B, T) shared by all members, or (K, B, T) with one batch
-    per member -> (logits (K, B, T, V), aux): aux is the MoE layers'
+    per member, or embeds (B, T, d) / (K, B, T, d) in their place ->
+    (logits (K, B, T, V), aux): aux is the MoE layers'
     summed load-balance loss per member, (K,), or 0.0 for a model
-    without MoE, as the JAX package's apply returns it.  A MoE layer
+    without MoE, as the JAX package's apply returns it.  An
+    encoder-decoder adds the sinusoid to its input (no RoPE) and
+    cross-attends encode(enc_embeds) in every block.  A MoE layer
     routes each run of pool_rows rows as one token pool, with one
     capacity (None: all B rows, as one call of the JAX package's apply
     sees them), so that a call over several batches routes each as the
@@ -209,22 +276,21 @@ def apply(params, cfg: ModelConfig, tokens: torch.Tensor,
     attention through attention.attend and the recurrences through their
     chunked plain forms (models/ssm.py)."""
     _check_supported(cfg)
-    x = embed_lookup(params, tokens, cfg)
-    B, T = tokens.shape[-2:]
+    x = (embed_lookup(params, tokens, cfg) if embeds is None
+         else _member_input(embeds, params["embed"].shape[0]))
+    B, T = x.shape[1:3]
+    if cfg.enc_dec and not cfg.attn.use_rope:
+        x = x + sinusoidal_positions(T, cfg.d_model, x.device).to(x.dtype)
+    enc = encode(params, cfg, enc_embeds, remat) if cfg.enc_dec else None
     pos = torch.arange(T, device=x.device).expand(B, T)
     aux = 0.0
     for si, (seg, (count, specs)) in enumerate(zip(params["segments"],
                                                    cfg.segments())):
         for c in range(count):
             for i, spec in enumerate(specs):
-                p = _layer(seg[f"slot_{i}"], c)
-                if remat:
-                    x, a = checkpoint(_block, p, spec, cfg, x, pos, True,
-                                      pool_rows, use_reentrant=False,
-                                      preserve_rng_state=False)
-                else:
-                    x, a = _block(p, spec, cfg, x, pos, False, pool_rows,
-                                  carry, (si, c, i))
+                x, a = _run_block(_layer(seg[f"slot_{i}"], c), spec, cfg, x,
+                                  pos, remat, pool_rows, carry, (si, c, i),
+                                  enc=enc)
                 aux = aux + a
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return lm_logits(params, x, cfg), aux
@@ -265,6 +331,9 @@ def init_slot_cache(cfg: ModelConfig, batch: int, max_seq: int,
       planes         (K, count, B, d_inner, d_state) f32; rwkv "shift"
                      (K, count, B, 1, d), "wkv" (K, count, B, H, dh, dh)
                      f32; channel-mix "cmix_shift" (K, count, B, 1, d)
+      enc            (K, B, enc_max_frames, d) zeros: an encoder-
+                     decoder's frames, which the caller fills (the
+                     engine with its encoder stub)
 
     With page_size > 0 the full-attention layers (layer_pages) get the
     shared paged pool; the other layers keep per-slot planes (a model
@@ -302,6 +371,9 @@ def init_slot_cache(cfg: ModelConfig, batch: int, max_seq: int,
     cache = {"idx": torch.zeros((members, batch), dtype=torch.int32,
                                 device=dev),
              "segments": segments}
+    if cfg.enc_dec:
+        cache["enc"] = torch.zeros(members, batch, cfg.enc_max_frames,
+                                   cfg.d_model, dtype=dtype, device=dev)
     if page_size > 0:
         P = -(-max_seq // page_size)
         cache["page_table"] = torch.full((members, batch, P), n_pages,
@@ -391,10 +463,35 @@ def _ffn_step(p, spec: LayerSpec, cfg: ModelConfig, lc: dict,
     return h
 
 
+def _sinusoid_at(cfg: ModelConfig, x: torch.Tensor,
+                 idx: torch.Tensor) -> torch.Tensor:
+    """x (K, B, C, d) at positions idx[b]..idx[b]+C-1 plus the sinusoid,
+    for an encoder-decoder without RoPE (else x as is).  Each row's
+    start clamps to [0, max_seq - C], where the JAX package's
+    dynamic_slice of its (max_seq, d) table puts it."""
+    if not cfg.enc_dec or cfg.attn.use_rope:
+        return x
+    C = x.shape[2]
+    start = idx.long().clamp(0, max(cfg.max_seq - C, 0))
+    return x + sinusoidal_positions(C, cfg.d_model, x.device,
+                                    start).to(x.dtype)
+
+
+def _cross(p, cfg: ModelConfig, cache: dict, x: torch.Tensor,
+           flash: bool) -> torch.Tensor:
+    """x plus the block's cross-attention over cache["enc"] (none
+    without "cross")."""
+    if "cross" not in p:
+        return x
+    return x + attn.cross_attn_apply(
+        p["cross"], rmsnorm(p["norm_cross"], x, cfg.norm_eps), cache["enc"],
+        cfg.attn, flash)
+
+
 def _decode(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor):
     pos = cache["idx"][0]
     table = cache.get("page_table")
-    x = embed_lookup(params, tokens, cfg)              # (K, B, 1, d)
+    x = _sinusoid_at(cfg, embed_lookup(params, tokens, cfg), pos)
     for seg, seg_cache, (count, specs) in zip(
             params["segments"], cache["segments"], cfg.segments()):
         for c in range(count):
@@ -421,7 +518,7 @@ def _decode(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor):
                 else:
                     h = attn.gqa_decode(p["attn"], h_in, lc, pos, cfg.attn,
                                         cfg, window, theta)
-                x = x + h
+                x = _cross(p, cfg, cache, x + h, flash=False)
                 # the JAX package's paged step routes the batch as one
                 # pool, its contiguous step (a row vmap) each row alone
                 x = x + _ffn_step(p, spec, cfg, lc,
@@ -458,7 +555,7 @@ def _prefill(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
              n_tok: torch.Tensor):
     idx = cache["idx"][0]
     table = cache.get("page_table")
-    x = embed_lookup(params, tokens, cfg)              # (K, B, C, d)
+    x = _sinusoid_at(cfg, embed_lookup(params, tokens, cfg), idx)
     for seg, seg_cache, (count, specs) in zip(
             params["segments"], cache["segments"], cfg.segments()):
         for c in range(count):
@@ -486,7 +583,7 @@ def _prefill(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
                 else:
                     h = attn.gqa_prefill(p["attn"], h_in, lc, idx, n_tok,
                                          cfg.attn, cfg, window, theta)
-                x = x + h
+                x = _cross(p, cfg, cache, x + h, flash=True)
                 x = x + _ffn_step(p, spec, cfg, lc,
                                   rmsnorm(p["norm_ffn"], x, cfg.norm_eps),
                                   n_tok)

@@ -28,7 +28,9 @@ L2 = 1e-4  # the paper's weight l2 on conv kernels (Section 5.1)
 
 def make_logits_fn(cfg: ModelConfig) -> Callable:
     """(member-stacked params, batch {images (K, B, H, W, C)} or {tokens
-    (K, B, T)}) -> logits (K, B, [T,] V), forward only (relabel, eval):
+    (K, B, T)}, or embeds (K, B, T, d) in the tokens' place, and
+    enc_embeds (K, B, S, d) for an encoder-decoder) -> logits (K, B,
+    [T,] V), forward only (relabel, eval):
     the transformer's attention and recurrences go through the flash,
     wkv6 and ssm_scan kernels.  The transformer's also takes pool_rows,
     the rows of one MoE token pool, and carry, for a call over a piece
@@ -38,8 +40,10 @@ def make_logits_fn(cfg: ModelConfig) -> Callable:
         return lambda params, batch: cnn.nin_apply(params, batch["images"])
     from repro_torch.models import transformer
     return lambda params, batch, pool_rows=None, carry=None: \
-        transformer.apply(params, cfg, batch["tokens"], pool_rows=pool_rows,
-                          carry=carry)[0]
+        transformer.apply(params, cfg, batch.get("tokens"),
+                          pool_rows=pool_rows, carry=carry,
+                          embeds=batch.get("embeds"),
+                          enc_embeds=batch.get("enc_embeds"))[0]
 
 
 def routes_by_pool(cfg: ModelConfig) -> bool:
@@ -84,8 +88,10 @@ def make_member_loss(cfg: ModelConfig) -> Callable:
     from repro_torch.models import transformer
 
     def lm_loss(params, batch, pseudo, lam):
-        logits, aux = transformer.apply(params, cfg, batch["tokens"],
-                                        remat=True)
+        logits, aux = transformer.apply(params, cfg, batch.get("tokens"),
+                                        remat=True,
+                                        embeds=batch.get("embeds"),
+                                        enc_embeds=batch.get("enc_embeds"))
         K, V = logits.shape[0], logits.shape[-1]
         ce = distill.mixed_ce(logits.reshape(-1, V),
                               batch["labels"].reshape(-1),

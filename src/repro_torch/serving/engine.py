@@ -23,6 +23,11 @@ and starts its prefill at the hit.  serving/scheduler.py drives the
 engine through update_slots / prefill / step and the page accounting
 below.
 
+An encoder-decoder (whisper) serves from the contiguous pool only, as
+in the JAX package: each member's encoder runs once per params install
+over stub frame embeddings, and every prefill and decode cross-attends
+the frames it left in the pool.
+
 The pool and the slot state are updated in place where the JAX package
 donates buffers to its jitted programs.  The greedy decode loop never
 waits for the device: sampling, output bookkeeping and the EOS/length
@@ -109,9 +114,6 @@ class EnsembleEngine:
             raise NotImplementedError(
                 f"kv_dtype={kv_dtype!r}: quantized KV pages come with the "
                 f"quantized-KV slice (the kernel already takes them)")
-        if cfg.enc_dec:
-            raise NotImplementedError(
-                "enc-dec serving comes with the whisper slice")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = _to(stacked_params, self.device)
@@ -143,6 +145,10 @@ class EnsembleEngine:
         self.page_size = int(page_size)
         self.prefix: Optional[prefix_mod.PrefixCache] = None
         if self.paged:
+            if cfg.enc_dec:
+                raise ValueError(
+                    "paged serving does not support enc-dec archs (the "
+                    "stub encoder context is slot-contiguous)")
             if self.page_size <= 0:
                 raise ValueError(f"page_size must be > 0, got {page_size}")
             self.pages_per_slot = -(-self.max_seq // self.page_size)
@@ -182,6 +188,8 @@ class EnsembleEngine:
             cfg, self.n_members, n_slots, self.max_seq,
             page_size=self.page_size if self.paged else 0,
             n_pages=self.n_pages if self.paged else 0, device=self.device)
+        if cfg.enc_dec:
+            self.cache["enc"] = self._encode_stub(n_slots)
         self.state = self._blank_state()
         # per-slot sampling params, mirrored on the host: greedy rows
         # never make the step wait for the device
@@ -203,6 +211,18 @@ class EnsembleEngine:
                          active=zb(B), done=zb(B), out=zi(B, G))
 
     # -- device work ---------------------------------------------------------
+
+    def _encode_stub(self, batch: int) -> torch.Tensor:
+        """Every member's encoder over zero frame embeddings (batch,
+        enc_max_frames, d_model), the stub of the audio frontend, as the
+        JAX engine's: -> (K, batch, S, d).  Computed once per params
+        install; decode and prefill only read it."""
+        enc_in = torch.zeros(batch, self.cfg.enc_max_frames,
+                             self.cfg.d_model,
+                             dtype=self.params["embed"].dtype,
+                             device=self.device)
+        with torch.no_grad():
+            return tf.encode(self.params, self.cfg, enc_in)
 
     def _member_logits(self, tok: torch.Tensor):
         """All K members score the step in one pass -> ((K, B, V), cache)."""
@@ -669,6 +689,8 @@ class EnsembleEngine:
         B, T = tokens.shape
         cache = kv_cache.init_pool(self.cfg, self.n_members, B, T,
                                    device=self.device)
+        if self.cfg.enc_dec:
+            cache["enc"] = self._encode_stub(B)
         m_tot = torch.zeros(self.n_members, device=self.device)
         e_tot = torch.zeros((), device=self.device)
         for t in range(T):
@@ -690,8 +712,10 @@ class EnsembleEngine:
         keeps its identity and storage (what a captured step needs).
         The pool and slot state are not touched: in-flight requests go
         on with the new weights (drain first where a request must see
-        one model).  With the prefix cache on, the trie is flushed:
-        cached pages hold the old model's KV."""
+        one model).  An encoder-decoder's frames are recomputed from the
+        new weights, into the pool's "enc" in place.  With the prefix
+        cache on, the trie is flushed: cached pages hold the old model's
+        KV."""
         new = list(_flatten(new_stacked_params))
         want = [path for path, _, _ in self._param_spec]
         if [path for path, _ in new] != want:
@@ -707,6 +731,8 @@ class EnsembleEngine:
         with torch.no_grad():
             for (_, live), (_, x) in zip(_flatten(self.params), new):
                 live.copy_(x)
+            if self.cfg.enc_dec:
+                self.cache["enc"].copy_(self._encode_stub(self.n_slots))
         if self.prefix is not None:
             self.allocator.flush_cache()
         self.swaps_done += 1

@@ -9,6 +9,8 @@ One pool holds the caches of all K members for all B batch slots:
                                        channel-mix's cmix_shift)
   paged leaves   (K, count, n_pages, page_size, ...)
   page_table     (K, B, ceil(max_seq/page_size))  logical -> physical
+  enc            (K, B, S, d)          an encoder-decoder's frames, set
+                                       by the engine, never reset
 
 The pool is allocated once and recycled: finishing a request frees
 nothing, `reset_slots` rewinds the slot's position and zeroes its
@@ -80,7 +82,8 @@ def reset_slots(pool: dict, mask: torch.Tensor,
     """Recycle slots where mask (B,) is True, across all members: idx
     rewinds to `start` (default 0).  Positional and paged planes are left
     as they are (stale entries stay masked); any other per-slot plane is
-    zeroed in place for the masked rows.  Other rows are untouched."""
+    zeroed in place for the masked rows.  Other rows are untouched, and
+    "enc" (the encoder's frames: not decode state) survives."""
     tgt = torch.zeros_like(pool["idx"]) if start is None \
         else torch.broadcast_to(start.to(pool["idx"].dtype), pool["idx"].shape)
     pool["idx"] = torch.where(mask[None, :], tgt, pool["idx"])
@@ -98,8 +101,9 @@ def reset_slots(pool: dict, mask: torch.Tensor,
 def slot_row(pool: dict, b: int) -> dict:
     """Views of one slot's caches (all members): the B axis narrows to
     length 1 at slot b.  Paged planes have no slot axis and pass through
-    whole; the slot's page-table row rides along.  Because these are
-    views, a prefill on the row writes straight into the pool."""
+    whole; the slot's page-table row and encoder frames ride along.
+    Because these are views, a prefill on the row writes straight into
+    the pool."""
     def pick(name, x):
         return x if name.endswith("_pages") else x.narrow(2, b, 1)
 
@@ -107,13 +111,16 @@ def slot_row(pool: dict, b: int) -> dict:
            "segments": _map(pool["segments"], pick)}
     if "page_table" in pool:
         out["page_table"] = pool["page_table"].narrow(1, b, 1)
+    if "enc" in pool:
+        out["enc"] = pool["enc"].narrow(1, b, 1)
     return out
 
 
 def write_slot_row(pool: dict, row: dict, b: int) -> dict:
     """Insert an advanced slot row (from slot_row) back at slot b.  The
     planes were written through slot_row's views already, so only the
-    row's position is copied."""
+    row's position is copied ("enc" is computed once and never
+    advanced)."""
     pool["idx"][:, b:b + 1] = row["idx"]
     return pool
 

@@ -110,6 +110,26 @@ def test_every_earlier_shape_keeps_one_group(shape):
     assert ppt == old
 
 
+# qwen2-vl-2b's decode: 12 query heads over 2 kv heads at dh 128, P 34
+# (544 tokens at page 16), bf16 and f32
+QWEN2_VL = [(12, 2, 128, 128, 0, 16, 34, 2, 2),
+            (12, 2, 128, 128, 0, 16, 34, 4, 4)]
+
+
+@pytest.mark.parametrize("shape", QWEN2_VL)
+def test_qwen2_vl_shape_keeps_one_group(shape):
+    """A group of g = 6 (no power of two) fits one block whole: gh = 6,
+    at the most pages a stage, two blocks or more an SM; the split rule
+    then fills the SMs from 16 rows x 2 kv heads."""
+    H, Hkv, dk, dv, dr, page, P_, kv, qs = shape
+    gh, ppt, ns = pa.launch_plan(16, H, Hkv, dk, dv, dr, page, P_, kv, qs,
+                                 False, 132)
+    assert gh == H // Hkv == 6 and ppt == pa.TILE_TOKENS // page
+    smem = pa.smem_bytes(gh, dk, dv, dr, page, P_, ppt, kv, qs)
+    assert smem <= pa.SMEM_MAX and pa.blocks_per_sm(smem) >= pa.WAVES
+    assert ns == pa.n_splits(16, Hkv, P_, 132) and 16 * Hkv * ns >= 132
+
+
 @pytest.mark.parametrize("size", [4, 2])
 @pytest.mark.parametrize("share", [True, False])
 def test_mla_shape_takes_several_groups(size, share):
@@ -357,10 +377,11 @@ def scenario(name):
     return N, T, S, q_pos, k_pos, window
 
 
-def assert_keeps_valid_pairs(N, T, S, g, bq, bk, q_pos, k_pos, window):
-    live = ref.flash_tile_live(N, T, S, g, bq, bk, True, window, q_pos,
+def assert_keeps_valid_pairs(N, T, S, g, bq, bk, q_pos, k_pos, window,
+                             causal=True):
+    live = ref.flash_tile_live(N, T, S, g, bq, bk, causal, window, q_pos,
                                k_pos)
-    ok = ref.attention_mask(N, T, S, True, window, q_pos, k_pos)
+    ok = ref.attention_mask(N, T, S, causal, window, q_pos, k_pos)
     rows = torch.arange(g * T)
     pairs = ok[:, rows % T]                           # (N, g*T, S)
     seen = live[:, rows // bq][:, :, torch.arange(S) // bk]
@@ -418,3 +439,32 @@ def test_tile_skip_on_random_positions():
         assert_keeps_valid_pairs(N, T, S, g, bq, bk, q_pos, k_pos, window)
 
     check()
+
+
+@pytest.mark.parametrize("g", [1, 6])
+@pytest.mark.parametrize("bk", [32, 64])
+@pytest.mark.parametrize("T,S", [(1500, 1500), (128, 1500), (1, 1500),
+                                 (37, 70)])
+def test_non_causal_reads_every_tile(T, S, bk, g):
+    """Whisper's encoder (T = S = 1500: no multiple of the 64-row query
+    tile nor of a key tile) and its cross-attention (T decoder tokens
+    over S frames): with no mask, no tile is skipped, the ragged last
+    key tile included, and every pair stays valid."""
+    live = assert_keeps_valid_pairs(1, T, S, g, 64, bk, None, None, 0,
+                                    causal=False)
+    assert live.shape == (1, -(-g * T // 64), -(-S // bk)) and live.all()
+
+
+@pytest.mark.parametrize("T,S", [(150, 150), (37, 130)])
+def test_non_causal_attention_with_tiles_is_unchanged(T, S):
+    """ref.attention_tiles at causal=False (T != S, ragged tiles) equals
+    ref.attention: every query sees every key."""
+    rng = np.random.default_rng(1)
+    H, Hkv, dh = 6, 1, 16
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((2, T, H, dh), (2, S, Hkv, dh), (2, S, Hkv, dh)))
+    want = ref.attention(q, k, v, causal=False)
+    assert ref.attention_mask(2, T, S, False).all()
+    for bk in (32, 64):
+        got = ref.attention_tiles(q, k, v, 64, bk, causal=False)
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)

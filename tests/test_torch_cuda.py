@@ -125,6 +125,25 @@ def test_kernel_at_jamba_attention_shape(cuda, dtype):
                                rtol=TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_at_qwen2_vl_shape(cuda, dtype):
+    """H 12 over Hkv 2 (g = 6, one head group of six) with dh 128:
+    qwen2-vl-2b's decode at full width, 16 rows."""
+    c = make_case("f32", cuda, seed=5, B=16, H=12, page=16, P=34)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(6)
+    n_pages = c["k_pages"].shape[0]
+    c["q"] = torch.randn(16, 12, 128, generator=g, device=cuda).to(dtype)
+    c["k_pages"], c["v_pages"] = (
+        torch.randn(n_pages, 16, 2, 128, generator=g, device=cuda).to(dtype)
+        for _ in range(2))
+    got = pa.paged_attention(**c)
+    torch.cuda.synchronize()
+    want = ref.paged_attention(**c)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
 def _mla_case(dev, dtype, seed=11, B=16):
     """deepseek-v2's absorbed decode: 128 heads over one latent "kv
     head" (r 512, rope keys 64 as k_extra), lens 300-544, page 16, the
@@ -311,6 +330,12 @@ FLASH_CASES = {
     "prefill_ring": (2, 24, 40, 4, 1, True, 16, True),
     "prefill_paged": (3, 16, 80, 2, 2, True, 0, True),
     "prefill_jamba_gqa": (2, 24, 72, 32, 8, True, 0, True),  # g = 4
+    # whisper-tiny's encoder (T = S = 1500, ragged) and cross-attention
+    # (a 128-token chunk over 1500 frames), no mask; qwen2-vl-2b's
+    # prefill chunk, g = 6
+    "whisper_encoder": (2, 1500, 1500, 6, 6, False, 0, False),
+    "whisper_cross_chunk": (2, 128, 1500, 6, 6, False, 0, False),
+    "prefill_qwen2_vl_g6": (2, 128, 256, 12, 2, True, 0, True),
 }
 
 
@@ -461,6 +486,27 @@ def test_engine_on_card_matches_cpu(cuda):
     for dev in (cuda, "cpu"):
         eng = EnsembleEngine(cfg, params, n_slots=3, max_prompt=16,
                              max_out=12, paged=True, page_size=4,
+                             device=dev)
+        outs.append(eng.generate(prompts, 10))
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("arch,paged", [("whisper-tiny", False),
+                                        ("qwen2-vl-2b", True)])
+def test_encoder_decoder_and_mrope_engines_on_card_match_cpu(cuda, arch,
+                                                            paged):
+    """Reduced whisper-tiny (contiguous: the encoder and cross-attention
+    through the flash kernel, non-causal) and qwen2-vl-2b (paged,
+    M-RoPE, g = 2) give the CPU's greedy tokens."""
+    cfg = registry.get_config(arch, reduced=True).with_(dtype="float32")
+    params = tf.init(cfg, seed=0, device="cpu", members=2)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (3, 11, 16)]
+    outs = []
+    for dev in (cuda, "cpu"):
+        eng = EnsembleEngine(cfg, params, n_slots=3, max_prompt=16,
+                             max_out=12, paged=paged, page_size=4,
                              device=dev)
         outs.append(eng.generate(prompts, 10))
     for a, b in zip(*outs):

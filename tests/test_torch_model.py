@@ -5,8 +5,8 @@ numpy tokens go through both packages.  Logits must agree to
 atol=rtol=1e-4: seven layers of f32 matmuls summed in another order.
 Both cache layouts are covered: ring + paged (max_seq > local_window:
 the local layers keep per-slot rings, the global layer pages) and all
-paged (local_window >= max_seq).  Also: every ported config equals the
-JAX package's, the unported ones are refused, and reduced starcoder2-7b,
+paged (local_window >= max_seq).  Also: every config equals the JAX
+package's, the two registries list the same archs, and reduced starcoder2-7b,
 llama3-405b and arctic-480b give repro's logits and greedy tokens.
 """
 
@@ -46,7 +46,8 @@ def close(got: torch.Tensor, want, tol=TOL) -> None:
 
 @pytest.mark.parametrize("arch", [
     "gemma3-1b", "deepseek-7b", "rwkv6-7b", "jamba-v0.1-52b",
-    "deepseek-v2-236b", "starcoder2-7b", "llama3-405b", "arctic-480b"])
+    "deepseek-v2-236b", "starcoder2-7b", "llama3-405b", "arctic-480b",
+    "qwen2-vl-2b", "whisper-tiny"])
 def test_configs_match_jax_package(arch):
     for reduced in (False, True):
         j = jreg.get_config(arch, reduced=reduced)
@@ -57,9 +58,17 @@ def test_configs_match_jax_package(arch):
 
 @pytest.mark.parametrize("arch", ["qwen2-vl-2b", "whisper-tiny"])
 def test_unported_configs_are_refused(arch):
-    assert arch in treg.NOT_PORTED and arch not in treg.ARCH_IDS
-    with pytest.raises(NotImplementedError, match="not ported"):
-        treg.get_config(arch)
+    """The last two archs the port refused are served now: nothing is
+    left unported, and only an id neither registry knows is refused."""
+    assert treg.NOT_PORTED == () and arch in treg.ARCH_IDS
+    assert treg.get_config(arch).name == arch
+    with pytest.raises(KeyError, match="unknown arch"):
+        treg.get_config(arch + "-unknown")
+
+
+def test_arch_ids_match_jax_registry():
+    """Every arch of the JAX package's registry runs on the port."""
+    assert set(treg.ARCH_IDS) == set(jreg.ARCH_IDS) | {"paper_nin"}
 
 
 @pytest.mark.parametrize("arch", ["starcoder2-7b", "llama3-405b",

@@ -194,17 +194,26 @@ def test_torch_init_has_the_jax_tree(models):
 
 @pytest.mark.parametrize("layer", ["mrope", "enc_dec"])
 def test_jamba_layers_are_still_refused(models, layer):
-    """What the port still refuses, at rwkv's reduced widths: M-RoPE
-    attention (qwen2-vl-2b's mrope_sections, which attn_init refuses
-    rather than rotate without its sections) and an encoder-decoder
-    (whisper-tiny's)."""
+    """The two layers the port refused until qwen2-vl-2b and whisper-tiny
+    were ported, at rwkv's reduced widths, now build: M-RoPE attention,
+    and an encoder-decoder (an encoder segment, and a cross-attention in
+    every decoder block).  A (mixer, ffn) pair no config uses, rwkv's
+    time-mix before a MoE, is still refused."""
     cfg = models[1]
     if layer == "mrope":
         cfg = cfg.with_(attn=AttnConfig(kind="gqa", n_heads=4, n_kv_heads=4,
                                         head_dim=32,
                                         mrope_sections=(4, 6, 6)),
                         pattern=(LayerSpec("attn", "dense"),))
+        p = ttf.init(cfg, device="cpu")
+        tok = torch.arange(6).reshape(1, 6)
+        assert ttf.apply(p, cfg, tok)[0].shape == (1, 1, 6, cfg.vocab_size)
     else:
-        cfg = cfg.with_(enc_dec=True)
+        cfg = cfg.with_(enc_dec=True, n_enc_layers=1)
+        p = ttf.init(cfg, device="cpu")
+        assert {"norm_cross", "cross"} <= set(p["segments"][0]["slot_0"])
+        assert p["enc_segments"][0]["slot_0"]["attn"]["w_q"].shape[:2] \
+            == (1, 1)
     with pytest.raises(NotImplementedError, match="not ported"):
-        ttf.init(cfg, device="cpu")
+        ttf.init(cfg.with_(pattern=(LayerSpec("rwkv", "moe"),)),
+                 device="cpu")
