@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, one JSON line each, in the order 0, 1, 7, 10, 11, 2, 8, 9, 12,
-16, 17, 18, 13, 3, 4, 5, 6, 14, 15:
+16, 17, 18, 13, 19, 20, 3, 4, 5, 6, 14, 15:
   0  the card's name and power limit; build every CUDA kernel from
      src/repro_torch/kernels/csrc (one nvcc per source, all at once);
      every kernel function's registers and spills (ptxas) and each
@@ -14,7 +14,13 @@ Phases, one JSON line each, in the order 0, 1, 7, 10, 11, 2, 8, 9, 12,
      takes, deepseek-7b's, jamba's and qwen2-vl-2b's (12 heads over 2 kv
      heads, g = 6) in bf16, deepseek-v2's absorbed
      MLA decode in bf16 and f32: 128 heads over one latent "kv head", r
-     512 + rope 64 as k_extra, the latent plane as keys and values), with
+     512 + rope 64 as k_extra, the latent plane as keys and values), bf16
+     queries over int8 and fp8 pages with their scales at gemma3-1b's and
+     deepseek-7b's shapes and over an int8 latent at the MLA shape (their
+     library call: SDPA over K/V gathered and dequantized beforehand;
+     every quantized row's pages are attention.kv_quantize's of O(1)
+     values, and the row fails where zeros, or the plain version without
+     k_scale or without v_scale, would pass its tolerance), with
      its time (cold L2), the plain version's, one library call's, the
      bound, the query heads a block holds and the number of blocks each
      row's pages are split over;
@@ -26,7 +32,9 @@ Phases, one JSON line each, in the order 0, 1, 7, 10, 11, 2, 8, 9, 12,
      gemma3-1b's heads, window 0 and 512), whisper-tiny's encoder (no
      mask, 16 rows, T = S = 1500: ragged tiles), its prefill chunk's
      cross-attention (no mask, 128 queries over 1500 frames) and
-     self-attention, and qwen2-vl-2b's prefill chunk (g = 6), beside one
+     self-attention, qwen2-vl-2b's prefill chunk (g = 6), and speculative
+     verify's pass (16 rows of 5 queries at per-row positions 300-512
+     over 576 keys, f32 and bf16), beside one
      scaled_dot_product_attention call with the same boolean mask, and
      the share of key tiles the kernel skips (its predicate's twin,
      kernels/ref.flash_tile_live);
@@ -47,7 +55,8 @@ Phases, one JSON line each, in the order 0, 1, 7, 10, 11, 2, 8, 9, 12,
      call computes a first-order recurrence with per-step coefficients,
      so it has no library time either;
   2  the serving path at full width: gemma3-1b (bf16, 26 layers), K=4
-     members, paged KV, 4 requests of 300-512 prompt tokens served
+     members, paged KV over bf16 pages, 4 requests of 300-512 prompt
+     tokens served
      through EnsembleEngine.generate for 32 new tokens; both kernels'
      launch counts must equal the formulas printed (paged attention per
      decode step, flash attention per prefill call); prefill's device
@@ -97,6 +106,25 @@ Phases, one JSON line each, in the order 0, 1, 7, 10, 11, 2, 8, 9, 12,
      attention 26 times per prefill call; tok/s, TTFT and latency
      percentiles, tick phases, and decode over shared pages (ms per
      step, idle share, both kernels' time per launch in situ);
+ 19  quantized KV pages at full width: gemma3-1b as phase 2 over int8
+     and fp8 pages (phase 2 itself serves over bf16 pages, the baseline):
+     paged launches as phase 2's formula, no NaN among the fused
+     log-probs (phase 2 holds both checks too); decode ms a
+     step, busy ms, idle share, the paged kernel's in-situ ms a launch,
+     page bytes and bytes a token, and the int8 / fp8 tokens' agreement
+     with the bf16 pages' (printed only);
+ 20  speculative decoding at full width: gemma3-1b in f32, K = 4,
+     paged, phase 2's requests, gamma 4, with three drafts: member 0 as
+     a K = 1 stack saved and restored through checkpoint/store.py, member
+     0 with seeded noise on its weights (it must reject drafts and accept
+     some chunks in part: rollback runs) and member 0's first 2 layers;
+     each run's tokens equal the plain engine's on every step whose fused
+     top-2 margin clears 2e-5; flash launches once per attention layer a
+     speculative iteration (and per layer of each prefill call, the
+     draft's and the members'), the paged kernel never; acceptance,
+     emitted lengths, tokens an iteration, generate's seconds in prefill
+     calls and the rest for each run and the plain engine, and for member
+     0's run host and busy ms an iteration, idle share, peak memory;
   3  the card against the CPU end to end on reduced gemma3-1b,
      deepseek-7b, rwkv6-7b, jamba-v0.1-52b, deepseek-v2-236b, whisper-tiny
      (contiguous) and qwen2-vl-2b at f32: identical greedy tokens and
@@ -105,7 +133,9 @@ Phases, one JSON line each, in the order 0, 1, 7, 10, 11, 2, 8, 9, 12,
      deepseek-v2-236b and qwen2-vl-2b, off with a pool that preempts for
      rwkv6-7b, jamba and qwen2-vl-2b, the contiguous pool for
      whisper-tiny), and engine.score agrees within 1e-4 and keeps the
-     Jensen bound;
+     Jensen bound; reduced gemma3-1b over int8 pages and with speculative
+     decoding (gamma 3) gives identical tokens and fused log-probs
+     within 1e-4;
   4  the fused distillation-loss kernels (forward and backward) against
      their plain version on the card: the NiN training path's shape, a
      262k bf16 vocab (gemma3-1b's distill step), rwkv6-7b's in phase 15
@@ -187,7 +217,14 @@ FLUSH_BYTES = 64 << 20             # > the 50 MB L2: each timed call starts cold
 SLEEP_CYCLES = 5_000_000           # ~2.5 ms of GPU clock: outlasts any enqueue
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries the script's seconds so far
+    (t_s), which say where the run's time goes."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=round(time.perf_counter() - T0, 1))
     print(json.dumps(obj), flush=True)
 
 
@@ -285,24 +322,27 @@ def paged_case(torch, gen, *, qdt, kvdt, dk, dv, dr=0, window=0, shape=None,
         at += n
 
     def rnd(*shape, dtype):
-        x = torch.randn(*shape, generator=gen, device=dev)
-        if dtype == torch.int8:
-            return (x * 40).round().clamp(-127, 127).to(torch.int8)
-        return x.to(dtype)
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
-    case = dict(q=rnd(B, H, dk + dr, dtype=qdt),
-                k_pages=rnd(n_pages, page, Hkv, dk, dtype=kvdt),
-                v_pages=rnd(n_pages, page, Hkv, dv, dtype=kvdt),
-                table=table, lens=lens.int(), window=window)
+    case = dict(q=rnd(B, H, dk + dr, dtype=qdt), table=table,
+                lens=lens.int(), window=window)
     if kvdt in (torch.int8, torch.float8_e4m3fn):
-        case["k_scale"] = torch.rand(n_pages, page, Hkv, generator=gen,
-                                     device=dev) * 0.05
-        case["v_scale"] = torch.rand(n_pages, page, Hkv, generator=gen,
-                                     device=dev) * 0.05
+        # quantized as the served path writes them (attention.kv_quantize
+        # of O(1) keys and values): the values span +-127 / +-448, the
+        # dequantized ones are O(1)
+        from repro_torch.models.attention import kv_quantize
+        for name, d in (("k", dk), ("v", dv)):
+            case[f"{name}_pages"], case[f"{name}_scale"] = kv_quantize(
+                rnd(n_pages, page, Hkv, d, dtype=torch.float32), kvdt)
+    else:
+        case["k_pages"] = rnd(n_pages, page, Hkv, dk, dtype=kvdt)
+        case["v_pages"] = rnd(n_pages, page, Hkv, dv, dtype=kvdt)
     if dr:
         case["k_extra"] = rnd(n_pages, page, Hkv, dr, dtype=qdt)
     if shared:
         case["v_pages"] = case["k_pages"]
+        if "k_scale" in case:        # one latent, one scale plane
+            case["v_scale"] = case["k_scale"]
     if "scale" in m:
         case["scale"] = m["scale"]
     return case
@@ -320,7 +360,8 @@ def paged_bound(case, torch):
     # a plane passed as both keys and values is read once
     per_tok = Hkv * (dk + (0 if vp is kp else dv)) * kp.element_size()
     for name in ("k_scale", "v_scale"):
-        if case.get(name) is not None:
+        if case.get(name) is not None and not (
+                name == "v_scale" and case["v_scale"] is case["k_scale"]):
             per_tok += Hkv * 4
     if case.get("k_extra") is not None:
         ke = case["k_extra"]
@@ -338,7 +379,9 @@ def sdpa_call(case, torch):
     into contiguous per-row tensors beforehand (the yardstick).  With
     k_extra (absorbed MLA) the keys are the gathered latent and rope
     keys, one kv head that the call shares over the query heads
-    (enable_gqa)."""
+    (enable_gqa).  Quantized pages are gathered and dequantized into q's
+    dtype beforehand too: no single PyTorch call reads scaled int8 or
+    fp8 pages."""
     import torch.nn.functional as F
     q, kp, vp, table = (case["q"], case["k_pages"], case["v_pages"],
                         case["table"])
@@ -347,8 +390,15 @@ def sdpa_call(case, torch):
     g = H // Hkv
     t = table.long().clamp(0, n_pages - 1)
     S = t.shape[1] * page
-    k = kp[t].reshape(B, S, Hkv, dk)
-    v = vp[t].reshape(B, S, Hkv, -1).transpose(1, 2)
+
+    def gather(pages, scale):
+        x = pages[t].reshape(B, S, Hkv, -1)
+        if scale is not None:
+            x = x.float() * scale[t].reshape(B, S, Hkv)[..., None]
+        return x.to(q.dtype)
+
+    k = gather(kp, case.get("k_scale"))
+    v = gather(vp, case.get("v_scale")).transpose(1, 2)
     pos = torch.arange(S, device=q.device)
     mask = (pos[None, :] < case["lens"].long()[:, None])[:, None, None]
     qq = q[:, :, None]
@@ -400,6 +450,21 @@ def phase1(torch, flush, card):
         # qwen2-vl-2b's decode: one head group of six a kv head
         ("bf16_qwen2_vl", dict(qdt=bf16, kvdt=bf16, dk=128, dv=128,
                                shape=QWEN2_VL), 2e-2),
+        # the served quantized decode (phase 19): bf16 queries over int8
+        # and fp8 pages with their scales, gemma3-1b's and deepseek-7b's
+        # shapes, and the absorbed MLA decode over an int8 latent (one
+        # scale plane as keys' and values') with bf16 rope keys
+        ("bf16_int8", dict(qdt=bf16, kvdt=torch.int8, dk=d, dv=d), 2e-2),
+        ("bf16_fp8", dict(qdt=bf16, kvdt=torch.float8_e4m3fn, dk=d, dv=d),
+         2e-2),
+        ("bf16_int8_deepseek_7b", dict(qdt=bf16, kvdt=torch.int8, dk=128,
+                                       dv=128, shape=DEEPSEEK), 2e-2),
+        ("bf16_fp8_deepseek_7b", dict(qdt=bf16, kvdt=torch.float8_e4m3fn,
+                                      dk=128, dv=128, shape=DEEPSEEK), 2e-2),
+        ("bf16_int8_deepseek_v2_mla", dict(qdt=bf16, kvdt=torch.int8,
+                                           dk=512, dv=512, dr=64,
+                                           shape=DEEPSEEK_V2, shared=True),
+         2e-2),
     ]
     # tolerances are those of the JAX package's kernel tests: the kernel
     # sums an online softmax page by page, the plain version all at once
@@ -422,15 +487,35 @@ def phase1(torch, flush, card):
         err = (got.float() - want.float()).abs().max().item()
         torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                    rtol=tol, msg=lambda m: f"{name}: {m}")
+        quant = "k_scale" in case
+        wrong_fails = None
+        if quant:
+            # the row's power: a kernel that returned zeros, or dropped
+            # either scale plane, must fail its tolerance
+            ones = torch.ones_like(case["k_scale"])
+            wrong = {"zeros": torch.zeros_like(want),
+                     "no_k_scale": ref.paged_attention(**dict(args,
+                                                              k_scale=ones)),
+                     "no_v_scale": ref.paged_attention(**dict(args,
+                                                              v_scale=ones))}
+            wrong_fails = {k: not torch.allclose(w.float(), want.float(),
+                                                 atol=tol, rtol=tol)
+                           for k, w in wrong.items()}
+            if not all(wrong_fails.values()):
+                raise AssertionError(f"{name}: outputs that are wrong pass "
+                                     f"its tolerance {tol}: {wrong_fails}")
         ms = time_ms(lambda: pa.paged_attention(**args), torch, flush)
         plain_ms = time_ms(lambda: ref.paged_attention(**args), torch, flush,
                            iters=10)
-        lib_ms = None
+        lib_ms, lib_call = None, None
         mla = "scale" in case     # the absorbed MLA shape: k_extra too
-        if mla or ("k_scale" not in case and "k_extra" not in case
-                   and dk == case["v_pages"].shape[-1]
-                   and not case["window"]):
+        if mla or (quant and case["q"].dtype == torch.bfloat16) or (
+                not quant and "k_extra" not in case
+                and dk == case["v_pages"].shape[-1]
+                and not case["window"]):
             lib_ms = time_ms(sdpa_call(case, torch), torch, flush)
+            lib_call = ("scaled_dot_product_attention over pre-gathered"
+                        + (", pre-dequantized" if quant else "") + " K/V")
         bound_ms, bound_by = paged_bound(case, torch)
         row = {"phase": 1, "card": card, "kernel": "paged_attention",
                "case": name, "rows": B, "H": case["q"].shape[1],
@@ -438,8 +523,11 @@ def phase1(torch, flush, card):
                "pages_a_stage": ppt, "blocks_per_sm": per_sm,
                "splits": splits,
                "lens_sum": int(case["lens"].sum()),
-               "max_abs_err": err, "tol": tol, "ms": ms,
+               "max_abs_err": err, "tol": tol,
+               "max_abs_out": want.float().abs().max().item(),
+               "wrong_outputs_fail": wrong_fails, "ms": ms,
                "plain_ms": plain_ms, "library_ms": lib_ms,
+               "library_call": lib_call,
                "bound_ms": bound_ms, "bound_by": bound_by}
         emit(row)
         rows[name] = row
@@ -501,6 +589,17 @@ FLASH_CASES = {
     "whisper_self_chunk": (4, 128, 192, 6, 6, 64, 0, 0, 96),
     "qwen2_vl_chunk": (4, 128, 576, 12, 2, 128, 0, 256, 128),
 }
+# speculative verify (phase 20's pass): K 4 x 4 slots of gamma+1 = 5
+# queries at per-row positions 300-512 over S = 576 gathered keys at
+# positions 0..575 (the chunk already scattered into the pages)
+VERIFY_CASES = {"gemma3_verify": (16, 5, 576, 4, 1, 256)}
+
+
+def verify_positions(torch, gen, N, T, S):
+    pos = torch.randint(300, 513, (N,), generator=gen, device="cuda")
+    q_pos = (pos[:, None] + torch.arange(T, device="cuda")).int()
+    k_pos = torch.arange(S, device="cuda").expand(N, S).int().contiguous()
+    return q_pos.contiguous(), k_pos
 
 
 def flash_valid(torch, q_pos, k_pos, T, S, window, dev="cuda",
@@ -545,16 +644,23 @@ def phase7(torch, flush, card):
     gen.manual_seed(2)
     n_sm = pa.sm_count(torch.device("cuda"))
     out = {}
+    cases = dict(FLASH_CASES)
+    cases.update({name: (N, T, S, H, Hkv, dh, 0, None, None)
+                  for name, (N, T, S, H, Hkv, dh) in VERIFY_CASES.items()})
     for name, (N, T, S0, H, Hkv, dh, window, idx, n_tok, *rest) in \
-            FLASH_CASES.items():
+            cases.items():
         causal = rest[0] if rest else True
+        verify = name in VERIFY_CASES
         for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
-            S = (S0 + T if causal else S0) if S0 else T
+            S = S0 if verify else (S0 + T if causal else S0) if S0 else T
             q, k, v = (torch.randn(N, n, h, dh, generator=gen,
                                    device="cuda").to(dt)
                        for n, h in ((T, H), (S, Hkv), (S, Hkv)))
             kw = dict(causal=causal, window=window)
-            if S0 and causal:
+            if verify:
+                kw["q_pos"], kw["k_pos"] = verify_positions(torch, gen, N,
+                                                            T, S)
+            elif S0 and causal:
                 kw["q_pos"], kw["k_pos"] = flash_positions(
                     torch, N, S0, T, idx, n_tok, window)
             got = fa.flash_attention(q, k, v, **kw)
@@ -851,7 +957,8 @@ SYMBOL = {"paged_attention": "paged_kernel",
 
 def serve_phase(torch, np, card, arch: str, phase: int, members: int = 4,
                 n_layers: int = None, init_limit: float = None,
-                serve: dict = SERVE) -> dict:
+                serve: dict = SERVE, kv_dtype: str = "f32", params=None,
+                record: dict = None, profile_prefill: bool = True) -> dict:
     """`arch` at full width, bf16, `members` members, paged KV (page 16),
     its depth cut to `n_layers` where given: 4 requests of 300-512 prompt
     tokens through EnsembleEngine.generate for 32 new tokens, greedy
@@ -864,8 +971,12 @@ def serve_phase(torch, np, card, arch: str, phase: int, members: int = 4,
     and 128-token piece, per decode step and per prefill call.  An
     encoder-decoder's encoder stub (the engine's frames for every slot)
     is timed and counted on its own: flash_attention once per encoder
-    layer.  -> the kernels' launch counts (and the stub's flash
-    launches)."""
+    layer.  kv_dtype stores the paged pool so (phase 19); `params` are
+    the members' weights where the caller made them (no init then);
+    `record` (a dict) receives the greedy outputs, the page stats and
+    the decode timings; profile_prefill=False skips the prefill's
+    profile (its kernels in situ).  -> the kernels' launch counts (and
+    the stub's flash launches)."""
     from repro_torch.configs import registry
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
@@ -882,7 +993,9 @@ def serve_phase(torch, np, card, arch: str, phase: int, members: int = 4,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = tf.init(cfg, seed=0, device="cuda", members=K)
+    own = params is None
+    if own:
+        params = tf.init(cfg, seed=0, device="cuda", members=K)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     init_peak = torch.cuda.max_memory_allocated()
@@ -893,7 +1006,8 @@ def serve_phase(torch, np, card, arch: str, phase: int, members: int = 4,
                          max_prompt=serve["max_prompt"],
                          max_out=serve["max_out"], paged=paged,
                          page_size=serve["page"] or 16,
-                         prefill_chunk=serve.get("chunk"), device="cuda")
+                         prefill_chunk=serve.get("chunk"),
+                         kv_dtype=kv_dtype, device="cuda")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in plens]
     eng.generate(prompts, max_new=2)            # warm-up (cuBLAS, kernel load)
@@ -931,6 +1045,17 @@ def serve_phase(torch, np, card, arch: str, phase: int, members: int = 4,
                "flash_attention": fa.flash_attention, "wkv6": wk.wkv6,
                "ssm_scan": ssk.ssm_scan}
     torch.cuda.reset_peak_memory_stats()
+    # any NaN among the fused log-probs of the measured run, kept on the
+    # card (read once after the run)
+    nan_seen = torch.zeros((), dtype=torch.bool, device="cuda")
+    fuse = eng._fuse
+
+    def fuse_watch(logits):
+        lp = fuse(logits)
+        nan_seen.logical_or_(torch.isnan(lp).any())
+        return lp
+
+    eng._fuse = fuse_watch
     for fn in kernels.values():
         fn.launches = 0
     prefills0 = eng.prefills_run
@@ -939,6 +1064,10 @@ def serve_phase(torch, np, card, arch: str, phase: int, members: int = 4,
     outs = eng.generate(prompts, max_new=n_new)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
+    del eng._fuse        # back to the method (no engine <-> method cycle)
+    if bool(nan_seen):
+        raise AssertionError(f"{arch} ({kv_dtype} pages): NaN in a fused "
+                             f"log-prob")
     launches = {name: fn.launches for name, fn in kernels.items()}
     prefill_calls = eng.prefills_run - prefills0
     serve_peak = torch.cuda.max_memory_allocated()
@@ -1005,8 +1134,10 @@ def serve_phase(torch, np, card, arch: str, phase: int, members: int = 4,
     used = [SYMBOL[k] for k, n in expected.items() if n]
     prof = profile_steps(torch, lambda: [eng.step() for _ in range(3)], 3,
                          used)
-    admit()
-    pre = profile_steps(torch, prefill_all, 1, used)
+    pre = {"busy_ms": None, "name_ms": {}, "top": None}
+    if profile_prefill:
+        admit()
+        pre = profile_steps(torch, prefill_all, 1, used)
     # each kernel's device time per launch in situ (inputs just written,
     # in L2): a decode step launches it once per layer that runs it, the
     # prefill once per layer and call (ssm_scan: and 128-token piece)
@@ -1018,12 +1149,16 @@ def serve_phase(torch, np, card, arch: str, phase: int, members: int = 4,
     per_launch = {k: {"decode": prof["name_ms"][SYMBOL[k]] / per_step[k]
                       if per_step[k] else None,
                       "prefill": pre["name_ms"][SYMBOL[k]] / per_prefill[k]
-                      if per_prefill[k] else None}
+                      if per_prefill[k] and profile_prefill else None}
                   for k, n in expected.items() if n}
+    pstats = eng.page_stats()
     emit({"phase": phase, "card": card, "arch": cfg.name, "dtype": cfg.dtype,
           "members": K, "n_layers": cfg.n_layers,
           "published_layers": full.n_layers, "slots": serve["slots"],
-          "paged": paged, "prompt_lens": plens,
+          "paged": paged, "kv_dtype": kv_dtype,
+          "page_bytes": pstats.get("page_bytes"),
+          "bytes_per_token": pstats.get("bytes_per_token"),
+          "prompt_lens": plens,
           "new_tokens": n_new, "prefill_chunk": eng.prefill_chunk,
           "paged_layers": n_paged, "attention_layers": n_attn,
           "rwkv_layers": n_rwkv, "mamba_layers": n_mamba,
@@ -1044,7 +1179,15 @@ def serve_phase(torch, np, card, arch: str, phase: int, members: int = 4,
           "kernel_ms_per_launch": per_launch,
           "top_kernels_ms_per_step": prof["top"],
           **stub, "sample": outs[0][:8].tolist()})
-    del eng, params
+    if record is not None:
+        record.update(outs=outs, page_stats=pstats,
+                      decode_ms_per_step=decode_s / (n_new - 1) * 1e3,
+                      busy_ms=prof["busy_ms"],
+                      paged_ms_per_launch=per_launch.get(
+                          "paged_attention", {}).get("decode"))
+    del eng
+    if own:
+        del params
     torch.cuda.empty_cache()
     if stub:
         launches["flash_attention_encoder_stub"] = \
@@ -1224,10 +1367,14 @@ def phase13(torch, np, card) -> dict:
         eng.step()
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
+    # keys of the first profiled step: the prompt, its first token (from
+    # prefill) and n_dec decoded
+    lens0 = [len(p) + n_dec + 1 for p in group1]
     prof = profile_steps(torch, lambda: [eng.step() for _ in range(3)], 3,
                          ["paged_kernel"])
     eng.update_slots(release=range(eng.n_slots))
     eng.assert_pool_whole()
+    bounds = situ_bounds(cfg, K, eng, group1, hits, lens0, 3)
 
     def summary(run):
         r, sc = run["report"], run["sched"]
@@ -1272,6 +1419,7 @@ def phase13(torch, np, card) -> dict:
               "paged_attention": prof["name_ms"]["paged_kernel"] / n_paged,
               "flash_attention": pre["name_ms"]["flash_kernel"]
               / (n_attn * n_calls)},
+          "bound_ms_per_launch": bounds,
           "prefill_calls_profiled": n_calls,
           "prefill_device_busy_ms": pre["busy_ms"],
           "top_kernels_ms_per_step": prof["top"],
@@ -1279,6 +1427,381 @@ def phase13(torch, np, card) -> dict:
     del runs, off, on, eng, params
     torch.cuda.empty_cache()
     return totals
+
+
+def bound_of(nbytes: float, ops: float, dtype: str) -> float:
+    """The least time (ms) of a call moving nbytes and doing ops."""
+    return max(nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]) * 1e3
+
+
+def situ_bounds(cfg, K, eng, prompts, hits, lens0, n_steps) -> dict:
+    """Bounds of phase 13's in-situ launches (f32, one kv head): the paged
+    kernel's over the decode steps profiled (K x B rows at lens0 + s,
+    each row's live pages read once) and flash's over the prefill calls
+    profiled (K rows of one slot: the chunk over the gathered P * page
+    positions plus the chunk, the pairs the mask keeps), each a mean per
+    launch."""
+    a, f = cfg.attn, 4
+    H, dh, page = a.n_heads, a.head_dim, eng.page_size
+    P, C = eng.pages_per_slot, eng.prefill_chunk
+    paged = []
+    for step in range(n_steps):
+        lens = [n + step for n in lens0]
+        live = sum(-(-n // page) * page for n in lens) * K
+        nbytes = (live * 2 * dh * f + 2 * K * len(lens) * H * dh * f
+                  + K * len(lens) * (P + 1) * 4)
+        paged.append(bound_of(nbytes, 2 * H * K * sum(lens) * 2 * dh,
+                              "float32"))
+    flash = []
+    for i, p in enumerate(prompts):
+        for idx in range(hits[i], len(p), C):
+            n_tok = min(C, len(p) - idx)
+            S = P * page + C
+            nbytes = (2 * K * C * H * dh * f + 2 * K * S * dh * f
+                      + K * (C + S) * 4)
+            pairs = K * sum(idx + t + 1 for t in range(n_tok))
+            flash.append(bound_of(nbytes, 4 * dh * H * pairs, "float32"))
+    return {"paged_attention": sum(paged) / len(paged),
+            "flash_attention": sum(flash) / len(flash)}
+
+
+# ---------------------------------------------------------------------------
+# phase 19: quantized KV pages at full width (gemma3-1b, bf16)
+# ---------------------------------------------------------------------------
+
+KV_SERVE = ("bf16", "int8", "fp8")
+
+
+def phase19(torch, np, card, bf16_run: dict) -> dict:
+    """gemma3-1b at full width and depth, bf16, K = 4, paged (page 16),
+    phase 2's requests over int8 and fp8 pages, by serve_phase (each
+    run's paged launches must be phase 2's formula, no fused log-prob
+    NaN); the bf16-page run is phase 2's own (`bf16_run`, its record:
+    the same weights from the same seed).  Then one line with each run's
+    page bytes, decode ms a step, busy ms, idle share, the paged
+    kernel's in-situ ms a launch, and the int8 / fp8 tokens' agreement
+    with the bf16 pages' (printed only: random members at a 262k vocab
+    sit near ties; the CPU tests hold the agreement bound).
+    -> {kv_dtype: launches} of the quantized runs."""
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as tf
+    cfg = registry.get_config("gemma3-1b")
+    params = tf.init(cfg, seed=0, device="cuda", members=4)
+    recs, launches = {"bf16": bf16_run}, {}
+    for kv in KV_SERVE[1:]:
+        recs[kv] = {}
+        launches[kv] = serve_phase(torch, np, card, "gemma3-1b", 19,
+                                   kv_dtype=kv, params=params,
+                                   record=recs[kv], profile_prefill=False)
+    ref = recs["bf16"]["outs"]
+    runs = {}
+    for kv, r in recs.items():
+        ps = r["page_stats"]
+        runs[kv] = {"page_bytes": ps["page_bytes"],
+                    "bytes_per_token": ps["bytes_per_token"],
+                    "decode_ms_per_step": r["decode_ms_per_step"],
+                    "device_busy_ms_per_step": r["busy_ms"],
+                    "device_idle_share": 1.0 - r["busy_ms"]
+                    / r["decode_ms_per_step"],
+                    "paged_ms_per_launch": r["paged_ms_per_launch"],
+                    "agreement_with_bf16_pages": float(np.mean(
+                        [np.mean(a == b) for a, b in zip(r["outs"], ref)]))}
+    emit({"phase": 19, "card": card, "arch": cfg.name, "dtype": cfg.dtype,
+          "members": 4, "runs": runs})
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 20: speculative decoding at full width (gemma3-1b, f32)
+# ---------------------------------------------------------------------------
+
+# draft_noise: the disagreeing draft is member 0 plus seeded Gaussian
+# noise of this many standard deviations of each leaf; draft_layers: the
+# cheap draft is member 0's first 2 (ring) layers
+SPEC = dict(gamma=4, margin=2e-5, draft_noise=1.0, draft_layers=2)
+
+
+def attention_layers(cfg) -> int:
+    return sum(count for count, specs in cfg.segments() for sp in specs
+               if sp.mixer in ("attn", "attn_local"))
+
+
+def timed_generate(torch, eng, prompts, n_new):
+    """eng.generate with each prefill call synchronised and timed.
+    -> (outputs, generate s, prefill s); the rest of generate (admission,
+    the decode steps or speculative iterations, the final read) is the
+    difference."""
+    spent = [0.0]
+    inner = eng.prefill
+
+    def prefill(slot):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner(slot)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t
+        return out
+
+    eng.prefill = prefill
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = eng.generate(prompts, max_new=n_new)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    del eng.prefill          # back to the method (no engine <-> it cycle)
+    return outs, total, spent[0]
+
+
+def shallow_draft(params, cfg, n_layers):
+    """Member 0's first n_layers layers, its embedding and final norm, as
+    a K = 1 stack of the n_layers-deep config: the usual cheap draft.
+    -> (draft params, draft config)."""
+    from repro_torch.common.tree import tree_map
+    dcfg = cfg.with_(n_layers=n_layers)
+    src = params["segments"][0]
+    segs, start = [], 0
+    for count, specs in dcfg.segments():
+        segs.append({f"slot_{i}": tree_map(
+            lambda x: x[:1, start:start + count].contiguous(),
+            src[f"slot_{i}"]) for i in range(len(specs))})
+        start += count
+    draft = {k: tree_map(lambda x: x[:1], params[k])
+             for k in ("embed", "final_norm")}
+    draft["segments"] = segs
+    return draft, dcfg
+
+
+def noisy_draft(torch, params, sigma: float, seed: int = 1):
+    """Member 0 plus N(0, (sigma * the leaf's std)^2) noise on every leaf,
+    drawn from a seeded generator, as a K = 1 stack."""
+    from repro_torch.common.tree import tree_map
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return tree_map(lambda x: x[:1] + sigma * x[:1].float().std()
+                    * torch.randn(x[:1].shape, generator=gen,
+                                  device="cuda"), params)
+
+
+def spec_run(torch, np, cfg, params, draft, prompts, ref, margins, kw,
+             draft_cfg=None):
+    """A SpeculativeEngine drafting with `draft` serves phase 20's
+    requests after a warm-up.  Its tokens must equal the plain engine's
+    (`ref`) on every step whose fused top-2 margin (`margins`) clears
+    SPEC's, and the measured run's launches their formula.  -> (engine,
+    row, launches)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serving.spec import SpeculativeEngine
+    G, n_new = SPEC["gamma"], SERVE["new_tokens"]
+    dcfg = cfg if draft_cfg is None else draft_cfg
+    spec = SpeculativeEngine(cfg, params, draft, draft_cfg=draft_cfg,
+                             gamma=G, **kw)
+    spec.generate(prompts, max_new=2)                   # warm-up
+    stats0 = spec.spec_stats()
+    iters0 = spec.spec_steps_run
+    pa.paged_attention.launches = fa.flash_attention.launches = 0
+    outs, gen_s, prefill_s = timed_generate(torch, spec, prompts, n_new)
+    iters = spec.spec_steps_run - iters0
+    n_attn, d_attn = attention_layers(cfg), attention_layers(dcfg)
+    calls = sum(-(-n // spec.prefill_chunk) for n in SERVE["prompt_lens"])
+    # each prefill call runs the draft's prefill (K = 1) and the members'
+    launches = {"paged_attention": pa.paged_attention.launches,
+                "flash_attention": fa.flash_attention.launches}
+    want = {"paged_attention": 0,
+            "flash_attention": n_attn * (calls + iters) + d_attn * calls}
+    formula = (f"flash_attention {n_attn} attention layers x ({calls} "
+               f"prefill calls + {iters} speculative iterations) + the "
+               f"draft's {d_attn} x {calls} prefill calls = "
+               f"{want['flash_attention']}; paged_attention 0 (the verify "
+               f"pass reads the pages through flash)")
+    if launches != want:
+        raise AssertionError(f"phase 20 launches {launches}, expected "
+                             f"{formula}")
+    stats1 = spec.spec_stats()
+    proposed = stats1["proposed"] - stats0["proposed"]
+    accepted = stats1["accepted"] - stats0["accepted"]
+    hist = [b - a for a, b in zip(stats0["emitted_hist"],
+                                  stats1["emitted_hist"])]
+    emitted = sum(len(o) for o in outs)
+    # tokens against the plain engine under the margin rule
+    compared, forks = 0, []
+    for a, b, m in zip(ref, outs, margins):
+        if len(a) != n_new or len(b) != n_new:
+            raise AssertionError(f"phase 20: {len(a)} / {len(b)} tokens")
+        diff = np.nonzero(a != b)[0]
+        n = int(diff[0]) if diff.size else len(a)
+        compared += n
+        if diff.size:
+            forks.append({"step": n, "margin": float(m[n])})
+            if m[n] >= SPEC["margin"]:
+                raise AssertionError(
+                    f"speculative tokens fork from the plain engine's at "
+                    f"step {n}, fused margin {m[n]:.3g} >= {SPEC['margin']}")
+    # prefill emits each row's first token; were every draft accepted, a
+    # row's other n_new - 1 would take ceil((n_new - 1) / (G + 1))
+    # iterations, so more iterations mean drafts were rejected and rolled
+    # back
+    row = {"iterations": iters,
+           "iterations_if_all_accepted": -(-(n_new - 1) // (G + 1)),
+           "proposed": proposed, "accepted": accepted,
+           "acceptance_rate": accepted / max(proposed, 1),
+           "tokens_per_iteration": emitted / (iters * len(prompts)),
+           # emitted_hist[e]: row-iterations that emitted e tokens (e <
+           # G + 1: a draft rejected, or the row's last tokens)
+           "emitted_hist": hist,
+           "generate_s": gen_s, "prefill_s": prefill_s,
+           "decode_s": gen_s - prefill_s, "tok_per_s": emitted / gen_s,
+           "decode_ms_per_iteration": (gen_s - prefill_s) / iters * 1e3,
+           "launch_formula": formula, "launches": launches,
+           "margin": SPEC["margin"], "steps_compared": compared,
+           "forks": forks, "spec_stats": stats1}
+    return spec, row, launches
+
+
+def phase20(torch, np, card) -> dict:
+    """gemma3-1b at full width and depth in f32 (greedy decisive), K = 4,
+    paged (page 16), 4 slots, phase 2's requests, 32 new tokens, gamma 4,
+    with three drafts.  Member 0 as a K = 1 stack, saved and restored
+    through checkpoint/store.py (the serve CLI's --draft-ckpt route),
+    agrees with the random ensemble's near-constant stream; member 0
+    with noise on its weights disagrees with it, so its run rejects
+    drafts and rolls back (it must take more iterations than an
+    all-accepting draft would, and accept some chunks in part); member
+    0's first 2 layers (the cheap draft) cost a fraction of a full-depth
+    draft's host time a step.  Every run's tokens must equal the plain
+    engine's on every step whose top-2 fused log-prob margin clears
+    2e-5; a speculative iteration launches flash once per attention
+    layer (the verify pass: ring layers through their chunk prefill,
+    paged ones through the verify), each prefill call once per layer of
+    the draft and of the members, and the paged kernel never.  Prints,
+    for the plain engine and each draft, generate's seconds split into
+    prefill calls and the rest, and acceptance, emitted lengths and
+    tokens an iteration; for member 0's run host and busy ms an
+    iteration, the idle share and peak memory.  -> {path: launches}."""
+    from repro_torch.checkpoint import store
+    from repro_torch.common.tree import tree_leaves, tree_map
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.engine import EnsembleEngine
+    from repro_torch.serving.spec.draft import load_draft
+    t_phase = time.perf_counter()
+    cfg = registry.get_config("gemma3-1b").with_(dtype="float32")
+    K, G, n_new = 4, SPEC["gamma"], SERVE["new_tokens"]
+    params = tf.init(cfg, seed=0, device="cuda", members=K)
+    root = os.path.join(ROOT, "build", "phase20_draft")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    store.save_checkpoint(root, 1, tree_map(lambda x: x[:1], params))
+    draft, step = load_draft(root, params)
+    torch.cuda.synchronize()
+    ckpt_s = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    if not all(torch.equal(a, b[:1]) for a, b in zip(
+            tree_leaves(draft), tree_leaves(params))):
+        raise AssertionError("the restored draft is not member 0")
+    kw = dict(n_slots=SERVE["slots"], max_prompt=SERVE["max_prompt"],
+              max_out=SERVE["max_out"], paged=True, page_size=SERVE["page"],
+              device="cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n)
+               for n in SERVE["prompt_lens"]]
+    plain = EnsembleEngine(cfg, params, **kw)
+    plain.generate(prompts, max_new=2)                  # warm-up
+    ref, plain_s, plain_prefill_s = timed_generate(torch, plain, prompts,
+                                                   n_new)
+    del plain
+    torch.cuda.empty_cache()
+    margins = [fused_margins(torch, np, params, cfg, p, a)
+               for p, a in zip(prompts, ref)]
+    below = sum(int((m < SPEC["margin"]).sum()) for m in margins)
+    plain_row = {"generate_s": plain_s, "prefill_s": plain_prefill_s,
+                 "decode_s": plain_s - plain_prefill_s,
+                 "tok_per_s": sum(len(o) for o in ref) / plain_s,
+                 "decode_ms_per_step": (plain_s - plain_prefill_s)
+                 / (n_new - 1) * 1e3}
+    torch.cuda.reset_peak_memory_stats()
+    spec, row, launches = spec_run(torch, np, cfg, params, draft, prompts,
+                                   ref, margins, kw)
+    iters, n_attn = row["iterations"], attention_layers(cfg)
+
+    def admit_and_prefill():
+        spec.update_slots(release=range(spec.n_slots),
+                          admits=[(i, p, n_new)
+                                  for i, p in enumerate(prompts)])
+        for i, p in enumerate(prompts):
+            for _ in range(-(-len(p) // spec.prefill_chunk)):
+                spec.prefill(i)
+
+    # host ms an iteration: the same requests' speculative steps, timed
+    # (each starts with the one read that resyncs the host's positions)
+    admit_and_prefill()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        spec.step()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / iters * 1e3
+    admit_and_prefill()
+    fa.flash_attention.launches = 0
+    prof = profile_steps(torch, lambda: [spec.step() for _ in range(3)], 3,
+                         ["flash_kernel", "paged_kernel"])
+    if fa.flash_attention.launches != 3 * n_attn:
+        raise AssertionError(f"3 speculative iterations launched flash "
+                             f"{fa.flash_attention.launches} times, "
+                             f"expected {3 * n_attn}")
+    emit({"phase": 20, "card": card, "arch": cfg.name, "dtype": cfg.dtype,
+          "members": K, "n_layers": cfg.n_layers, "gamma": G,
+          "slots": SERVE["slots"], "prompt_lens": SERVE["prompt_lens"],
+          "new_tokens": n_new, "draft": "member 0, K = 1, checkpoint "
+          f"step {step} restored", "draft_checkpoint_s": ckpt_s, **row,
+          "plain": plain_row,
+          "host_ms_per_iteration": host_ms,
+          "device_busy_ms_per_iteration": prof["busy_ms"],
+          "device_idle_share": 1.0 - prof["busy_ms"] / host_ms,
+          "flash_ms_per_launch_in_situ": prof["name_ms"]["flash_kernel"]
+          / n_attn,
+          "flash_launches_per_iteration": n_attn,
+          "paged_launches_per_iteration": 0,
+          "steps_below_margin": below,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "top_kernels_ms_per_iteration": prof["top"],
+          "phase_s": time.perf_counter() - t_phase})
+    del spec, draft
+    torch.cuda.empty_cache()
+    out = {"speculative": launches}
+    sigma, n_draft = SPEC["draft_noise"], SPEC["draft_layers"]
+    for name, (d, dcfg) in (
+            (f"member 0 + noise of {sigma} std a leaf (K = 1)",
+             (noisy_draft(torch, params, sigma), None)),
+            (f"member 0's first {n_draft} layers (K = 1)",
+             shallow_draft(params, cfg, n_draft))):
+        spec, row, launches = spec_run(torch, np, cfg, params, d, prompts,
+                                       ref, margins, kw, draft_cfg=dcfg)
+        if dcfg is None:
+            # the noisy draft must reject: more iterations than an
+            # all-accepting draft, and some partly accepted (2..G tokens
+            # emitted: the chunk's tail restored and its pages truncated)
+            if row["iterations"] <= row["iterations_if_all_accepted"] \
+                    or not any(row["emitted_hist"][2:G + 1]):
+                raise AssertionError(
+                    f"the noisy draft took {row['iterations']} iterations, "
+                    f"emitted {row['emitted_hist']}: rejection and partial "
+                    f"rollback did not both run")
+            out["speculative, noisy draft"] = launches
+        else:
+            out[f"speculative, {n_draft}-layer draft"] = launches
+        emit({"phase": 20, "card": card, "arch": cfg.name,
+              "dtype": cfg.dtype, "members": K, "gamma": G, "draft": name,
+              "draft_layers": (dcfg or cfg).n_layers, **row,
+              "phase_s": time.perf_counter() - t_phase})
+        del spec, d
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1326,6 +1849,64 @@ def phase3(torch, np, arch: str):
     # tolerance: the same f32 math summed in another order on each device
     torch.testing.assert_close(lps["cuda"], lps["cpu"], atol=1e-4,
                                rtol=1e-4)
+
+
+def phase3_quant_spec(torch, np):
+    """Reduced gemma3-1b, f32, K = 4, paged (page 8): an int8-page engine
+    and a speculative one (member 0 drafting, gamma 3) give identical
+    greedy tokens on the card and the CPU, and fused log-probs within
+    1e-4: the first decode step's (int8), a verify pass's at all four
+    chunk positions (speculative)."""
+    from repro_torch.common.tree import tree_map
+    from repro_torch.configs import registry
+    from repro_torch.core import ensemble as ens
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.engine import EnsembleEngine
+    from repro_torch.serving.spec import SpeculativeEngine
+    cfg = registry.get_config("gemma3-1b", reduced=True).with_(
+        dtype="float32")
+    params = tf.init(cfg, seed=0, device="cpu", members=4)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (7, 19, 25, 32)]
+    chunk = rng.integers(0, cfg.vocab_size, (4, 3))
+    kw = dict(n_slots=4, max_prompt=32, max_out=16, paged=True, page_size=8)
+    makers = {
+        "int8_pages": lambda dev: EnsembleEngine(
+            cfg, params, kv_dtype="int8", device=dev, **kw),
+        "speculative_gamma3": lambda dev: SpeculativeEngine(
+            cfg, params, tree_map(lambda x: x[0], params), gamma=3,
+            device=dev, **kw)}
+    for name, make in makers.items():
+        toks, lps = {}, {}
+        for dev in ("cuda", "cpu"):
+            eng = make(dev)
+            toks[dev] = eng.generate(prompts, max_new=12)
+            eng.update_slots(release=range(4), admits=[
+                (i, p, 12) for i, p in enumerate(prompts)])
+            for i, p in enumerate(prompts):
+                for _ in range(-(-len(p) // eng.prefill_chunk)):
+                    eng.prefill(i)
+            eng.reserve_decode_pages()
+            if name == "int8_pages":
+                logits, _ = tf.decode_step_paged(eng.params, cfg, eng.cache,
+                                                 eng.state.tok[:, None])
+            else:
+                c = torch.cat([eng.state.tok[:, None],
+                               torch.as_tensor(chunk, device=dev)], 1)
+                logits, _ = tf.verify_step_paged(
+                    eng.params, cfg, eng.cache, c,
+                    torch.full((4,), 4, dtype=torch.int32, device=dev))
+            lps[dev] = ens.ensemble_log_probs(logits, eng.quorum).cpu()
+        same = all(np.array_equal(a, b) for a, b in zip(toks["cuda"],
+                                                         toks["cpu"]))
+        err = (lps["cuda"] - lps["cpu"]).abs().max().item()
+        emit({"phase": 3, "arch": cfg.name, "path": name,
+              "dtype": cfg.dtype, "members": 4, "tokens_identical": same,
+              "logp_max_abs_err": err, "tol": 1e-4})
+        if not same:
+            raise AssertionError(f"{name}: greedy tokens differ card/CPU")
+        torch.testing.assert_close(lps["cuda"], lps["cpu"], atol=1e-4,
+                                   rtol=1e-4)
 
 
 # phase 3's continuous-batching half: reduced configs, f32, K = 4.
@@ -2316,7 +2897,10 @@ def main() -> int:
     wkv_rows = phase10(torch, flush, card)
     scan_rows = phase11(torch, flush, card)
     del flush
-    launches = {"gemma3-1b": serve_phase(torch, np, card, "gemma3-1b", 2),
+    bf16_pages = {}     # phase 2 serves over bf16 pages: phase 19's baseline
+    launches = {"gemma3-1b": serve_phase(torch, np, card, "gemma3-1b", 2,
+                                         kv_dtype="bf16",
+                                         record=bf16_pages),
                 "deepseek-7b": serve_phase(torch, np, card, "deepseek-7b", 8,
                                            init_limit=60e9),
                 "rwkv6-7b": serve_phase(torch, np, card, "rwkv6-7b", 9,
@@ -2340,8 +2924,11 @@ def main() -> int:
                 "qwen2-vl-2b": serve_phase(torch, np, card, "qwen2-vl-2b",
                                            18, init_limit=60e9)}
     launches_cont = phase13(torch, np, card)
+    launches_quant = phase19(torch, np, card, bf16_pages)
+    launches_spec = phase20(torch, np, card)
     for arch in launches:
         phase3(torch, np, arch)
+    phase3_quant_spec(torch, np)
     for arch, run in PHASE3_CONT:
         phase3_continuous(torch, np, arch, run)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
@@ -2370,6 +2957,12 @@ def main() -> int:
                 out[f"{arch} encoder stub"] = n[f"{kernel}_encoder_stub"]
         if kernel in launches_cont:
             out["gemma3-1b continuous"] = launches_cont[kernel]
+        for kv, n in launches_quant.items():
+            if n.get(kernel):
+                out[f"gemma3-1b serve {kv} pages"] = n[kernel]
+        for path, n in launches_spec.items():
+            if kernel in n:
+                out[f"gemma3-1b {path}"] = n[kernel]
         if kernel in lm_launches:
             out["gemma3-1b train"] = lm_launches[kernel]
         for arch, n in ssm_launches.items():
@@ -2394,7 +2987,9 @@ def main() -> int:
                    paged_rows["bf16"], serving("paged_attention")),
              by_shape=by_shape({k: paged_rows[k] for k in (
                  "bf16", "bf16_deepseek_7b", "bf16_jamba",
-                 "bf16_deepseek_v2_mla", "f32_mla", "bf16_qwen2_vl")})),
+                 "bf16_deepseek_v2_mla", "f32_mla", "bf16_qwen2_vl",
+                 "bf16_int8", "bf16_fp8", "bf16_int8_deepseek_7b",
+                 "bf16_fp8_deepseek_7b", "bf16_int8_deepseek_v2_mla")})),
         # deepseek-7b's bf16 chunk; every bf16 case too
         dict(entry("flash_attention",
                    "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2402,8 +2997,11 @@ def main() -> int:
                    launches["deepseek-7b"]["flash_attention"],
                    flash_rows["deepseek_paged_mid", "bfloat16"],
                    serving("flash_attention")),
-             by_shape=by_shape({name: row for (name, dt), row in
-                                flash_rows.items() if dt == "bfloat16"})),
+             by_shape=by_shape({name if dt == "bfloat16" else
+                                f"{name} {dt}": row
+                                for (name, dt), row in flash_rows.items()
+                                if dt == "bfloat16"
+                                or name in VERIFY_CASES})),
         # the NiN row; the 262k-vocab rows too, the shape of gemma3-1b's
         # distill step (N 2048 x V 262144, bf16)
         *(dict(entry(f"distill_loss_{which}", dsrc,

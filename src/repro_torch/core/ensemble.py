@@ -105,6 +105,32 @@ def ensemble_log_probs(member_logits: torch.Tensor,
     return torch.logsumexp(lp + logw, dim=0)
 
 
+def prunable_members(member_logits: torch.Tensor,
+                     fused_log_probs: torch.Tensor,
+                     weights: Optional[torch.Tensor] = None,
+                     member_lp: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """Members whose whole vote mass cannot flip the fused argmax: member
+    j is skippable at a position when the mixture without it, base_j =
+    T - w_j softmax(z_j), already leads its runner-up by more than w_j,
+    since then argmax(base_j + w_j p_j) == argmax(base_j) whatever j
+    voted.  member_logits (K, ..., V); fused_log_probs (..., V) the fused
+    Eqn-6 log distribution; weights the normalized (K,) quorum (None:
+    uniform 1/K); member_lp the member log-probs when the caller has
+    them.  -> (K, ...) bool.  Telemetry for speculative verify: it
+    prices a skip and never changes a token."""
+    K = member_logits.shape[0]
+    w = (torch.full((K,), 1.0 / K, device=member_logits.device)
+         if weights is None else weights.float())
+    wb = w.reshape((K,) + (1,) * (fused_log_probs.dim() - 1))
+    T = fused_log_probs.float().exp()[None]
+    p = (member_lp.exp() if member_lp is not None
+         else torch.softmax(member_logits.float(), dim=-1))
+    base = (T - wb[..., None] * p).clamp_min(0.0)
+    top = base.topk(2, dim=-1).values
+    return top[..., 0] - top[..., 1] > wb
+
+
 def ensemble_nll(member_logits: torch.Tensor, labels: torch.Tensor,
                  weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Cross-entropy of the ensemble distribution against int labels."""

@@ -11,6 +11,17 @@ model through the identical path.  Runs on the card unless --device cpu.
       --members 4 --batch 4 --prompt-len 16 --steps 16 --paged \
       --continuous --requests 12 --prefix-cache
 
+--kv-dtype int8 / fp8 stores the paged pool quantized (per-token scales
+the paged kernel applies as it reads; bf16 halves f32 pages).
+--draft-ckpt ROOT serves speculative decoding with the student restored
+from a checkpoint root (the newest committed step, checkpoint/store.py)
+as the draft; --draft-ckpt member0 drafts with member 0's weights.
+--gamma sets the drafted tokens an iteration, --spec-sampling
+rejection-samples temperature > 0 requests (both with --draft-ckpt).
+
+  python -m repro_torch.launch.serve --arch gemma3-1b --reduced \
+      --members 4 --paged --kv-dtype int8 --draft-ckpt member0 --gamma 4
+
 The static batch prints tokens per second (host clock around a generate
 call that ends in a device synchronise, after a warm-up call) and a
 sample; --continuous serves --requests synthetic requests through the
@@ -52,6 +63,22 @@ def main(argv=None) -> int:
                     help="physical pages in the pool (--paged; default: "
                          "every slot at full length; fewer oversubscribes "
                          "and relies on preemption)")
+    ap.add_argument("--kv-dtype", default="f32",
+                    choices=["f32", "bf16", "int8", "fp8"],
+                    help="paged KV page storage (--paged): f32 keeps the "
+                         "model's dtype; int8 / fp8 quantize each token "
+                         "with an absmax scale the kernel applies")
+    ap.add_argument("--draft-ckpt", default="",
+                    help="speculative decoding: the compressed student at "
+                         "this checkpoint root drafts for the ensemble; "
+                         "'member0' drafts with member 0's weights")
+    ap.add_argument("--gamma", type=int, default=4,
+                    help="drafted tokens per speculative iteration "
+                         "(--draft-ckpt)")
+    ap.add_argument("--spec-sampling", action="store_true",
+                    help="rejection-sample temperature > 0 requests "
+                         "against the fused distribution instead of "
+                         "greedy exact-match acceptance")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="share KV pages across requests with a common "
                          "prompt prefix (--paged, and every layer paged)")
@@ -80,6 +107,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     from repro_torch.common.device import resolve_device
+    from repro_torch.common.tree import tree_map
     from repro_torch.configs import registry
     from repro_torch.models import transformer as tf
     from repro_torch.serving import client
@@ -98,13 +126,26 @@ def main(argv=None) -> int:
     if quorum is not None and len(quorum) != K:
         raise SystemExit(f"--quorum needs {K} entries, got {len(quorum)}")
     params = tf.init(cfg, seed=args.seed, device=device, members=K)
-    engine = EnsembleEngine(
-        cfg, params, n_slots=args.batch, max_prompt=args.prompt_len,
-        max_out=args.steps, prefill_chunk=args.prefill_chunk,
-        temperature=args.temperature, top_k=args.top_k, eos_id=args.eos_id,
-        quorum=quorum, seed=args.seed, paged=args.paged,
-        page_size=args.page_size, n_pages=args.n_pages,
-        prefix_cache=args.prefix_cache, device=device)
+    kw = dict(n_slots=args.batch, max_prompt=args.prompt_len,
+              max_out=args.steps, prefill_chunk=args.prefill_chunk,
+              temperature=args.temperature, top_k=args.top_k,
+              eos_id=args.eos_id, quorum=quorum, seed=args.seed,
+              paged=args.paged, page_size=args.page_size,
+              n_pages=args.n_pages, prefix_cache=args.prefix_cache,
+              kv_dtype=args.kv_dtype, device=device)
+    if args.draft_ckpt:
+        from repro_torch.serving.spec import SpeculativeEngine
+        from repro_torch.serving.spec.draft import load_draft
+        if args.draft_ckpt != "member0":
+            draft, step = load_draft(args.draft_ckpt, params)
+            print(f"draft model: step {step} from {args.draft_ckpt}")
+        else:
+            draft = tree_map(lambda x: x[:1], params)
+            print("draft model: member 0")
+        engine = SpeculativeEngine(cfg, params, draft, gamma=args.gamma,
+                                   spec_sampling=args.spec_sampling, **kw)
+    else:
+        engine = EnsembleEngine(cfg, params, **kw)
     print(f"engine: K={K} members, {args.batch} slots, prefill chunk "
           f"{engine.prefill_chunk}, {device} "
           f"({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'host'}), "
@@ -113,8 +154,9 @@ def main(argv=None) -> int:
         ps = engine.page_stats()
         print(f"paged pool: {ps['n_pages']} pages x {ps['page_size']} tok "
               f"({ps['pages_per_slot']} pages/slot max), free list "
-              f"{ps['free_pages']}/{ps['n_pages']}, {ps['page_bytes']} "
-              f"B/page, {ps['bytes_per_token']} B/token")
+              f"{ps['free_pages']}/{ps['n_pages']}, {ps['kv_dtype']} "
+              f"pages, {ps['page_bytes']} B/page, "
+              f"{ps['bytes_per_token']} B/token")
 
     if args.continuous:
         reqs = client.make_requests(
@@ -126,6 +168,7 @@ def main(argv=None) -> int:
         client.print_report(client.run_load(
             engine, reqs, prefill_budget=args.prefill_budget,
             obs=not args.no_obs, trace_log=args.trace_log or None))
+        _print_spec(engine)
         return 0
 
     rng = np.random.default_rng(1)
@@ -140,7 +183,16 @@ def main(argv=None) -> int:
     print(f"served batch={args.batch} members={K} steps={args.steps}: "
           f"{n_tok} tokens in {dt:.2f}s ({n_tok / dt:.1f} tok/s)")
     print("sample:", outs[0][:16].tolist())
+    _print_spec(engine)
     return 0
+
+
+def _print_spec(engine) -> None:
+    if hasattr(engine, "spec_stats"):
+        st = engine.spec_stats()
+        print(f"speculative: gamma {st['gamma']}, {st['spec_steps']} "
+              f"iterations, acceptance {st['acceptance_rate']:.3f}, "
+              f"{st['mean_accepted_len']:.2f} tokens an iteration")
 
 
 if __name__ == "__main__":

@@ -28,6 +28,19 @@ text, wherever RoPE rotates (`_qkv`).  Cross-attention
 the flash kernel, non-causal, where the forward-only routes run it, and
 through `attend` in training and the one-token decode.
 
+Quantized pages: under kv_dtype "int8" / "fp8" a paged plane is stored
+in one byte an entry with a per-token (per kv head) f32 absmax scale in
+a sidecar `<plane>_scale_pages`; writes quantize (kv_quantize, bit for
+bit the JAX package's), decode hands the scales to the paged kernel,
+and the prefill / verify reads dequantize the gathered pages.  Rings and
+recurrent state are never quantized.
+
+Speculative verify (`gqa_verify_paged`; MLA's is `mla_prefill_paged`)
+scores a chunk of C draft tokens for every slot at its own position:
+the chunk's K/V land in the pages first, then every query attends over
+the gathered (dequantized) view, through the flash kernel at per-row
+positions for GQA.
+
 MLA (deepseek-v2's multi-head latent attention) caches a per-token
 latent and one shared rope key.  Its paged decode runs in the absorbed
 form through kernels/ops.paged_attention (one launch per layer for all
@@ -268,6 +281,8 @@ def _put_rows(flat: torch.Tensor, tgt: torch.Tensor, vals: torch.Tensor,
     then always carry equal values, so the unordered index_put_ is
     deterministic and the plane ends as if the dropped rows never wrote.
     """
+    if flat.dtype == torch.float8_e4m3fn:
+        return _put_rows(_raw(flat), tgt, _raw(vals.to(flat.dtype)), valid)
     tgt = torch.where(valid, tgt, 0).clamp(0, flat.shape[1] - 1)
     j = valid.int().argmax()            # first valid row (0 if none)
     t_j = tgt[j]
@@ -422,11 +437,78 @@ def gqa_prefill(params: dict, x: torch.Tensor, cache: dict,
 # member's own layer (the JAX package's clamp), masked by position.
 
 
+# -- quantized pages --------------------------------------------------------
+# kv_dtype selects the storage of paged planes only ("f32" keeps the
+# model's dtype, the unquantized layout bit for bit).  int8 / fp8 planes
+# carry one f32 absmax scale per token and kv head in a sidecar
+# `<plane>_scale_pages` with the page axes leading, so every pool helper
+# (copy_pages, page_bytes, the folded views) treats a sidecar as it
+# treats its plane and a token's write never requantizes its neighbours.
+
+KV_DTYPES = ("f32", "bf16", "int8", "fp8")
+_INT8_MAX = 127.0
+_FP8_MAX = 448.0  # float8_e4m3fn's largest finite value
+
+
+def kv_quantized(kv_dtype: str) -> bool:
+    return kv_dtype in ("int8", "fp8")
+
+
+def kv_storage_dtype(kv_dtype: str, dtype: torch.dtype) -> torch.dtype:
+    """Storage dtype of a paged K/V plane under `kv_dtype` ("f32" keeps
+    the model's dtype)."""
+    if kv_dtype == "f32":
+        return dtype
+    out = {"bf16": torch.bfloat16, "int8": torch.int8,
+           "fp8": torch.float8_e4m3fn}.get(kv_dtype)
+    if out is None:
+        raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, "
+                         f"got {kv_dtype!r}")
+    return out
+
+
+def kv_quantize(vals: torch.Tensor, qdtype: torch.dtype):
+    """(..., d) -> ((..., d) qdtype, (...,) f32 absmax scale), the JAX
+    package's steps in its order: an f32 upcast, scale = absmax over the
+    trailing axis / Q, v / max(scale, 1e-30), for int8 round half to
+    even and clip to +-127, then the cast.  An all-zero vector quantizes
+    to zeros with scale 0.  At the absmax element v / scale may come out
+    a hair above 448; the fp8 cast rounds it to 448."""
+    v = vals.float()
+    integer = not qdtype.is_floating_point
+    scale = v.abs().amax(-1) / (_INT8_MAX if integer else _FP8_MAX)
+    q = v / scale.clamp_min(1e-30)[..., None]
+    if integer:
+        q = torch.round(q).clamp(-_INT8_MAX, _INT8_MAX)
+    return q.to(qdtype), scale
+
+
+def kv_dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Inverse of kv_quantize: f32 values."""
+    return q.float() * scale[..., None]
+
+
+def _scale_name(name: str) -> str:
+    return name[: -len("_pages")] + "_scale_pages"
+
+
+def _raw(x: torch.Tensor) -> torch.Tensor:
+    """fp8 planes are indexed through their bytes (indexing kernels do
+    not all take float8); every other plane as it is."""
+    return x.view(torch.uint8) if x.dtype == torch.float8_e4m3fn else x
+
+
 def gqa_paged_cache_init(a: AttnConfig, lead, n_pages: int, page_size: int,
-                         dtype, device) -> dict:
+                         dtype, device, kv_dtype: str = "f32") -> dict:
+    sdtype = kv_storage_dtype(kv_dtype, dtype)
     shape = (*lead, n_pages, page_size, a.n_kv_heads, a.head_dim)
-    return {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
-            "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
+    c = {"k_pages": torch.zeros(shape, dtype=sdtype, device=device),
+         "v_pages": torch.zeros(shape, dtype=sdtype, device=device)}
+    if kv_quantized(kv_dtype):
+        for name in ("k_scale_pages", "v_scale_pages"):
+            c[name] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                  device=device)
+    return c
 
 
 def _scatter_token(pages: torch.Tensor, vals: torch.Tensor,
@@ -455,18 +537,34 @@ def _gather_pages(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     position."""
     N, page = pages.shape[:2]
     K, B, P = table.shape
-    out = pages[table.long().clamp(0, N - 1)]      # (K, B, P, page, ...)
-    return out.reshape(K * B, P * page, *pages.shape[2:])
+    out = _raw(pages)[table.long().clamp(0, N - 1)]  # (K, B, P, page, ...)
+    return out.view(pages.dtype).reshape(K * B, P * page, *pages.shape[2:])
 
+
+# Quantize on write, dequantize on read: where the layer's cache holds a
+# `<plane>_scale_pages` sidecar the written values are quantized (one
+# scale a token and kv head) and the gathered pages dequantized to f32;
+# otherwise the plane's dtype is a plain cast (none at kv_dtype "f32").
 
 def paged_write_token(cache: dict, name: str, vals: torch.Tensor,
                       table: torch.Tensor, pos: torch.Tensor) -> None:
-    _scatter_token(cache[name], vals, table, pos)
+    sname = _scale_name(name)
+    if sname in cache:
+        q, s = kv_quantize(vals, cache[name].dtype)
+        _scatter_token(cache[name], q, table, pos)
+        _scatter_token(cache[sname], s, table, pos)
+    else:
+        _scatter_token(cache[name], vals, table, pos)
 
 
 def paged_gather(cache: dict, name: str, table: torch.Tensor,
                  out_dtype=None) -> torch.Tensor:
+    """_gather_pages, dequantized where the plane has a scale sidecar,
+    then cast to out_dtype (the compute dtype)."""
     out = _gather_pages(cache[name], table)
+    sname = _scale_name(name)
+    if sname in cache:
+        out = kv_dequantize(out, _gather_pages(cache[sname], table))
     return out if out_dtype is None else out.to(out_dtype)
 
 
@@ -496,7 +594,17 @@ def chunk_cache_write_paged(pages: torch.Tensor, chunk: torch.Tensor,
 def paged_write_chunk(cache: dict, name: str, chunk: torch.Tensor,
                       table: torch.Tensor, idx: torch.Tensor,
                       n_tok: torch.Tensor) -> None:
-    chunk_cache_write_paged(cache[name], chunk, table, idx, n_tok)
+    """chunk_cache_write_paged through the quantize-on-write wrapper.
+    Every row writes at its own position, so this is also the JAX
+    package's batched paged_write_batch / chunk_scatter_batch (its
+    per-slot write takes one row; the port's takes them all)."""
+    sname = _scale_name(name)
+    if sname in cache:
+        q, s = kv_quantize(chunk, cache[name].dtype)
+        chunk_cache_write_paged(cache[name], q, table, idx, n_tok)
+        chunk_cache_write_paged(cache[sname], s, table, idx, n_tok)
+    else:
+        chunk_cache_write_paged(cache[name], chunk, table, idx, n_tok)
 
 
 def gqa_decode_paged(params: dict, x: torch.Tensor, cache: dict,
@@ -522,7 +630,9 @@ def gqa_decode_paged(params: dict, x: torch.Tensor, cache: dict,
                             read_table.reshape(K * B, -1).int()
                             .contiguous(),
                             lens, window=window,
-                            scale=1.0 / math.sqrt(a.head_dim))
+                            scale=1.0 / math.sqrt(a.head_dim),
+                            k_scale=cache.get("k_scale_pages"),
+                            v_scale=cache.get("v_scale_pages"))
     return _out(params, o[:, None], K, B)
 
 
@@ -554,6 +664,36 @@ def gqa_prefill_paged(params: dict, x: torch.Tensor, cache: dict,
                             k_pos=_rows(k_pos, K).int())
     paged_write_chunk(cache, "k_pages", k, table, idx, n_tok)
     paged_write_chunk(cache, "v_pages", v, table, idx, n_tok)
+    return _out(params, o, K, B)
+
+
+def gqa_verify_paged(params: dict, x: torch.Tensor, cache: dict,
+                     pos: torch.Tensor, n_tok: torch.Tensor,
+                     table: torch.Tensor, read_table: torch.Tensor,
+                     a: AttnConfig, cfg: ModelConfig, window: int,
+                     theta: float) -> torch.Tensor:
+    """Score a C-token chunk for every slot over the paged pool: the
+    speculative verify pass.  x (K, B, C, d) chunks at positions pos[b]
+    .. pos[b]+C-1; n_tok (B,) valid tokens a row (0 leaves the pool
+    untouched).  Scatter, then gather, as the JAX package does: the
+    chunk's K/V land in the slot's pages first (quantized on a quantized
+    pool), then every query attends over the gathered, dequantized view
+    of all P*page positions through the flash kernel, query i of row b at
+    position pos[b]+i and key s at s.  Entries past pos[b]+i are stale
+    or padding; causality masks them, and a padded query's output
+    (i >= n_tok) is discarded by the caller.  -> (K, B, C, d)."""
+    K, B, C, _ = x.shape
+    q_pos, _ = _chunk_pos(pos, n_tok, C)
+    q, k, v = _qkv(params, x, a, cfg, q_pos, theta)
+    paged_write_chunk(cache, "k_pages", k, table, pos, n_tok)
+    paged_write_chunk(cache, "v_pages", v, table, pos, n_tok)
+    kk = paged_gather(cache, "k_pages", read_table, k.dtype)
+    vv = paged_gather(cache, "v_pages", read_table, v.dtype)
+    k_pos = torch.arange(kk.shape[1], dtype=torch.int32,
+                         device=x.device).expand(K * B, -1).contiguous()
+    o = ops.flash_attention(_fold(q), kk, vv, causal=True, window=window,
+                            scale=1.0 / math.sqrt(a.head_dim),
+                            q_pos=_rows(q_pos, K).int(), k_pos=k_pos)
     return _out(params, o, K, B)
 
 
@@ -686,13 +826,24 @@ def mla_prefill(params: dict, x: torch.Tensor, cache: dict,
 
 
 def mla_paged_cache_init(a: AttnConfig, lead, n_pages: int, page_size: int,
-                         dtype, device) -> dict:
-    return {"c_kv_pages": torch.zeros(*lead, n_pages, page_size,
-                                      a.kv_lora_rank, dtype=dtype,
-                                      device=device),
-            "k_r_pages": torch.zeros(*lead, n_pages, page_size,
-                                     a.qk_rope_dim, dtype=dtype,
-                                     device=device)}
+                         dtype, device, kv_dtype: str = "f32") -> dict:
+    """The latent pages in kv_dtype's storage.  Under int8 / fp8 the rope
+    keys stay in the model's dtype (they are rope/r of the bytes and
+    feed the kernel as its unquantized k_extra block) and the latent
+    takes one scale a token, "c_kv_scale_pages" (n_pages, page)."""
+    sdtype = kv_storage_dtype(kv_dtype, dtype)
+    quant = kv_quantized(kv_dtype)
+    c = {"c_kv_pages": torch.zeros(*lead, n_pages, page_size,
+                                   a.kv_lora_rank, dtype=sdtype,
+                                   device=device),
+         "k_r_pages": torch.zeros(*lead, n_pages, page_size, a.qk_rope_dim,
+                                  dtype=dtype if quant else sdtype,
+                                  device=device)}
+    if quant:
+        c["c_kv_scale_pages"] = torch.zeros(*lead, n_pages, page_size,
+                                            dtype=torch.float32,
+                                            device=device)
+    return c
 
 
 def mla_decode_paged(params: dict, x: torch.Tensor, cache: dict,
@@ -720,11 +871,15 @@ def mla_decode_paged(params: dict, x: torch.Tensor, cache: dict,
     q_lat = torch.einsum("kbhn,krhn->kbhr", q_c[:, :, 0], w_uk)
     q_abs = torch.cat([q_lat, q_r[:, :, 0]], -1)     # (K, B, H, r + rope)
     latent = cache["c_kv_pages"][:, :, None]          # one "kv head"
+    # a quantized latent's one scale plane scales it as keys and values
+    c_scale = cache.get("c_kv_scale_pages")
+    c_scale = None if c_scale is None else c_scale[:, :, None]
     o_lat = ops.paged_attention(
         _fold(q_abs).contiguous(), latent, latent,
         read_table.reshape(K * B, -1).int().contiguous(),
         (pos.int() + 1).repeat(K),
         scale=1.0 / math.sqrt(a.qk_nope_dim + a.qk_rope_dim),
+        k_scale=c_scale, v_scale=c_scale,
         k_extra=cache["k_r_pages"][:, :, None])       # (K*B, H, r)
     o = torch.einsum("kbhr,krhv->kbhv",
                      o_lat.view(K, B, a.n_heads, -1), w_uv)
@@ -737,9 +892,13 @@ def mla_prefill_paged(params: dict, x: torch.Tensor, cache: dict,
                       a: AttnConfig, cfg: ModelConfig,
                       theta: float) -> torch.Tensor:
     """Multi-token MLA prefill over the paged latent pool: the chunk's
-    latents scatter first, then the slot's pages are gathered, expanded
-    and attended with entries past idx+n_tok masked (the JAX package's
-    mla_prefill_paged).  x (K, B, C, d) -> (K, B, C, d)."""
+    latents scatter first, then the slot's pages are gathered
+    (dequantized), expanded and attended with entries past idx+n_tok
+    masked (the JAX package's mla_prefill_paged).  Every row takes its
+    own position, so this is also the JAX package's mla_verify_paged
+    (speculative verify): its causal-only bias differs from this mask on
+    padded queries alone, whose outputs are discarded.  x (K, B, C, d)
+    -> (K, B, C, d)."""
     C = x.shape[2]
     q_pos, _ = _chunk_pos(idx, n_tok, C)
     q, c_kv, k_r = _mla_qkv(params, x, a)

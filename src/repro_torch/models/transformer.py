@@ -22,6 +22,7 @@ Entry points
   init_slot_cache(cfg, batch, max_seq, ...) -> slot-addressable cache
   decode_step_slots / decode_step_paged     -> (logits (K,B,1,V), cache)
   prefill_slots / prefill_step_paged        -> (last logits (K,B,V), cache)
+  verify_slots / verify_step_paged          -> (logits (K,B,C,V), cache)
 
 `embeds` (B, T, d) or (K, B, T, d) replaces the token embedding (the
 stub frontends' input, qwen2-vl's patches); `enc_embeds` (B, S, d) or
@@ -316,7 +317,8 @@ def layer_pages(cfg: ModelConfig, spec: LayerSpec, max_seq: int) -> bool:
 
 def init_slot_cache(cfg: ModelConfig, batch: int, max_seq: int,
                     page_size: int = 0, n_pages: int = 0, members: int = 1,
-                    device: DeviceLike = None) -> dict:
+                    device: DeviceLike = None,
+                    kv_dtype: str = "f32") -> dict:
     """Slot-addressable decode cache for `members` stacked members.
 
       idx            (K, B) int32           per-slot position
@@ -338,7 +340,11 @@ def init_slot_cache(cfg: ModelConfig, batch: int, max_seq: int,
     With page_size > 0 the full-attention layers (layer_pages) get the
     shared paged pool; the other layers keep per-slot planes (a model
     with no full-attention layer, rwkv6, pages nothing and keeps only
-    the page table)."""
+    the page table).  kv_dtype sets the paged planes' storage
+    (attention.kv_storage_dtype); "int8" / "fp8" add the f32
+    "*_scale_pages" sidecars, (K, count, n_pages, page_size, Hkv) for
+    GQA, "c_kv_scale_pages" (K, count, n_pages, page_size) for MLA.
+    Rings and recurrent state keep the model's dtype."""
     _check_supported(cfg)
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
@@ -356,7 +362,7 @@ def init_slot_cache(cfg: ModelConfig, batch: int, max_seq: int,
                 init_pages = (attn.mla_paged_cache_init if _is_mla(cfg, spec)
                               else attn.gqa_paged_cache_init)
                 c = init_pages(cfg.attn, lead, n_pages, page_size, dtype,
-                               dev)
+                               dev, kv_dtype)
             elif _is_mla(cfg, spec):
                 c = attn.mla_cache_init(cfg.attn, lead, batch, max_seq,
                                         dtype, dev)
@@ -552,9 +558,15 @@ def decode_step_paged(params, cfg: ModelConfig, cache: dict,
 
 
 def _prefill(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
-             n_tok: torch.Tensor):
+             n_tok: torch.Tensor, verify: bool = False):
+    """The chunk step of prefill and of speculative verify.  verify=True
+    keeps the logits of every chunk position and, over the paged pool,
+    scores the chunk through the verify attention (scatter, then gather)
+    with the MoE routing the whole batch as one pool, as the JAX
+    package's paged verify does; there only attention mixers may run."""
     idx = cache["idx"][0]
     table = cache.get("page_table")
+    per_row = not (verify and table is not None)
     x = _sinusoid_at(cfg, embed_lookup(params, tokens, cfg), idx)
     for seg, seg_cache, (count, specs) in zip(
             params["segments"], cache["segments"], cfg.segments()):
@@ -565,6 +577,11 @@ def _prefill(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
                                        table)
                 window, theta = _mixer_window(cfg, spec)
                 h_in = rmsnorm(p["norm_mix"], x, cfg.norm_eps)
+                if verify and table is not None and spec.mixer not in (
+                        "attn", "attn_local"):
+                    raise ValueError(
+                        f"speculative verify needs attention-only layers, "
+                        f"got mixer {spec.mixer!r}")
                 if spec.mixer == "rwkv":
                     h = ssm.rwkv_prefill(p["rwkv"], h_in, lc, n_tok, cfg)
                 elif spec.mixer == "mamba":
@@ -574,9 +591,10 @@ def _prefill(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
                                                n_tok, *tbl, cfg.attn, cfg,
                                                theta)
                 elif tbl is not None:
-                    h = attn.gqa_prefill_paged(p["attn"], h_in, lc, idx,
-                                               n_tok, *tbl, cfg.attn, cfg,
-                                               window, theta)
+                    gqa = (attn.gqa_verify_paged if verify
+                           else attn.gqa_prefill_paged)
+                    h = gqa(p["attn"], h_in, lc, idx, n_tok, *tbl, cfg.attn,
+                            cfg, window, theta)
                 elif _is_mla(cfg, spec):
                     h = attn.mla_prefill(p["attn"], h_in, lc, idx, n_tok,
                                          cfg.attn, cfg, theta)
@@ -586,13 +604,16 @@ def _prefill(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
                 x = _cross(p, cfg, cache, x + h, flash=True)
                 x = x + _ffn_step(p, spec, cfg, lc,
                                   rmsnorm(p["norm_ffn"], x, cfg.norm_eps),
-                                  n_tok)
+                                  n_tok, moe_per_row=per_row)
+    out = dict(cache)
+    out["idx"] = cache["idx"] + n_tok.to(cache["idx"].dtype)
+    if verify:
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        return lm_logits(params, x, cfg), out
     B = tokens.shape[0]
     last = (n_tok.long() - 1).clamp_min(0)             # last valid position
     xl = x[:, torch.arange(B, device=x.device), last][:, :, None]
     xl = rmsnorm(params["final_norm"], xl, cfg.norm_eps)
-    out = dict(cache)
-    out["idx"] = cache["idx"] + n_tok.to(cache["idx"].dtype)
     return lm_logits(params, xl, cfg)[:, :, 0], out
 
 
@@ -615,3 +636,30 @@ def prefill_step_paged(params, cfg: ModelConfig, cache: dict,
     if "page_table" not in cache:
         raise ValueError("prefill_step_paged needs a paged cache")
     return _prefill(params, cfg, cache, tokens, n_tok)
+
+
+def verify_slots(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
+                 n_tok: torch.Tensor):
+    """Per-slot chunk verify over the contiguous pool: prefill_slots that
+    keeps the logits of ALL C positions.  tokens (B, C) at each row's
+    own position; n_tok (B,) valid tokens (0: the row is left
+    untouched).  -> (logits (K, B, C, V), cache with idx + n_tok):
+    logits[:, :, j] is the next-token distribution after chunk entry j,
+    what speculative verify checks every drafted position against.  The
+    chunk's K/V stay in the cache; the caller rolls back what it rejects
+    (kv_cache.restore_positions)."""
+    return _prefill(params, cfg, cache, tokens, n_tok, verify=True)
+
+
+def verify_step_paged(params, cfg: ModelConfig, cache: dict,
+                      tokens: torch.Tensor, n_tok: torch.Tensor):
+    """Score a C-token chunk for EVERY slot over the paged pool, each at
+    its own position: paged layers scatter the chunk, then attend over
+    the gathered pages (attention.gqa_verify_paged, the flash kernel on
+    the card; MLA's mla_prefill_paged), ring layers take their chunk
+    prefill (the flash kernel over the ring plus the chunk).  Same
+    contract as verify_slots; a model with a recurrent mixer raises (its
+    state has no position axis to roll back)."""
+    if "page_table" not in cache:
+        raise ValueError("verify_step_paged needs a paged cache")
+    return _prefill(params, cfg, cache, tokens, n_tok, verify=True)

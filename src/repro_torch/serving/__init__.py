@@ -6,13 +6,15 @@ of prefix.py); Scheduler keeps its slots full with continuous batching
 (batch `run()` or online `serve_forever()`); client drives synthetic
 load in process and reports tok/s, TTFT and latency percentiles; obs
 holds request traces, latency histograms, the tick-phase profiler and
-the Prometheus text plumbing.
+the Prometheus text plumbing; spec/ serves a compressed student as the
+draft of speculative decoding (SpeculativeEngine, DraftEngine).
 """
 from repro_torch.serving.engine import EnsembleEngine, SlotState
 from repro_torch.serving.obs import Histogram, ServingObs, Trace, TraceRing
 from repro_torch.serving.prefix import PrefixCache
 from repro_torch.serving.scheduler import Completion, Request, Scheduler
+from repro_torch.serving.spec import DraftEngine, SpeculativeEngine
 
 __all__ = ["EnsembleEngine", "SlotState", "Scheduler", "Request",
            "Completion", "PrefixCache", "ServingObs", "Trace", "TraceRing",
-           "Histogram"]
+           "Histogram", "SpeculativeEngine", "DraftEngine"]

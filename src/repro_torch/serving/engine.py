@@ -14,7 +14,10 @@ teacher-forcing path as the reference.
 paged=True swaps the full-attention layers' per-slot rows for a shared
 pool of fixed-size pages behind a per-slot page table (host policy,
 kv_cache.PageAllocator); decode reads those pages through the
-hand-written CUDA paged-attention kernel on the card.  prefix_cache=True
+hand-written CUDA paged-attention kernel on the card.  kv_dtype stores
+the pages as "bf16", or quantized as "int8" / "fp8" with per-token
+scales the kernel applies as it reads (paged pools only; "f32" keeps
+the model's dtype).  prefix_cache=True
 (paged engines whose every layer pages) adds the shared-prefix trie of
 serving/prefix.py: an admission attaches the cached pages of its
 prompt's longest cached prefix, copies a partially matched page on
@@ -44,11 +47,10 @@ import torch
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.common.types import ModelConfig
 from repro_torch.core import ensemble as ens
+from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tf
 from repro_torch.serving import kv_cache, sampling
 from repro_torch.serving import prefix as prefix_mod
-
-KV_DTYPES = ("f32", "bf16", "int8", "fp8")
 
 
 class SlotState(NamedTuple):
@@ -107,13 +109,14 @@ class EnsembleEngine:
             raise NotImplementedError(
                 "mesh: sharding the member axis over several cards comes "
                 "with the multi-device slice")
-        if kv_dtype not in KV_DTYPES:
-            raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, "
+        if kv_dtype not in attn.KV_DTYPES:
+            raise ValueError(f"kv_dtype must be one of {attn.KV_DTYPES}, "
                              f"got {kv_dtype!r}")
-        if kv_dtype != "f32":
-            raise NotImplementedError(
-                f"kv_dtype={kv_dtype!r}: quantized KV pages come with the "
-                f"quantized-KV slice (the kernel already takes them)")
+        if kv_dtype != "f32" and not paged:
+            raise ValueError(
+                "kv_dtype != f32 requires paged=True (only paged planes "
+                "are stored quantized; the contiguous pool is the "
+                "bit-exact reference)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = _to(stacked_params, self.device)
@@ -187,7 +190,8 @@ class EnsembleEngine:
         self.cache = kv_cache.init_pool(
             cfg, self.n_members, n_slots, self.max_seq,
             page_size=self.page_size if self.paged else 0,
-            n_pages=self.n_pages if self.paged else 0, device=self.device)
+            n_pages=self.n_pages if self.paged else 0, device=self.device,
+            kv_dtype=kv_dtype)
         if cfg.enc_dec:
             self.cache["enc"] = self._encode_stub(n_slots)
         self.state = self._blank_state()
@@ -315,18 +319,23 @@ class EnsembleEngine:
             live &= self._host_pos >= self._host_plen  # prefill owns prompt
         return live
 
+    def _lookahead(self, b: int) -> int:
+        """Positions slot b's next step may write, from its own (a plain
+        step: one)."""
+        return 1
+
     def reserve_decode_pages(self) -> list:
         """Grow each decoding slot's chain to cover this step's write
-        position; -> slots the free list left starved.  [] when not
+        positions; -> slots the free list left starved.  [] when not
         paged."""
         if not self.paged:
             return []
         starved = []
         for b in np.nonzero(self._host_decoding())[0]:
-            pos = int(self._host_pos[b])
-            if self.allocator.holds(b, pos):
+            last = int(self._host_pos[b]) + self._lookahead(b) - 1
+            if self.allocator.holds(b, last):
                 continue
-            if self.allocator.alloc(b, pos // self.page_size + 1):
+            if self.allocator.alloc(b, last // self.page_size + 1):
                 self._table_stale = True
             else:
                 starved.append(int(b))
@@ -644,6 +653,25 @@ class EnsembleEngine:
             out=torch.where(a2, 0, st.out))
         return hits
 
+    # -- hooks of the speculative subclass -----------------------------------
+
+    def _sync_each_step(self) -> bool:
+        """generate(): read the slot flags after every step and stop once
+        no row is live.  False here: a step emits one token a live row,
+        so the step count is already exact."""
+        return False
+
+    def harvest_extra(self) -> torch.Tensor:
+        """A 1-D int64 tensor the Scheduler's harvest reads in its one
+        device transfer and hands back through note_harvest (here
+        empty)."""
+        return self.state.n_gen.new_zeros(0)
+
+    def note_harvest(self, n_gen: np.ndarray,
+                     extra: Optional[np.ndarray] = None) -> None:
+        """The host copy of every slot's n_gen (and of harvest_extra) from
+        the Scheduler's harvest read (None: a read without it)."""
+
     def generate(self, prompts: Sequence[np.ndarray], max_new: int) -> list:
         """Static-batch decode: admit up to n_slots prompts, run to done.
         The loop waits for the device only at the end (and, on an
@@ -670,10 +698,20 @@ class EnsembleEngine:
             steps = max(plens) + max_new - 1
         sync_done = (self.paged and self.eos_id >= 0
                      and self.n_pages < self.n_slots * self.pages_per_slot)
+        early = self._sync_each_step()
         for _ in range(steps):
             self.step()
-            if sync_done:
-                self._host_active &= ~self.state.done.cpu().numpy()
+            if sync_done or early:
+                st = self.state
+                host = torch.stack([st.active.long(), st.done.long(),
+                                    st.n_gen]).cpu().numpy()
+                done = host[1] != 0
+                if sync_done:
+                    self._host_active &= ~done
+                if early:
+                    self.note_harvest(host[2])
+                    if not (host[0].astype(bool) & ~done).any():
+                        break
         out = self.state.out.cpu().numpy().astype(np.int32)
         n_gen = self.state.n_gen.cpu().numpy()
         return [out[i, :n_gen[i]] for i in range(len(prompts))]

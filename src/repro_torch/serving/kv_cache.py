@@ -7,7 +7,9 @@ One pool holds the caches of all K members for all B batch slots:
   recurrent      (K, count, B, ...)    per-slot state (Mamba's conv and
   leaves                               ssm, rwkv's shift and wkv, the
                                        channel-mix's cmix_shift)
-  paged leaves   (K, count, n_pages, page_size, ...)
+  paged leaves   (K, count, n_pages, page_size, ...), with f32
+                 "*_scale_pages" sidecars (the same leading axes) when
+                 the pool stores int8 / fp8 pages
   page_table     (K, B, ceil(max_seq/page_size))  logical -> physical
   enc            (K, B, S, d)          an encoder-decoder's frames, set
                                        by the engine, never reset
@@ -34,6 +36,7 @@ import torch
 
 from repro_torch.common.device import DeviceLike
 from repro_torch.common.types import ModelConfig
+from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tf
 
 # positional cache planes: stale entries are masked by position
@@ -68,13 +71,17 @@ def _map(tree, fn, name: str = ""):
 
 def init_pool(cfg: ModelConfig, n_members: int, n_slots: int, max_seq: int,
               page_size: int = 0, n_pages: int = 0,
-              device: DeviceLike = None) -> dict:
+              device: DeviceLike = None, kv_dtype: str = "f32") -> dict:
     """Allocate the (K members) x (B slots) cache pool on `device` (the
     card unless given).  page_size > 0 allocates the paged layout with an
-    all-sentinel page table."""
+    all-sentinel page table.  kv_dtype picks the paged planes' storage
+    ("f32" the model's dtype; "bf16"; "int8" / "fp8" quantized with
+    per-token scale sidecars, which end in "_pages" and so are copied,
+    folded and counted with their planes); rings and recurrent state
+    are never quantized."""
     return tf.init_slot_cache(cfg, n_slots, max_seq, page_size=page_size,
                               n_pages=n_pages, members=n_members,
-                              device=device)
+                              device=device, kv_dtype=kv_dtype)
 
 
 def reset_slots(pool: dict, mask: torch.Tensor,
@@ -170,6 +177,64 @@ def keep_frozen(new: dict, old: dict, advance: torch.Tensor) -> dict:
 
     _map2(new["segments"], old["segments"], sel)
     return out
+
+
+# ---------------------------------------------------------------------------
+# speculative rollback: snapshot / restore a window of positions
+# ---------------------------------------------------------------------------
+# A speculative step writes a (gamma+1)-token chunk at positions
+# pos..pos+C-1 and keeps only the accepted prefix.  On full planes the
+# rejected tail is stale and masked once idx rewinds, but a ring plane
+# reuses slot p % S: the tail's writes land on live history (position
+# p - S).  So the step snapshots the C entries a chunk will overwrite,
+# for every positional plane ("k", "v", "c_kv", "k_r"), and puts the
+# rejected tail's back after acceptance.  Paged planes and their scale
+# sidecars are skipped, as in the JAX package: rejected writes there are
+# stale, and the host hands the pages past the accepted length back
+# (PageAllocator.truncate).
+
+
+def snapshot_positions(pool: dict, start: torch.Tensor, length: int) -> dict:
+    """Copy the `length` entries at positions start[b] + t (ring slot
+    (start[b] + t) % S) of every positional plane (K, count, B, S, ...)
+    -> {"segments": same tree, (K, count, B, length, ...) copies, None
+    for every other leaf}."""
+    t = torch.arange(length, device=start.device)
+
+    def grab(name, x):
+        if name not in _POSITIONAL:
+            return None
+        S = x.shape[3]
+        bb = torch.arange(x.shape[2], device=x.device)[:, None]
+        tt = (start.long()[:, None] + t[None, :]) % S          # (B, C)
+        return x[:, :, bb, tt]
+
+    return {"segments": _map(pool["segments"], grab)}
+
+
+def restore_positions(pool: dict, snap: dict, start: torch.Tensor,
+                      keep: torch.Tensor) -> dict:
+    """Put a snapshot's rejected tail back, in place: entries t in
+    [keep[b], C) of row b return to their content before the step; the
+    first keep[b] (accepted tokens) stay as the verify pass wrote them.
+    keep == C leaves the row as it is, keep == 0 rewinds all C.  idx is
+    not touched (the caller sets it)."""
+    def put(name, x, s):
+        if s is None:
+            return x
+        K, count, B, S = x.shape[:4]
+        C = s.shape[3]
+        t = torch.arange(C, device=x.device)[None, :]
+        tgt = (start.long()[:, None] + t) % S                  # (B, C)
+        tgt = tgt + torch.arange(B, device=x.device)[:, None] * S
+        flat = x.view(K * count, B * S, -1)
+        attn._put_rows(flat, tgt.reshape(-1),
+                       s.reshape(K * count, B * C, -1),
+                       (t >= keep.long()[:, None]).reshape(-1))
+        return x
+
+    _map2(pool["segments"], snap["segments"], put)
+    return pool
 
 
 # ---------------------------------------------------------------------------
@@ -376,12 +441,12 @@ class PageAllocator:
         """Shrink `slot` back to n_logical pages; -> pages dropped from
         the chain (freed immediately unless still shared/cached).
 
-        The JAX package's speculative engine rolls its gamma-token
-        lookahead pages back through this (spec decoding is not ported
-        yet).  Chains only ever shrink from the tail (positions are
-        append-only); decode-tail pages are refcount-1 and never
-        trie-cached (a chain's shared prefix sits strictly below the
-        prompt).  Already-short chains are a no-op.
+        The speculative engine (serving/spec/engine.py) hands its
+        gamma-token lookahead pages back through this once it knows
+        each row's accepted length.  Chains only ever shrink from the
+        tail (positions are append-only); decode-tail pages are
+        refcount-1 and never trie-cached (a chain's shared prefix sits
+        strictly below the prompt).  Already-short chains are a no-op.
         """
         n = len(self._chain[slot]) - max(int(n_logical), 0)
         if n <= 0:
@@ -527,6 +592,7 @@ def copy_pages(pool: dict, src: np.ndarray, dst: np.ndarray,
 
     def cp(name, x):  # paged leaves are (K, count, n_pages, page, ...)
         if name.endswith("_pages"):
+            x = attn._raw(x)   # fp8 pages move as their bytes
             s = torch.as_tensor(np.clip(src[keep], 0, n_pages - 1),
                                 device=x.device)
             d = torch.as_tensor(dst[keep], device=x.device)

@@ -50,7 +50,8 @@ MONO = time.monotonic
 
 # canonical span names
 SPAN_EVENTS = ("enqueued", "admitted", "prefix_hit", "prefill_chunk",
-               "first_token", "preempted", "resumed", "done", "cancelled")
+               "first_token", "preempted", "resumed", "spec_step",
+               "done", "cancelled")
 _TERMINAL = ("done", "cancelled")
 
 # log-spaced default bounds: 100us .. ~105s, ratio 2^0.25 (worst-case

@@ -32,9 +32,12 @@ one's slot, pages and prefix-trie references at the next tick boundary
 through the path preemption uses.
 
 Device reads: a tick reads the device once, in `_harvest`, which stacks
-done, n_gen and out into one tensor and copies it to the host in one
+done, n_gen and out (and the engine's harvest_extra, a speculative
+engine's stats vector) into one tensor and copies it to the host in one
 transfer.  Admission, page growth and preemption run on host mirrors,
-so on the card the phases before harvest only enqueue work.
+so on the card the phases before harvest only enqueue work; a
+speculative engine resyncs its host positions from that same read
+(note_harvest).
 
 Threading contract: ONE thread drives tick()/run()/serve_forever(); any
 number of threads may call submit()/cancel()/stop().  Callbacks
@@ -68,12 +71,13 @@ class Request:
     submit_t: float
     on_token: Optional[TokenCallback] = field(default=None, repr=False)
     on_done: Optional[DoneCallback] = field(default=None, repr=False)
-    # per-request sampling overrides; None = engine default.  Validated
-    # at the submit() door against the named limits in
-    # serving/sampling.py (and the model's vocab for top_k).
+    # per-request sampling / speculation overrides; None = engine
+    # default.  Validated at the submit() door against the named limits
+    # in serving/sampling.py (and the model's vocab for top_k).
     temperature: Optional[float] = None
     top_k: Optional[int] = None
     seed: Optional[int] = None
+    draft: Optional[bool] = None
 
 
 @dataclass
@@ -152,6 +156,10 @@ class Scheduler:
         else:
             self.obs = None
         self.profile_dir = profile_dir
+        # a SpeculativeEngine's live host mirror of which slots draft:
+        # harvest stamps spec_step(accepted) spans off it
+        self._spec_draft = (getattr(engine, "_host_draft", None)
+                            if hasattr(engine, "spec_stats") else None)
         self.prefill_budget = (2 * engine.prefill_chunk
                                if prefill_budget is None else prefill_budget)
         self.retain_completions = retain_completions
@@ -190,7 +198,8 @@ class Scheduler:
                on_done: Optional[DoneCallback] = None,
                temperature: Optional[float] = None,
                top_k: Optional[int] = None,
-               seed: Optional[int] = None) -> int:
+               seed: Optional[int] = None,
+               draft: Optional[bool] = None) -> int:
         """Queue a request; returns its id (keyed in .completions).
 
         Validates against the engine's budgets HERE so one oversized
@@ -201,7 +210,9 @@ class Scheduler:
         temperature/top_k/seed override the engine-wide sampling
         defaults for THIS request (None keeps the default; out-of-range
         values are rejected here against the named limits in
-        serving/sampling.py).
+        serving/sampling.py).  draft turns speculative decoding off
+        (False) or on for this request on a SpeculativeEngine (a plain
+        engine ignores it); anything but None or a bool is rejected.
 
         on_token(rid, index, token_id) streams each generated token
         from the harvest that first observes it; on_done(completion)
@@ -211,6 +222,8 @@ class Scheduler:
         t = self.engine.validate_request(tokens, max_new,
                                          temperature=temperature,
                                          top_k=top_k, seed=seed)
+        if draft is not None and not isinstance(draft, (bool, np.bool_)):
+            raise ValueError(f"draft must be a bool or None, got {draft!r}")
         with self._lock:
             rid = self._next_rid
             self._next_rid += 1
@@ -221,7 +234,8 @@ class Scheduler:
             self.pending.append(Request(
                 rid, t, int(max_new), time.time(),
                 on_token=on_token, on_done=on_done,
-                temperature=temperature, top_k=top_k, seed=seed))
+                temperature=temperature, top_k=top_k, seed=seed,
+                draft=draft))
         self._idle.clear()
         self._wake.set()
         return rid
@@ -311,11 +325,13 @@ class Scheduler:
                         break
                     avail -= need
                 req = self.pending.popleft()
-                # only explicitly-set options ride along
+                # only explicitly-set options ride along, so an unset
+                # draft flag takes the engine's default (plain: off,
+                # speculative: on)
                 opts = {k: v for k, v in (
                     ("temperature", req.temperature),
-                    ("top_k", req.top_k), ("seed", req.seed))
-                    if v is not None}
+                    ("top_k", req.top_k), ("seed", req.seed),
+                    ("draft", req.draft)) if v is not None}
                 admits.append((b, req.tokens, req.max_new, opts))
                 self.slots[b] = _SlotMeta(
                     req, now,
@@ -429,10 +445,15 @@ class Scheduler:
         st = self.engine.state
         # ONE device transfer per iteration, the tick's only device read:
         # done, n_gen and every slot's outputs stacked into one tensor
-        # first, instead of a fetch per field or per slot
-        host = torch.cat([st.done.long()[:, None], st.n_gen[:, None],
-                          st.out], 1).cpu().numpy()
+        # first (the engine's extra vector appended), instead of a fetch
+        # per field or per slot
+        rows = torch.cat([st.done.long()[:, None], st.n_gen[:, None],
+                          st.out], 1)
+        flat = torch.cat([rows.reshape(-1),
+                          self.engine.harvest_extra()]).cpu().numpy()
+        host = flat[:rows.numel()].reshape(rows.shape)
         done, n_gen, out = host[:, 0] != 0, host[:, 1], host[:, 2:]
+        self.engine.note_harvest(n_gen, flat[rows.numel():])
         now = time.time()
         obs = self.obs
         now_m = obs_mod.MONO() if obs is not None else 0.0
@@ -448,9 +469,16 @@ class Scheduler:
                 n_new = int(n_gen[b]) - meta.n_seen
                 if n_new > 0:
                     tr = obs.traces.live(meta.req.rid)
-                    if first and tr is not None:
-                        tr.add("first_token")
-                        obs.ttft.observe(now_m - tr.t0)
+                    if first:
+                        if tr is not None:
+                            tr.add("first_token")
+                            obs.ttft.observe(now_m - tr.t0)
+                    elif (tr is not None and self._spec_draft is not None
+                          and self._spec_draft[b]):
+                        # one speculative iteration emitted n_new
+                        # tokens: n_new-1 accepted drafts + the
+                        # verifier's own token
+                        tr.add("spec_step", n_new - 1)
                     if meta.last_token_m is not None:
                         dt = (now_m - meta.last_token_m) / n_new
                         for _ in range(n_new):

@@ -1,13 +1,16 @@
 """Tests of the PyTorch port that need the card (marker `cuda`).
 
 The hand-written CUDA kernels (paged attention, also at deepseek-v2's
-absorbed MLA shape with several head groups a block; flash attention; the
+absorbed MLA shape with several head groups a block, and with bf16
+queries over int8 / fp8 pages; flash attention, also at speculative
+verify's per-row positions; the
 fused distillation loss, forward and backward; the rwkv6 wkv
 recurrence, chunked and single-step; Mamba's selective scan, short-T
 and long-T) against their plain PyTorch versions in every option, their
 input checks, and the engine and the trainer on the card against the
-CPU, including the prefix cache's copy-on-write (kv_cache.copy_pages)
-and a prefill that starts at a mid-page hit; the forward-only kernels'
+CPU, including the prefix cache's copy-on-write (kv_cache.copy_pages),
+a prefill that starts at a mid-page hit, int8 / fp8 pages and the
+speculative engine; the forward-only kernels'
 refusal of inputs that require grad.  Each test skips where there is no
 CUDA device.
 No JAX import, so the file runs on a machine without JAX:
@@ -18,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.common.tree import tree_map
 from repro_torch.configs import registry
 from repro_torch.kernels import distill_loss as dl
 from repro_torch.kernels import flash_attention as fa
@@ -26,6 +30,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import ssm_scan as ssk
 from repro_torch.kernels import wkv6 as wk
 from repro_torch.models import transformer as tf
+from repro_torch.models.attention import kv_quantize
 from repro_torch.serving import kv_cache
 from repro_torch.serving.engine import EnsembleEngine
 
@@ -45,6 +50,10 @@ CASES = {  # name: (q dtype, page dtype, Hkv, dk, dv, dr, window)
     "fp8_scaled": (torch.float32, torch.float8_e4m3fn, 2, 32, 32, 0, 0),
     "k_extra": (torch.float32, torch.float32, 1, 32, 32, 16, 0),
     "int8_odd_rows": (torch.float32, torch.int8, 1, 40, 40, 8, 7),
+    # bf16 queries over quantized pages: the served int8 / fp8 decode
+    "bf16_int8": (torch.bfloat16, torch.int8, 1, 32, 32, 0, 0),
+    "bf16_fp8": (torch.bfloat16, torch.float8_e4m3fn, 2, 32, 32, 0, 0),
+    "bf16_int8_k_extra": (torch.bfloat16, torch.int8, 1, 32, 32, 16, 0),
 }
 
 
@@ -74,20 +83,18 @@ def make_case(name, dev, seed=0, B=6, H=4, page=4, P=6):
         at += n
 
     def rnd(*shape, dtype):
-        x = torch.randn(*shape, generator=g, device=dev)
-        if dtype == torch.int8:
-            return (x * 40).round().clamp(-127, 127).to(torch.int8)
-        return x.to(dtype)
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
 
-    c = dict(q=rnd(B, H, dk + dr, dtype=qdt),
-             k_pages=rnd(n_pages, page, Hkv, dk, dtype=kvdt),
-             v_pages=rnd(n_pages, page, Hkv, dv, dtype=kvdt),
-             table=table, lens=lens.int(), window=window)
+    c = dict(q=rnd(B, H, dk + dr, dtype=qdt), table=table,
+             lens=lens.int(), window=window)
     if kvdt in (torch.int8, torch.float8_e4m3fn):
-        c["k_scale"] = torch.rand(n_pages, page, Hkv, generator=g,
-                                  device=dev) * 0.05
-        c["v_scale"] = torch.rand(n_pages, page, Hkv, generator=g,
-                                  device=dev) * 0.05
+        # pages as the served path writes them: kv_quantize of O(1) values
+        for name, d in (("k", dk), ("v", dv)):
+            c[f"{name}_pages"], c[f"{name}_scale"] = kv_quantize(
+                rnd(n_pages, page, Hkv, d, dtype=torch.float32), kvdt)
+    else:
+        c["k_pages"] = rnd(n_pages, page, Hkv, dk, dtype=kvdt)
+        c["v_pages"] = rnd(n_pages, page, Hkv, dv, dtype=kvdt)
     if dr:
         c["k_extra"] = rnd(n_pages, page, Hkv, dr, dtype=qdt)
     return c
@@ -104,6 +111,22 @@ def test_kernel_matches_plain_version(cuda, name):
     tol = TOL[c["q"].dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                rtol=tol)
+
+
+@pytest.mark.parametrize("name", sorted(n for n, c in CASES.items()
+                                         if c[1] in (torch.int8,
+                                                     torch.float8_e4m3fn)))
+def test_quantized_cases_see_both_scales(cuda, name):
+    """The quantized cases can fail: zeros, or the plain version without
+    k_scale or without v_scale, lie outside the kernel test's tolerance."""
+    c = make_case(name, cuda)
+    want = ref.paged_attention(**c).float()
+    tol = TOL[c["q"].dtype]
+    ones = torch.ones_like(c["k_scale"])
+    for wrong in (torch.zeros_like(want),
+                  ref.paged_attention(**dict(c, k_scale=ones)),
+                  ref.paged_attention(**dict(c, v_scale=ones))):
+        assert not torch.allclose(wrong.float(), want, atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -183,6 +206,88 @@ def test_kernel_at_mla_shape(cuda, dtype, shared):
     want = ref.paged_attention(**c)
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_at_mla_shape_int8_latent(cuda, dtype):
+    """The absorbed MLA decode over an int8 latent: its one scale plane
+    as k_scale and v_scale, the rope keys unquantized as k_extra."""
+    c = _mla_case(cuda, dtype)
+    q, s = kv_quantize(c["k_pages"].float(), torch.int8)
+    c.update(k_pages=q, v_pages=q, k_scale=s, v_scale=s)
+    got = pa.paged_attention(**c)
+    want = ref.paged_attention(**c)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [64, 256])
+def test_flash_kernel_at_verify_positions(cuda, dtype, dh):
+    """Speculative verify's shape: 16 rows of T = 5 queries at per-row
+    positions 300-512 over S = 576 gathered keys at positions 0..575."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(5)
+    N, T, S, H = 16, 5, 576, 4
+    q = torch.randn(N, T, H, dh, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(N, S, 1, dh, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    pos = torch.randint(300, 513, (N,), generator=g, device=cuda)
+    q_pos = (pos[:, None] + torch.arange(T, device=cuda)).int()
+    k_pos = torch.arange(S, device=cuda).expand(N, S).int().contiguous()
+    kw = dict(causal=True, q_pos=q_pos, k_pos=k_pos)
+    got = fa.flash_attention(q, k, v, **kw)
+    want = ref.attention(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_quantized_engine_on_card_matches_cpu(cuda, kv_dtype):
+    """Reduced gemma3-1b (f32) over int8 / fp8 pages: decode launches the
+    paged kernel with the scale planes, and the card's greedy tokens are
+    the CPU's."""
+    cfg = registry.get_config("gemma3-1b", reduced=True).with_(
+        dtype="float32")
+    params = tf.init(cfg, seed=0, device="cpu", members=2)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (3, 11, 16)]
+    outs = []
+    for dev in (cuda, "cpu"):
+        before = pa.paged_attention.launches
+        eng = EnsembleEngine(cfg, params, n_slots=3, max_prompt=16,
+                             max_out=12, paged=True, page_size=4,
+                             kv_dtype=kv_dtype, device=dev)
+        outs.append(eng.generate(prompts, 10))
+        if dev == cuda:
+            assert pa.paged_attention.launches > before
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_speculative_engine_on_card_matches_cpu(cuda, paged):
+    """Reduced gemma3-1b (f32), member 0 drafting for K = 2: the card's
+    greedy tokens are the CPU's and the plain engine's."""
+    from repro_torch.serving.spec import SpeculativeEngine
+    cfg = registry.get_config("gemma3-1b", reduced=True).with_(
+        dtype="float32")
+    params = tf.init(cfg, seed=0, device="cpu", members=2)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (3, 11, 16)]
+    kw = dict(n_slots=3, max_prompt=16, max_out=12, paged=paged,
+              page_size=4, prefill_chunk=8)
+    outs = []
+    for dev in (cuda, "cpu"):
+        spec = SpeculativeEngine(cfg, params,
+                                 tree_map(lambda x: x[0], params),
+                                 gamma=3, device=dev, **kw)
+        outs.append(spec.generate(prompts, 10))
+    plain = EnsembleEngine(cfg, params, device=cuda, **kw).generate(
+        prompts, 10)
+    for a, b, c in zip(*outs, plain):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
 
 
 @pytest.mark.parametrize("name", ["f32", "k_extra", "int8_odd_rows",

@@ -180,10 +180,18 @@ def test_validate_request_names_its_limits(models):
 
 @pytest.mark.parametrize("option", ["mesh", "prefix_cache", "kv_dtype"])
 def test_options_of_later_slices_raise(models, option):
-    """mesh and quantized KV pages come with later slices.  The prefix
-    cache is ported: rwkv6-7b refuses it with the JAX package's reason
-    (its recurrent state is per slot, so a hit could not skip it)."""
-    _, tcfg, _, tp = models
+    """mesh comes with a later slice.  The prefix cache is ported: rwkv6-7b
+    refuses it with the JAX package's reason (its recurrent state is per
+    slot, so a hit could not skip it).  Quantized KV pages are ported: a
+    contiguous pool refuses them with the JAX package's reason."""
+    jcfg, tcfg, jp, tp = models
+    if option == "kv_dtype":
+        with pytest.raises(ValueError) as want:
+            JaxEngine(jcfg, jp, kv_dtype="int8", **KW)
+        with pytest.raises(ValueError, match="paged=True") as got:
+            EnsembleEngine(tcfg, tp, device="cpu", kv_dtype="int8", **KW)
+        assert str(got.value) == str(want.value)
+        return
     if option == "prefix_cache":
         kw = dict(KW, prefix_cache=True, paged=True)
         rcfg = treg.get_config("rwkv6-7b", reduced=True)
@@ -196,10 +204,8 @@ def test_options_of_later_slices_raise(models, option):
                            device="cpu", **kw)
         assert str(got.value) == str(want.value)
         return
-    kw = {"mesh": dict(mesh=object()), "kv_dtype": dict(
-        kv_dtype="int8", paged=True)}[option]
     with pytest.raises(NotImplementedError):
-        EnsembleEngine(tcfg, tp, device="cpu", **dict(KW, **kw))
+        EnsembleEngine(tcfg, tp, device="cpu", **dict(KW, mesh=object()))
 
 
 @pytest.mark.parametrize("entry", ["init", "engine", "bridge", "pool"])
