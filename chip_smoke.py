@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, one JSON line each, in the order 0, 1, 7, 10, 11, 2, 8, 9, 12,
-16, 17, 18, 13, 19, 20, 3, 4, 5, 6, 14, 15:
+16, 17, 18, 13, 19, 20, 21, 3, 4, 5, 6, 14, 15:
   0  the card's name and power limit; build every CUDA kernel from
      src/repro_torch/kernels/csrc (one nvcc per source, all at once);
      every kernel function's registers and spills (ptxas) and each
@@ -125,6 +125,28 @@ Phases, one JSON line each, in the order 0, 1, 7, 10, 11, 2, 8, 9, 12,
      emitted lengths, tokens an iteration, generate's seconds in prefill
      calls and the rest for each run and the plain engine, and for member
      0's run host and busy ms an iteration, idle share, peak memory;
+ 21  the network tier at full width: gemma3-1b in f32, K = 4, paged,
+     phase 2's prompts and 32 new tokens.  21a: two in-process replicas
+     behind Router and FrontendServer (127.0.0.1, an ephemeral port), 8
+     requests through one engine's Scheduler.run alone (the baseline
+     the two replicas' loop threads are held against), then from client
+     threads through the router alone and then over HTTP (half JSON,
+     half SSE): tokens equal the engines' in-process
+     generate on every step whose fused margin clears 2e-5, /healthz shows
+     whole pools after the drain, paged attention launches once per paged
+     layer per decode step and flash attention once per attention layer
+     per prefill call (the HTTP run's counts are the kernels line's
+     "gemma3-1b http"); then the requests again, 0.5 s apart, while
+     Router.rollout swaps both replicas to seed 1: none dropped, each on
+     the old or the new weights, and afterwards a fresh seed-1 engine's
+     tokens; tok/s, client TTFT p50 / p99 and the server's percentiles
+     from /metrics.  21b: a FleetRouter of two replica processes on the
+     card from one EngineSpec (each child's weight digest equal to the
+     parent's), 32 threaded requests, one child SIGKILLed after 8
+     completions and restarted: every request completes, token-exact
+     against 21a's references under the margin rule, both pools whole,
+     SIGTERM exits 0; spawn-to-ready and restart seconds, tok/s, retried
+     and latched counts, each child's peak memory;
   3  the card against the CPU end to end on reduced gemma3-1b,
      deepseek-7b, rwkv6-7b, jamba-v0.1-52b, deepseek-v2-236b, whisper-tiny
      (contiguous) and qwen2-vl-2b at f32: identical greedy tokens and
@@ -921,12 +943,14 @@ def profile_steps(torch, run, n: int, names=()) -> dict:
     whose name holds it, `wall_ms` is the host clock of the profiled
     window per step.
     The profiler slows the host, so for a host-bound step the idle share
-    is taken against the unprofiled step time instead."""
+    is taken against the unprofiled step time instead.  It records the
+    card's activity only: nothing here reads the host's op events, and
+    recording them made each profiled window cost the host several times
+    its own length (the busy ms are the same either way)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -1573,15 +1597,21 @@ def shallow_draft(params, cfg, n_layers):
     return draft, dcfg
 
 
-def noisy_draft(torch, params, sigma: float, seed: int = 1):
-    """Member 0 plus N(0, (sigma * the leaf's std)^2) noise on every leaf,
-    drawn from a seeded generator, as a K = 1 stack."""
+def noisy(torch, params, sigma: float, seed: int = 1):
+    """params plus N(0, (sigma * the leaf's std)^2) noise on every leaf,
+    drawn from a seeded generator."""
     from repro_torch.common.tree import tree_map
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
-    return tree_map(lambda x: x[:1] + sigma * x[:1].float().std()
-                    * torch.randn(x[:1].shape, generator=gen,
-                                  device="cuda"), params)
+    return tree_map(lambda x: x + sigma * x.float().std()
+                    * torch.randn(x.shape, generator=gen, device="cuda"),
+                    params)
+
+
+def noisy_draft(torch, params, sigma: float, seed: int = 1):
+    """Member 0 plus noisy()'s noise, as a K = 1 stack."""
+    from repro_torch.common.tree import tree_map
+    return noisy(torch, tree_map(lambda x: x[:1], params), sigma, seed)
 
 
 def spec_run(torch, np, cfg, params, draft, prompts, ref, margins, kw,
@@ -1802,6 +1832,445 @@ def phase20(torch, np, card) -> dict:
     del params
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the network tier at full width (gemma3-1b, f32)
+# ---------------------------------------------------------------------------
+
+# 21a: 8 requests (phase 2's four prompts, twice; half JSON, half SSE)
+# over two in-process replicas, then again, 0.5 s apart, while a rollout
+# runs to the same weights plus noise of `rollout_noise` std a leaf (the
+# random members repeat each prompt's last token at any seed; this noise
+# makes every prompt's greedy tokens differ from the first token on);
+# 21b: `fleet_requests` over two replica processes, one SIGKILLed after
+# `kill_after` completions and restarted
+NET = dict(requests=8, fleet_requests=32, kill_after=8, rollout_noise=2.0,
+           margin=2e-5, timeout=600.0)
+
+
+def net_spec():
+    """The EngineSpec both halves serve: gemma3-1b at full width and
+    depth, f32, K = 4, paged (page 16), 4 slots, phase 2's sizes, on the
+    card."""
+    from repro_torch.serving.frontend import EngineSpec
+    return EngineSpec(arch="gemma3-1b", reduced=False, dtype="float32",
+                      members=4, seed=0, n_slots=SERVE["slots"],
+                      max_prompt=SERVE["max_prompt"],
+                      max_out=SERVE["max_out"], paged=True,
+                      page_size=SERVE["page"])
+
+
+def margin_check(np, toks, ref, margins, what: str) -> int:
+    """Tokens against a reference under the margin rule: equal up to the
+    first fork, and the fused top-2 margin at a fork below NET's.  ->
+    the steps compared."""
+    toks, ref = np.asarray(toks), np.asarray(ref)
+    if len(toks) != len(ref):
+        raise AssertionError(f"{what}: {len(toks)} tokens, reference "
+                             f"{len(ref)}")
+    diff = np.nonzero(toks != ref)[0]
+    if diff.size and margins[diff[0]] >= NET["margin"]:
+        raise AssertionError(f"{what}: tokens fork from the reference at "
+                             f"step {diff[0]}, fused margin "
+                             f"{margins[diff[0]]:.3g} >= {NET['margin']}")
+    return int(diff[0]) if diff.size else len(ref)
+
+
+def fire(jobs, call, stagger: float = 0.0) -> tuple:
+    """call(*job) for each job on its own thread, job i after i x
+    `stagger` seconds.  -> ({index: result}, [errors], wall seconds)."""
+    import threading
+
+    results, errors = {}, []
+
+    def run(i, job):
+        time.sleep(i * stagger)
+        try:
+            results[i] = call(*job)
+        except Exception as e:  # noqa: BLE001 - a dropped request fails
+            errors.append((i, repr(e)))
+
+    threads = [threading.Thread(target=run, args=(i, job), daemon=True)
+               for i, job in enumerate(jobs)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(NET["timeout"])
+    return results, errors, time.perf_counter() - t0
+
+
+def fire_async(jobs, call, stagger: float = 0.0) -> tuple:
+    """fire() on a thread of its own.  -> (the thread, a dict that gets
+    "results", "errors" and "wall" when it ends)."""
+    import threading
+    box = {}
+    t = threading.Thread(target=lambda: box.update(zip(
+        ("results", "errors", "wall"), fire(jobs, call, stagger))),
+        daemon=True)
+    t.start()
+    return t, box
+
+
+def pct(np, xs, q):
+    return float(np.percentile(np.asarray(xs), q)) if len(xs) else None
+
+
+def phase21(torch, np, card) -> dict:
+    """21a: two Replicas of full-width gemma3-1b (f32, K = 4, paged)
+    behind Router and FrontendServer on 127.0.0.1; 8 requests through
+    one engine's Scheduler.run alone, then from client threads through
+    the router alone and then over HTTP (half
+    JSON, half SSE): tokens equal the same engines' in-process generate
+    wherever the fused margin clears 2e-5, the page pools are whole in
+    /healthz after the drain, paged attention launches once per paged
+    layer per decode step and flash attention once per attention layer
+    per prefill call; then the same requests while Router.rollout swaps
+    the weights both replicas share to noisy ones: none dropped, each on
+    the old or the new weights (whose tokens differ for every prompt, and
+    differ between prompts), those sent after the drain began on the new,
+    and afterwards only a fresh engine's tokens on the new.  21b: a
+    FleetRouter of two replica processes on the card from one
+    EngineSpec (their weights' digests equal the parent's), 32 threaded
+    requests, one child SIGKILLed after 8 completions and restarted:
+    every request completes, token-exact against 21a's references under
+    the margin rule, both pools end whole, SIGTERM exits 0.  -> the HTTP
+    run's launches of both kernels."""
+    import gc
+    import threading
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import client
+    from repro_torch.serving.engine import EnsembleEngine
+    from repro_torch.serving.frontend import (FleetRouter, FrontendServer,
+                                              Replica, Router)
+    from repro_torch.serving.scheduler import Scheduler
+    from repro_torch.serving.frontend.replica import param_digest
+    t_phase = time.perf_counter()
+    spec = net_spec()
+    cfg = spec.config()
+    K, n_new = spec.members, SERVE["new_tokens"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = spec.init_params()
+    digest = param_digest(params)
+    kw = dict(n_slots=spec.n_slots, max_prompt=spec.max_prompt,
+              max_out=spec.max_out, paged=True, page_size=spec.page_size,
+              device="cuda")
+    # two replicas over one set of weights: a rollout drains and swaps
+    # them together
+    engines = [EnsembleEngine(cfg, params, **kw) for _ in range(2)]
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n)
+               for n in SERVE["prompt_lens"]]
+    # the in-process references (each engine's first run also loads the
+    # kernels and makes their first launches)
+    refs = [e.generate(prompts, max_new=n_new) for e in engines]
+    for e in engines:
+        e.update_slots(release=range(e.n_slots))
+    for a, b in zip(*refs):
+        if not np.array_equal(a, b):
+            raise AssertionError("the two replicas' engines disagree")
+    ref = refs[0]
+    if len({tuple(r) for r in ref}) != len(ref):
+        raise AssertionError("two prompts' references are the same: a "
+                             "response sent to the wrong client would pass")
+    margins = [fused_margins(torch, np, params, cfg, p, r)
+               for p, r in zip(prompts, ref)]
+    n_paged = n_paged_layers(cfg, engines[0].max_seq, tf)
+    n_attn = attention_layers(cfg)
+    jobs = [(prompts[i % 4], n_new, i % 2 == 0)
+            for i in range(NET["requests"])]
+    # the same requests through one engine's Scheduler.run on this
+    # thread alone: what the two replicas' loop threads are held against
+    sched = Scheduler(engines[0])
+    for toks, m, _ in jobs:
+        sched.submit(toks, m)
+    t0 = time.perf_counter()
+    comps = sched.run()
+    one_s = time.perf_counter() - t0
+    for i, c in comps.items():
+        margin_check(np, c.tokens, ref[i % 4], margins[i % 4],
+                     f"one-engine request {i}")
+    one = {"wall_s": one_s,
+           "tok_per_s": sum(len(c.tokens) for c in comps.values()) / one_s,
+           "ttft_p50_ms": pct(np, [c.ttft for c in comps.values()], 50)
+           * 1e3,
+           "ttft_p99_ms": pct(np, [c.ttft for c in comps.values()], 99)
+           * 1e3}
+    engines[0].assert_pool_whole()
+    del sched, comps
+    reps = [Replica(f"r{i}", e) for i, e in enumerate(engines)]
+    router = Router(reps)
+    srv = FrontendServer(router)
+    srv.start()
+    kernels = {"paged_attention": pa.paged_attention,
+               "flash_attention": fa.flash_attention}
+
+    def counted(run):
+        """run() with both kernels' counts from 0, then the formula:
+        -> (run's value, launches, decode steps, prefill calls)."""
+        steps0 = sum(e.steps_run for e in engines)
+        pre0 = sum(e.prefills_run for e in engines)
+        for fn in kernels.values():
+            fn.launches = 0
+        out = run()
+        if not router.wait_idle(timeout=NET["timeout"]):
+            raise AssertionError("the replicas did not quiesce")
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        steps = sum(e.steps_run for e in engines) - steps0
+        prefills = sum(e.prefills_run for e in engines) - pre0
+        want = {"paged_attention": n_paged * steps,
+                "flash_attention": n_attn * prefills}
+        if launches != want:
+            raise AssertionError(
+                f"phase 21 launches {launches}, expected {n_paged} paged "
+                f"layers x {steps} decode steps and {n_attn} attention "
+                f"layers x {prefills} prefill calls")
+        return out, launches, steps, prefills
+
+    def in_process(toks, max_new, _stream):
+        """One request through the router alone (no socket)."""
+        done, got = threading.Event(), {}
+        t0 = time.perf_counter()
+
+        def first(_rid, _i, _tok):
+            got.setdefault("ttft", time.perf_counter() - t0)
+
+        router.submit(toks, max_new, on_token=first,
+                      on_done=lambda c: (got.setdefault("c", c),
+                                         done.set()))
+        if not done.wait(NET["timeout"]):
+            raise AssertionError("an in-process request never completed")
+        return {"tokens": got["c"].tokens.tolist(), "ttft": got["ttft"],
+                "latency": time.perf_counter() - t0}
+
+    def over_http(toks, max_new, stream):
+        return client.http_generate(srv.url, toks, max_new, stream=stream)
+
+    def run_of(call):
+        results, errors, wall = fire(jobs, call)
+        if errors or len(results) != len(jobs):
+            raise AssertionError(f"phase 21: {len(errors)} requests "
+                                 f"failed: {errors[:2]}")
+        compared = sum(margin_check(np, results[i]["tokens"], ref[i % 4],
+                                    margins[i % 4], f"request {i}")
+                       for i in range(len(jobs)))
+        ttft = [r["ttft"] for r in results.values()
+                if r["ttft"] is not None]
+        n_tok = sum(len(r["tokens"]) for r in results.values())
+        return {"wall_s": wall, "tok_per_s": n_tok / wall,
+                "ttft_p50_ms": pct(np, ttft, 50) * 1e3,
+                "ttft_p99_ms": pct(np, ttft, 99) * 1e3,
+                "latency_p50_ms": pct(np, [r["latency"] for r in
+                                           results.values()], 50) * 1e3,
+                "steps_compared": compared, "results": results}
+
+    try:
+        try:
+            local, local_launch, _, _ = counted(lambda: run_of(in_process))
+            http, launches, steps, prefills = counted(
+                lambda: run_of(over_http))
+            health = client.http_get_json(srv.url, "/healthz")
+            for r in health["replicas"]:
+                if r["available_pages"] != r["n_pages"] or r["live_slots"]:
+                    raise AssertionError(f"{r['name']}: pool not whole "
+                                         f"after the drain: {r}")
+            served = [r["completed"] for r in health["replicas"]]
+            if min(served) == 0:
+                raise AssertionError(f"one replica served nothing: {served}")
+            server = client.server_percentiles(
+                client.http_get_text(srv.url, "/metrics"))
+            emit({"phase": 21, "part": "a", "card": card, "arch": cfg.name,
+                  "dtype": cfg.dtype, "members": K,
+                  "replicas": len(engines), "slots": spec.n_slots,
+                  "prompt_lens": SERVE["prompt_lens"], "new_tokens": n_new,
+                  "requests": len(jobs),
+                  "launch_formula": f"paged_attention {n_paged} paged "
+                                    f"layers x decode steps, "
+                                    f"flash_attention {n_attn} attention "
+                                    f"layers x prefill calls",
+                  "launches": launches, "decode_steps": steps,
+                  "prefill_calls": prefills, "local_launches": local_launch,
+                  "margin": NET["margin"],
+                  **{f"one_engine_{k}": v for k, v in one.items()},
+                  **{f"in_process_{k}": v for k, v in local.items()
+                     if k != "results"},
+                  **{f"http_{k}": v for k, v in http.items()
+                     if k != "results"},
+                  "server_percentiles": server, "served_by_replica": served,
+                  "params_digest": digest,
+                  "phase_s": time.perf_counter() - t_phase})
+            # the rollout: new weights, a fresh engine's references,
+            # which must differ from the old for every prompt (from the
+            # first token on) and between prompts
+            new = noisy(torch, params, NET["rollout_noise"])
+            fresh = EnsembleEngine(cfg, new, **kw)
+            ref_new = fresh.generate(prompts, max_new=n_new)
+            del fresh
+            if any(a[0] == b[0] for a, b in zip(ref, ref_new)) or \
+                    len({tuple(r) for r in ref_new}) != len(ref_new):
+                raise AssertionError(
+                    f"the rollout's weights do not tell their tokens "
+                    f"apart: first tokens {[int(r[0]) for r in ref]} -> "
+                    f"{[int(r[0]) for r in ref_new]}")
+            new_digest = param_digest(new)
+            if [param_digest(e.params) for e in engines] != [digest] * 2:
+                raise AssertionError("a replica's weights changed before "
+                                     "the rollout")
+            margins_new = [fused_margins(torch, np, new, cfg, p, r)
+                           for p, r in zip(prompts, ref_new)]
+            # requests are sent 0.5 s apart; the rollout starts after the
+            # third is submitted, so later ones meet the drained replicas
+
+            def sent_over_http(toks, max_new, stream):
+                sent = time.perf_counter()
+                return dict(over_http(toks, max_new, stream), sent=sent)
+
+            submitted = router.n_submitted
+            loader, box = fire_async(jobs, sent_over_http, stagger=0.5)
+            while router.n_submitted < submitted + 3:
+                time.sleep(0.01)
+            t0 = time.perf_counter()
+            router.rollout(new)
+            roll_s = time.perf_counter() - t0
+            loader.join(NET["timeout"])
+            if box.get("errors") or len(box.get("results", {})) != len(jobs):
+                raise AssertionError(f"rollout under load dropped "
+                                     f"requests: {box.get('errors')}")
+            on_new, late = 0, 0
+            for i, r in box["results"].items():
+                # the first token tells the weights apart (checked above)
+                is_new = bool(r["tokens"][0] == ref_new[i % 4][0])
+                margin_check(np, r["tokens"], (ref_new if is_new else ref)
+                             [i % 4], (margins_new if is_new else margins)
+                             [i % 4], f"request {i}")
+                on_new += is_new
+                # the replicas share their weights, so they drain as one
+                # the moment the rollout begins: what is sent later
+                # (with half a stagger for the handler) waits in the
+                # backlog and is served on the new weights
+                if r["sent"] > t0 + 0.25:
+                    late += 1
+                    if not is_new:
+                        raise AssertionError(
+                            f"request {i}, sent {r['sent'] - t0:.2f} s "
+                            f"after the rollout began, was served on the "
+                            f"old weights")
+            if not late or len(jobs) - on_new < 3:
+                raise AssertionError(
+                    f"{on_new} of {len(jobs)} requests on the new weights, "
+                    f"{late} sent after the rollout began: expected the "
+                    f"first 3 on the old and some on the new")
+            post = client.http_generate(srv.url, prompts[0], n_new,
+                                        stream=True)
+            margin_check(np, post["tokens"], ref_new[0], margins_new[0],
+                         "after the rollout")
+            if [e.swaps_done for e in engines] != [1, 1] or \
+                    [param_digest(e.params) for e in engines] != \
+                    [new_digest] * 2:
+                raise AssertionError("the rollout did not swap both")
+            peak_a = torch.cuda.max_memory_allocated()
+        finally:
+            srv.shutdown(drain=True)
+        emit({"phase": 21, "part": "a rollout", "card": card,
+              "requests": len(jobs), "stagger_s": 0.5,
+              "rollout_s": roll_s, "requests_on_new_tokens": on_new,
+              "requests_sent_after_rollout_began": late,
+              "rollout_noise": NET["rollout_noise"],
+              "first_tokens": [int(r[0]) for r in ref],
+              "first_tokens_new": [int(r[0]) for r in ref_new],
+              "min_margin": float(min(m.min() for m in margins)),
+              "min_margin_new": float(min(m.min() for m in margins_new)),
+              "params_digest_new": new_digest,
+              "max_memory_allocated": peak_a,
+              "phase_s": time.perf_counter() - t_phase})
+        del reps, router, srv, engines, new, params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 21b: the same spec in two processes on the card
+        fleet = FleetRouter(spec, n=2)
+        t0 = time.perf_counter()
+        try:
+            fleet.start(timeout=NET["timeout"])
+            spawn_s = time.perf_counter() - t0
+            digests = [p.digest for p in fleet.procs]
+            if digests != [digest, digest]:
+                raise AssertionError(f"children's weights {digests} != the "
+                                     f"parent's {digest}")
+            lock = threading.Lock()
+            count = {"done": 0}
+
+            def fleet_call(toks, max_new, st):
+                out = fleet.generate(toks, max_new, stream=st, retries=5,
+                                     timeout=NET["timeout"])
+                with lock:
+                    count["done"] += 1
+                return out
+
+            fjobs = [(prompts[i % 4], n_new, i % 2 == 0)
+                     for i in range(NET["fleet_requests"])]
+            loader, box = fire_async(fjobs, fleet_call)
+            deadline = time.time() + NET["timeout"]
+            while count["done"] < NET["kill_after"] and \
+                    time.time() < deadline:
+                time.sleep(0.01)
+            done_at_kill = count["done"]
+            fleet.procs[1].kill()
+            dead = fleet.health_sweep()
+            t0 = time.perf_counter()
+            fleet.restart("p1", timeout=NET["timeout"])
+            restart_s = time.perf_counter() - t0
+            loader.join(NET["timeout"])
+            if box.get("errors") or len(box.get("results", {})) != \
+                    len(fjobs):
+                raise AssertionError(f"the fleet dropped requests: "
+                                     f"{box.get('errors')}")
+            compared = sum(margin_check(np, box["results"][i]["tokens"],
+                                        ref[i % 4], margins[i % 4],
+                                        f"fleet request {i}")
+                           for i in range(len(fjobs)))
+            if fleet.procs[1].digest != digest:
+                raise AssertionError("the restarted child's weights differ")
+            pools = []
+            for p in fleet.procs:
+                deadline = time.time() + 60.0
+                while True:
+                    r = p.healthz()["replicas"][0]
+                    if (r["live_slots"] == 0 and r["pending"] == 0
+                            and r["available_pages"] == r["n_pages"]):
+                        break
+                    if time.time() > deadline:
+                        raise AssertionError(f"{p.name}: pool not whole: "
+                                             f"{r}")
+                    time.sleep(0.05)
+                pools.append([r["available_pages"], r["n_pages"]])
+            stats = fleet.stats()
+            n_tok = sum(len(r["tokens"]) for r in box["results"].values())
+        finally:
+            codes = [p.terminate(timeout=120.0) for p in fleet.procs]
+        if codes != [0, 0]:
+            raise AssertionError(f"children exited {codes} on SIGTERM")
+        emit({"phase": 21, "part": "b", "card": card, "arch": cfg.name,
+              "dtype": cfg.dtype, "members": K, "processes": 2,
+              "requests": len(fjobs), "spawn_to_ready_s": spawn_s,
+              "restart_s": restart_s, "completed_at_kill": done_at_kill,
+              "swept_dead": dead, "wall_s": box["wall"],
+              "tok_per_s": n_tok / box["wall"], "steps_compared": compared,
+              "retried": stats["retried"], "latched": stats["latched"],
+              "backoffs": stats["backoffs"], "restarts": stats["restarts"],
+              "pools_whole": pools, "exit_codes": codes,
+              "peak_memory_per_child": [p.peak_memory
+                                        for p in fleet.procs],
+              "phase_s": time.perf_counter() - t_phase})
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2926,6 +3395,7 @@ def main() -> int:
     launches_cont = phase13(torch, np, card)
     launches_quant = phase19(torch, np, card, bf16_pages)
     launches_spec = phase20(torch, np, card)
+    launches_http = phase21(torch, np, card)
     for arch in launches:
         phase3(torch, np, arch)
     phase3_quant_spec(torch, np)
@@ -2963,6 +3433,8 @@ def main() -> int:
         for path, n in launches_spec.items():
             if kernel in n:
                 out[f"gemma3-1b {path}"] = n[kernel]
+        if kernel in launches_http:
+            out["gemma3-1b http"] = launches_http[kernel]
         if kernel in lm_launches:
             out["gemma3-1b train"] = lm_launches[kernel]
         for arch, n in ssm_launches.items():

@@ -22,6 +22,25 @@ rejection-samples temperature > 0 requests (both with --draft-ckpt).
   python -m repro_torch.launch.serve --arch gemma3-1b --reduced \
       --members 4 --paged --kv-dtype int8 --draft-ckpt member0 --gamma 4
 
+HTTP frontend (SSE streaming, /metrics, /healthz; N replicas behind a
+least-loaded router, each with its own copy of the weights; Ctrl-C
+drains gracefully):
+
+  python -m repro_torch.launch.serve --arch gemma3-1b --members 4 \
+      --paged --http --port 8000 --replicas 2
+  curl -s localhost:8000/v1/generate -d '{"tokens":[1,2,3],"max_new":8}'
+
+--fleet runs each replica as its own OS process (repro_torch.serving.
+frontend.replica, on the device --device names) behind a crash-latching
+FleetRouter; --load drives --requests synthetic requests through either
+and prints the report instead of serving until Ctrl-C.  --watch-ckpt DIR
+polls a checkpoint root (checkpoint/store.py) and rolls each newly
+committed round into the fleet with the drain -> swap -> rejoin rollout
+(--canary stages it on one replica first).
+
+  python -m repro_torch.launch.serve --reduced --members 2 --http \
+      --replicas 2 --load --requests 8 --device cpu --dtype float32
+
 The static batch prints tokens per second (host clock around a generate
 call that ends in a device synchronise, after a warm-up call) and a
 sample; --continuous serves --requests synthetic requests through the
@@ -33,10 +52,187 @@ name and power limit (nvidia-smi --query-gpu=name,power.limit
 from __future__ import annotations
 
 import argparse
+import threading
 import time
 
 import numpy as np
 import torch
+
+
+def _load_requests(args, cfg):
+    from repro_torch.serving import client
+    return client.make_requests(
+        args.requests, cfg.vocab_size,
+        prompt_len=(max(2, args.prompt_len // 4), args.prompt_len),
+        max_new=(max(1, args.steps // 2), args.steps), seed=args.seed)
+
+
+def serve_http(args, cfg, build_engine) -> int:
+    """Mount --replicas engines behind the router + HTTP frontend."""
+    from repro_torch.serving import client
+    from repro_torch.serving.frontend import Replica, Router, serve_frontend
+
+    replicas = [Replica(f"r{i}", build_engine(),
+                        prefill_budget=args.prefill_budget,
+                        obs=not args.no_obs,
+                        trace_log=args.trace_log or None,
+                        profile_dir=args.profile_dir or None)
+                for i in range(max(1, args.replicas))]
+    for r in replicas:   # warm-up: load the kernels, first launches
+        r.engine.generate([np.arange(1, min(4, args.prompt_len) + 1)],
+                          max_new=2)
+        r.engine.update_slots(release=range(r.engine.n_slots))
+    router = Router(replicas, max_queue_depth=args.max_queue_depth)
+    srv = serve_frontend(router, host=args.host, port=args.port,
+                         verbose=not args.load,
+                         profile_dir=args.profile_dir or None)
+    print(f"frontend: {srv.url}  ({len(replicas)} replica(s), "
+          f"K={replicas[0].engine.n_members} members, "
+          f"{replicas[0].engine.n_slots} slots each)")
+    print(f"  POST {srv.url}/v1/generate  "
+          '{"tokens": [...], "max_new": N, "stream": true|false}')
+    print(f"  GET  {srv.url}/healthz   GET  {srv.url}/metrics")
+    rc = 0
+    try:
+        if args.load:
+            report = client.run_http_load(
+                srv.url, _load_requests(args, cfg),
+                concurrency=2 * len(replicas))
+            client.print_report(report)
+            rc = 1 if report["n_errors"] else 0
+        elif args.watch_ckpt:
+            watch_checkpoints(args.watch_ckpt, router, canary=args.canary)
+        else:
+            while True:
+                time.sleep(3600)
+    except KeyboardInterrupt:
+        print("\ndraining ...")
+    finally:
+        srv.shutdown(drain=True)
+    print("drained; bye")
+    return rc
+
+
+def serve_fleet(args, cfg) -> int:
+    """--fleet: each replica its own OS process behind a FleetRouter.
+
+    The processes rebuild bit-identical engines from one EngineSpec
+    (seed-pinned init on the spec's device), so a request retried after
+    a crash is token-exact.  --load drives the synthetic requests through
+    the fleet with crash-retry and 429 backoff; --watch-ckpt rolls new
+    rounds out over POST /admin/swap (with --canary staging)."""
+    from repro_torch.serving.frontend import EngineSpec, FleetRouter
+
+    if args.draft_ckpt not in ("", "member0"):
+        raise SystemExit("--fleet drafts with --draft-ckpt member0 only "
+                         "(the spec's ckpt restores the members)")
+    spec = EngineSpec(
+        arch=args.arch, reduced=args.reduced, dtype=args.dtype or "",
+        members=args.members, seed=args.seed,
+        n_slots=args.batch, max_prompt=args.prompt_len,
+        max_out=args.steps, prefill_chunk=args.prefill_chunk,
+        temperature=args.temperature, top_k=args.top_k,
+        eos_id=args.eos_id,
+        quorum=([float(x) for x in args.quorum.split(",")]
+                if args.quorum else None),
+        paged=args.paged, page_size=args.page_size,
+        n_pages=args.n_pages, prefix_cache=args.prefix_cache,
+        kv_dtype=args.kv_dtype, draft_member0=bool(args.draft_ckpt),
+        gamma=args.gamma, spec_sampling=args.spec_sampling,
+        prefill_budget=args.prefill_budget,
+        obs=not args.no_obs, trace_log=args.trace_log,
+        profile_dir=args.profile_dir, device=args.device or "")
+    fleet = FleetRouter(spec, n=max(1, args.replicas), host=args.host,
+                        max_queue_depth=args.max_queue_depth)
+    print(f"spawning {max(1, args.replicas)} replica process(es) "
+          f"(K={spec.members} members each, device "
+          f"{spec.device or 'cuda'}) ...")
+    fleet.start()
+    for p in fleet.procs:
+        print(f"  {p.name}: pid {p.proc.pid}  {p.url}  params {p.digest}")
+    rc = 0
+    try:
+        if args.load:
+            reqs = _load_requests(args, cfg)
+            done, errs = [], []
+            lock = threading.Lock()
+            nxt = {"i": 0}
+
+            def worker():
+                while True:
+                    with lock:
+                        i = nxt["i"]
+                        if i >= len(reqs):
+                            return
+                        nxt["i"] += 1
+                    try:
+                        out = fleet.generate(*reqs[i])
+                        with lock:
+                            done.append(out)
+                    except Exception as e:  # noqa: BLE001 - counted
+                        with lock:
+                            errs.append(repr(e))
+
+            t0 = time.time()
+            threads = [threading.Thread(target=worker, daemon=True)
+                       for _ in range(2 * len(fleet.procs))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            wall = time.time() - t0
+            n_tok = sum(r["n_gen"] for r in done)
+            s = fleet.stats()
+            print(f"fleet served {len(done)}/{len(reqs)} requests "
+                  f"({len(errs)} errors) | {n_tok} tokens in "
+                  f"{wall:.2f}s = {n_tok / max(wall, 1e-9):.1f} tok/s")
+            print(f"  retried {s['retried']}, 429 backoffs "
+                  f"{s['backoffs']}, latched {s['latched']}")
+            rc = 1 if errs else 0
+        elif args.watch_ckpt:
+            from repro_torch.checkpoint.store import latest_step
+            served = None
+            while True:
+                latest = latest_step(args.watch_ckpt)
+                if latest is not None and latest != served:
+                    fleet.rollout(ckpt=args.watch_ckpt, step=latest,
+                                  canary=args.canary)
+                    served = latest
+                    print(f"rolled out round {served} fleet-wide")
+                time.sleep(5.0)
+        else:
+            while True:
+                time.sleep(3600)
+    except KeyboardInterrupt:
+        print("\nterminating fleet ...")
+    finally:
+        fleet.stop()
+    print("fleet down; bye")
+    return rc
+
+
+def watch_checkpoints(root: str, router, poll_s: float = 5.0,
+                      canary: float = 0.0):
+    """Poll a checkpoint root; hot-swap each newly committed round into
+    the fleet (drain -> swap -> rejoin, zero drops).  canary > 0 routes
+    that traffic fraction at one swapped replica first and aborts the
+    rollout if it fails.  The round already on disk at start-up is
+    rolled in FIRST: a restarted server must serve the trained weights,
+    not the random init its engines were built with."""
+    from repro_torch.checkpoint.store import latest_step, restore_checkpoint
+
+    served = None
+    print(f"watching {root} (round on disk: {latest_step(root)})")
+    while True:
+        latest = latest_step(root)
+        if latest is not None and latest != served:
+            template = router.replicas[0].engine.params
+            router.rollout(restore_checkpoint(root, latest, template),
+                           canary=canary)
+            served = latest
+            print(f"rolled out round {served} (swaps: "
+                  f"{[r.engine.swaps_done for r in router.replicas]})")
+        time.sleep(poll_s)
 
 
 def main(argv=None) -> int:
@@ -90,7 +286,43 @@ def main(argv=None) -> int:
     ap.add_argument("--continuous", action="store_true",
                     help="continuous batching under synthetic load")
     ap.add_argument("--requests", type=int, default=32,
-                    help="synthetic requests (--continuous)")
+                    help="synthetic requests (--continuous / --load)")
+    ap.add_argument("--http", action="store_true",
+                    help="serve over HTTP: POST /v1/generate (SSE "
+                         "streaming), GET /metrics, GET /healthz; "
+                         "Ctrl-C drains gracefully")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8000,
+                    help="HTTP port (--http; 0 picks an ephemeral one)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="engine replicas behind the frontend router "
+                         "(--http), in this process: each its own cache "
+                         "pool and loop thread over one shared set of "
+                         "weights (--fleet runs a process per replica)")
+    ap.add_argument("--fleet", action="store_true",
+                    help="with --http: run each replica as its own OS "
+                         "process (engine + scheduler + HTTP surface) "
+                         "behind a crash-latching FleetRouter")
+    ap.add_argument("--load", action="store_true",
+                    help="with --http: drive the synthetic requests "
+                         "through the HTTP path and print the report "
+                         "instead of serving until Ctrl-C")
+    ap.add_argument("--max-queue-depth", type=int, default=None,
+                    help="backpressure: past this fleet-wide queue "
+                         "depth, POST /v1/generate answers 429 with "
+                         "Retry-After instead of queueing")
+    ap.add_argument("--canary", type=float, default=0.0,
+                    help="rollout canary fraction: swap one replica "
+                         "first and route this share of traffic at it "
+                         "(--watch-ckpt)")
+    ap.add_argument("--watch-ckpt", default="",
+                    help="with --http: poll this checkpoint root and "
+                         "hot-swap each newly committed round into the "
+                         "fleet (drain -> swap -> rejoin)")
+    ap.add_argument("--profile-dir", default="",
+                    help="torch.profiler output dir; arms POST "
+                         "/admin/profile {\"ticks\": N} to trace N "
+                         "scheduler ticks")
     ap.add_argument("--no-obs", action="store_true",
                     help="disable the observability layer (request "
                          "traces, latency histograms, tick phases)")
@@ -113,13 +345,17 @@ def main(argv=None) -> int:
     from repro_torch.serving import client
     from repro_torch.serving.engine import EnsembleEngine
 
+    cfg = registry.get_config(args.arch, reduced=args.reduced)
+    if args.dtype:
+        cfg = cfg.with_(dtype=args.dtype)
+    if args.http and args.fleet:
+        # the replica processes build the engines (on --device, which
+        # each resolves itself); the parent never makes params
+        return serve_fleet(args, cfg)
     device = resolve_device(args.device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    cfg = registry.get_config(args.arch, reduced=args.reduced)
-    if args.dtype:
-        cfg = cfg.with_(dtype=args.dtype)
     K = args.members
     quorum = ([float(x) for x in args.quorum.split(",")]
               if args.quorum else None)
@@ -133,8 +369,8 @@ def main(argv=None) -> int:
               paged=args.paged, page_size=args.page_size,
               n_pages=args.n_pages, prefix_cache=args.prefix_cache,
               kv_dtype=args.kv_dtype, device=device)
+    draft = None
     if args.draft_ckpt:
-        from repro_torch.serving.spec import SpeculativeEngine
         from repro_torch.serving.spec.draft import load_draft
         if args.draft_ckpt != "member0":
             draft, step = load_draft(args.draft_ckpt, params)
@@ -142,10 +378,19 @@ def main(argv=None) -> int:
         else:
             draft = tree_map(lambda x: x[:1], params)
             print("draft model: member 0")
-        engine = SpeculativeEngine(cfg, params, draft, gamma=args.gamma,
-                                   spec_sampling=args.spec_sampling, **kw)
-    else:
-        engine = EnsembleEngine(cfg, params, **kw)
+
+    def build_engine():
+        """One replica's engine, over the weights every replica shares
+        (a rollout drains and swaps them together)."""
+        if draft is None:
+            return EnsembleEngine(cfg, params, **kw)
+        from repro_torch.serving.spec import SpeculativeEngine
+        return SpeculativeEngine(cfg, params, draft, gamma=args.gamma,
+                                 spec_sampling=args.spec_sampling, **kw)
+
+    if args.http:
+        return serve_http(args, cfg, build_engine)
+    engine = build_engine()
     print(f"engine: K={K} members, {args.batch} slots, prefill chunk "
           f"{engine.prefill_chunk}, {device} "
           f"({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'host'}), "

@@ -28,6 +28,17 @@ TOL = dict(atol=1e-4, rtol=1e-4)
 K = 4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the torch side runs tiny shapes, and the
+    suite's workers share the cores (torch's default, one thread a core
+    in every worker, oversubscribes them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def models():
     jcfg = jreg.get_config("deepseek-7b", reduced=True).with_(

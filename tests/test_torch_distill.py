@@ -28,6 +28,17 @@ from repro_torch.kernels import ops, ref
 from repro_torch.models import cnn as tcnn
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the torch side runs tiny shapes, and the
+    suite's workers share the cores (torch's default, one thread a core
+    in every worker, oversubscribes them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(n, v, seed=0, pad=False):
     rng = np.random.default_rng(seed)
     z = (rng.standard_normal((n, v)) * 3).astype(np.float32)

@@ -45,6 +45,17 @@ SWEEP = [(s, dt, c, w) for s in SHAPES for dt in ("f32", "bf16")
          for c, w in MASKS if not (c and s[1] != s[2])]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the torch side runs tiny shapes, and the
+    suite's workers share the cores (torch's default, one thread a core
+    in every worker, oversubscribes them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def inputs(shape, dt, seed=0):
     """The same numpy draws for both packages, rounded to bf16 alike."""
     N, T, S, H, Hkv, dh = shape

@@ -62,6 +62,23 @@ def models():
     return jcfg, tcfg, jp, tp
 
 
+@pytest.fixture(scope="module")
+def jax_engines(models):
+    """repro's engine for a configuration, built (and compiled) once for
+    the module: the generate and frozen-slot tests share the ones they
+    both use (JAX's compiles are most of this file's time)."""
+    jcfg, _, jp, _ = models
+    cache = {}
+
+    def get(**kw):
+        key = tuple(sorted(kw.items()))
+        if key not in cache:
+            cache[key] = JaxEngine(jcfg, jp, **kw)
+        return cache[key]
+
+    return get
+
+
 def prompts(seed, lens):
     rng = np.random.default_rng(seed)
     return [rng.integers(0, 512, n).astype(np.int32) for n in lens]
@@ -229,11 +246,11 @@ def test_prefill_and_decode_match(models, paged):
 
 @pytest.mark.parametrize("paged,chunk", [(True, 4), (False, 4), (True, 0),
                                          (False, 0)])
-def test_generate_matches_jax_engine(models, paged, chunk):
-    jcfg, tcfg, jp, tp = models
+def test_generate_matches_jax_engine(models, jax_engines, paged, chunk):
+    _, tcfg, _, tp = models
     kw = dict(n_slots=4, max_prompt=16, max_out=12, page_size=4,
               paged=paged, prefill_chunk=chunk)
-    jeng = JaxEngine(jcfg, jp, **kw)
+    jeng = jax_engines(**kw)
     eng = EnsembleEngine(tcfg, tp, device="cpu", **kw)
     # the second batch reuses each engine's recycled pool
     for ps, n in ((prompts(1, (5, 13, 16)), 10), (prompts(5, (16, 3)), 12)):
@@ -242,20 +259,22 @@ def test_generate_matches_jax_engine(models, paged, chunk):
 
 
 @pytest.mark.parametrize("paged", [True, False])
-def test_frozen_mid_prompt_slot_keeps_its_state(models, paged):
-    """Admit two prompts; prefill slot 0 to completion and slot 1 by one
-    chunk; decode twice while slot 1 is mid-prompt (frozen); finish slot
-    1's prefill; decode on.  Slot 1's conv and ssm planes must come
-    through the two decode steps unchanged, so both slots' tokens equal
-    the JAX engine's."""
-    jcfg, tcfg, jp, tp = models
-    kw = dict(n_slots=2, max_prompt=16, max_out=12, page_size=4,
+def test_frozen_mid_prompt_slot_keeps_its_state(models, jax_engines, paged):
+    """Admit two prompts (into slots 0 and 1 of the generate test's
+    4-slot engines, every slot released first); prefill slot 0 to
+    completion and slot 1 by one chunk; decode twice while slot 1 is
+    mid-prompt (frozen); finish slot 1's prefill; decode on.  Slot 1's
+    conv and ssm planes must come through the two decode steps
+    unchanged, so both slots' tokens equal the JAX engine's."""
+    _, tcfg, _, tp = models
+    kw = dict(n_slots=4, max_prompt=16, max_out=12, page_size=4,
               paged=paged, prefill_chunk=4)
     ps = prompts(7, (6, 15))
     outs = []
-    for eng in (JaxEngine(jcfg, jp, **kw),
+    for eng in (jax_engines(**kw),
                 EnsembleEngine(tcfg, tp, device="cpu", **kw)):
-        eng.update_slots(admits=[(i, p, 9) for i, p in enumerate(ps)])
+        eng.update_slots(release=range(kw["n_slots"]),
+                         admits=[(i, p, 9) for i, p in enumerate(ps)])
         for _ in range(2):
             eng.prefill(0)
         eng.prefill(1)
@@ -277,7 +296,7 @@ def test_frozen_mid_prompt_slot_keeps_its_state(models, paged):
             eng.step()
         st = jax.device_get(eng.state) if isinstance(eng, JaxEngine) \
             else eng.state
-        outs.append((np.asarray(st.out), np.asarray(st.n_gen)))
+        outs.append((np.asarray(st.out)[:2], np.asarray(st.n_gen)[:2]))
     np.testing.assert_array_equal(outs[1][1], [9, 9])
     np.testing.assert_array_equal(outs[1][1], outs[0][1])
     np.testing.assert_array_equal(outs[1][0], outs[0][0])

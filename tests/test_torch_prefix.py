@@ -38,6 +38,17 @@ KW = dict(n_slots=3, max_prompt=24, max_out=6, prefill_chunk=4,
           paged=True, page_size=4, seed=0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the torch side runs tiny shapes, and the
+    suite's workers share the cores (torch's default, one thread a core
+    in every worker, oversubscribes them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def models():
     jcfg = jreg.get_config("deepseek-7b", reduced=True).with_(

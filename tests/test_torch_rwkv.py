@@ -34,6 +34,17 @@ K = 4
 RECURRENT = ("shift", "wkv", "cmix_shift")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the torch side runs tiny shapes, and the
+    suite's workers share the cores (torch's default, one thread a core
+    in every worker, oversubscribes them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def models():
     jcfg = jreg.get_config("rwkv6-7b", reduced=True).with_(dtype="float32")

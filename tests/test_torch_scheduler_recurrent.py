@@ -15,6 +15,7 @@ config allows it.
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import registry as jreg
 from repro.models import transformer as jtf
@@ -28,6 +29,17 @@ from repro_torch.serving.scheduler import Scheduler
 
 KW = dict(n_slots=3, max_prompt=24, max_out=6, prefill_chunk=4,
           paged=True, page_size=4, seed=0, n_pages=6)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the torch side runs tiny shapes, and the
+    suite's workers share the cores (torch's default, one thread a core
+    in every worker, oversubscribes them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def requests():

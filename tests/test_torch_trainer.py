@@ -49,6 +49,17 @@ CFG = dict(name="nin-t", family="cnn", n_layers=9, d_model=48,
            vocab_size=10)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the torch side runs tiny shapes, and the
+    suite's workers share the cores (torch's default, one thread a core
+    in every worker, oversubscribes them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def data():
     """Numpy shards and JAX-initialized member-stacked params."""
