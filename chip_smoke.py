@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, one JSON line each, in the order 0, 1, 7, 10, 11, 2, 8, 9, 12,
-16, 17, 18, 13, 19, 20, 21, 3, 4, 5, 6, 14, 15:
+16, 17, 18, 13, 19, 20, 21, 3, 4, 5, 6, 14, 15, 22:
   0  the card's name and power limit; build every CUDA kernel from
      src/repro_torch/kernels/csrc (one nvcc per source, all at once);
      every kernel function's registers and spills (ptxas) and each
@@ -198,7 +198,29 @@ Phases, one JSON line each, in the order 0, 1, 7, 10, 11, 2, 8, 9, 12,
      each (round 1's distill steps launch the fused kernels at N 2048 /
      1024 x V 65536); no wkv6 / ssm_scan launch inside a training step,
      the formula's count in a relabel, peak below 80 GB; host ms, busy
-     ms, AdamW's device ms, relabel and round seconds, tokens/s.
+     ms, AdamW's device ms, relabel and round seconds, tokens/s;
+ 22  the member axis across ranks (common/sharding.py, one process a
+     rank).  22a: gemma3-1b at full width and depth, f32, K = 4, paged,
+     phase 2's prompts and 32 new tokens: the single-process engine
+     (mesh=None) as the reference, then the mesh path at world size 1
+     under NCCL in this process, then two ranks on the card under gloo
+     (2 members a rank; and two ranks under NCCL, a card each, where
+     there are two cards), whose leader also serves phase 21a's 8
+     requests through Scheduler.run: tokens equal the reference's on
+     every step whose fused top-2 margin clears 2e-5, fused log-probs
+     within 1e-4, every rank's slot state equal to rank 0's, paged
+     launches per rank as phase 2's formula, flash per prefill call,
+     each rank's cache bytes half the reference's; decode ms a step,
+     each rank's busy ms and idle share, the fusion's all-reduce ms a
+     step (profiler), peak memory a rank.  22b: phase 14's gemma3-1b
+     (bf16, AdamW) at K = 2 over two ranks on the card under gloo, a
+     member a rank, protocol ring: two dense EC rounds and one top-64,
+     evaluate() after each mode (finite, Jensen gap >= 0); distill
+     launches once each way a distill step; on one relabel subset the
+     ring's dense targets equal the mesh all-gather's within 1e-4, each
+     relabel's flash launches as its formula; relabel seconds (ring,
+     all-gather, ring top-64), the bytes a hop moves, host and busy ms
+     a step, peak memory a rank.
 Then the kernels line, the card line, and last the result line.  Any
 failure exits non-zero before the result line.  Imports nothing of JAX.
 """
@@ -3339,6 +3361,531 @@ def phase15(torch, np, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the member axis across ranks
+# ---------------------------------------------------------------------------
+
+# 22a: gemma3-1b in f32, K = 4, paged, phase 2's prompts; two ranks hold
+# 2 members each.  22b: phase 14's training at K = 2, a member a rank.
+MESH = dict(members=4, ranks=2, lp_tol=1e-4, profile=3, timeout=900.0)
+RING = dict(LM_TRAIN, members=2, rounds=3, dense_rounds=2, timeout=900.0)
+
+
+def mesh_cfg():
+    from repro_torch.configs import registry
+    return registry.get_config("gemma3-1b").with_(dtype="float32")
+
+
+def mesh_prompts(np, vocab: int) -> list:
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, vocab, n) for n in SERVE["prompt_lens"]]
+
+
+def mesh_engine(cfg, params, mesh):
+    from repro_torch.serving.engine import EnsembleEngine
+    return EnsembleEngine(cfg, params, n_slots=SERVE["slots"],
+                          max_prompt=SERVE["max_prompt"],
+                          max_out=SERVE["max_out"], paged=True,
+                          page_size=SERVE["page"], device="cuda", mesh=mesh)
+
+
+def mesh_calls(eng) -> int:
+    """Prefill calls of a generate over phase 2's prompts."""
+    return sum(-(-n // eng.prefill_chunk) for n in SERVE["prompt_lens"])
+
+
+def collective_ms(prof, n: int) -> float:
+    """Host ms a step in the process group's all-reduces (the Eqn-6
+    fusion's), from their spans: the c10d op's, or, where a build names
+    it so, the backend's (the larger sum, not both: they nest)."""
+    ops = [e for e in prof.key_averages() if "allreduce" in e.key.lower()
+           or "all_reduce" in e.key.lower()]
+    c10d = sum(e.cpu_time_total for e in ops if e.key.startswith("c10d"))
+    backend = sum(e.cpu_time_total for e in ops
+                  if e.key.startswith(("gloo", "nccl")))
+    return max(c10d, backend) / n / 1e3
+
+
+def mesh_profile(torch, run, n: int) -> dict:
+    """Device busy ms a step (the card's activity) and host ms a step in
+    collectives (the host's ops), over run(), which takes n steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / n / 1e3
+    return {"busy_ms": busy, "collective_ms": collective_ms(prof, n)}
+
+
+def mesh_drive(torch, np, eng, prompts, n_new: int,
+               scheduler: bool = True) -> dict:
+    """The leader's run: a warm-up generate, the measured generate (both
+    kernels' launches from 0, every fused log-prob kept), the same
+    requests again with the decode steps timed and 3 of them profiled,
+    then (scheduler) phase 21a's 8 requests through Scheduler.run.  A
+    follower replays each call (mesh_follow counts them)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serving.scheduler import Scheduler
+    eng.generate(prompts, max_new=2)
+    pa.paged_attention.launches = fa.flash_attention.launches = 0
+    rec = []
+    fuse = eng._fuse
+
+    def watch(logits, member_lp=None):
+        lp = fuse(logits, member_lp=member_lp)
+        rec.append(lp)
+        return lp
+
+    eng._fuse = watch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = eng.generate(prompts, max_new=n_new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    del eng._fuse
+    launches = {"paged_attention": pa.paged_attention.launches,
+                "flash_attention": fa.flash_attention.launches}
+    calls = [-(-len(p) // eng.prefill_chunk) for p in prompts]
+    ends = np.cumsum(calls) - 1
+    steps = rec[sum(calls):]
+    lps = [torch.stack([rec[ends[i]][0]] + [steps[s][i]
+                                            for s in range(n_new - 1)])
+           .cpu().numpy() for i in range(len(prompts))]
+    del rec, steps
+    eng.update_slots(release=range(eng.n_slots),
+                     admits=[(i, p, n_new) for i, p in enumerate(prompts)])
+    for i, n in enumerate(calls):
+        for _ in range(n):
+            eng.prefill(i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_new - 1):
+        eng.step()
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) / (n_new - 1) * 1e3
+    prof = mesh_profile(torch, lambda: [eng.step()
+                                        for _ in range(MESH["profile"])],
+                        MESH["profile"])
+    out = {"outs": outs, "lps": lps, "launches": launches,
+           "generate_s": gen_s, "decode_ms_per_step": decode_ms, **prof}
+    if not scheduler:
+        return out
+    jobs = [(prompts[i % 4], n_new) for i in range(NET["requests"])]
+    sched = Scheduler(eng)
+    rids = [sched.submit(t, m) for t, m in jobs]
+    t0 = time.perf_counter()
+    comps = sched.run()
+    sched_s = time.perf_counter() - t0
+    eng.assert_pool_whole()
+    return {**out, "scheduler": [comps[r].tokens for r in rids],
+            "scheduler_s": sched_s}
+
+
+def mesh_follow(torch, eng, n_new: int) -> dict:
+    """A follower's side of mesh_drive: replays the same calls, counts
+    its own launches over the measured generate, times its own decode
+    steps and profiles the same 3, then follows until close()."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    calls = mesh_calls(eng)
+    eng.follow(calls + 2)                       # the warm-up generate
+    pa.paged_attention.launches = fa.flash_attention.launches = 0
+    eng.follow(1 + calls + n_new - 1)           # the measured generate
+    launches = {"paged_attention": pa.paged_attention.launches,
+                "flash_attention": fa.flash_attention.launches}
+    eng.follow(1 + calls)                       # admit and prefill
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.follow(n_new - 1)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) / (n_new - 1) * 1e3
+    prof = mesh_profile(torch, lambda: eng.follow(MESH["profile"]),
+                        MESH["profile"])
+    eng.follow()                                # the Scheduler, close
+    return {"launches": launches, "decode_ms_per_step": decode_ms, **prof}
+
+
+def mesh_serve_rank(rank: int, n_new: int) -> dict:
+    """One rank of 22a's 2-rank world: full-width gemma3-1b at K = 4,
+    this rank's 2 members (the full stack is made on the card from the
+    seed and dropped once the engine holds its rows)."""
+    import numpy as np
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.common import sharding as shd
+    from repro_torch.models import transformer as tf
+    cfg = mesh_cfg()
+    mesh = shd.local_mesh(MESH["ranks"], 1, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    params = tf.init(cfg, seed=0, device="cuda", members=MESH["members"])
+    eng = mesh_engine(cfg, params, mesh)
+    del params
+    torch.cuda.empty_cache()
+    prompts = mesh_prompts(np, cfg.vocab_size)
+    if shd.is_leader(mesh):
+        out = mesh_drive(torch, np, eng, prompts, n_new)
+        eng.close()
+    else:
+        out = mesh_follow(torch, eng, n_new)
+    st = eng.state
+    out.update(rank=rank, backend=torch.distributed.get_backend(),
+               device=torch.cuda.current_device(),
+               rows=[eng._rows.start, eng._rows.stop],
+               held={"out": st.out.cpu().numpy(),
+                     "n_gen": st.n_gen.cpu().numpy()},
+               cache_bytes=eng.cache_bytes(),
+               replay_errors=eng.replay_errors,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    return out
+
+
+def phase22_serve(torch, np, card) -> dict:
+    """22a: the reference run (mesh=None), then the mesh path at world
+    size 1 under NCCL in this process, then 2 ranks on the card under
+    gloo (and under NCCL on two cards where there are two), each held
+    to the reference.  -> the 2-rank leader's launches."""
+    import gc
+
+    import torch.distributed as dist
+    from repro_torch.common import sharding as shd
+    from repro_torch.models import transformer as tf
+    cfg, n_new = mesh_cfg(), SERVE["new_tokens"]
+    prompts = mesh_prompts(np, cfg.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = tf.init(cfg, seed=0, device="cuda", members=MESH["members"])
+    eng = mesh_engine(cfg, params, None)
+    ref = mesh_drive(torch, np, eng, prompts, n_new)
+    ref["cache_bytes"] = eng.cache_bytes()
+    ref["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    n_paged = n_paged_layers(cfg, eng.max_seq, tf)
+    n_attn = attention_layers(cfg)
+    calls = mesh_calls(eng)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    margins = []
+    for lp in ref["lps"]:
+        top = np.sort(lp, axis=-1)[:, -2:]
+        margins.append(top[:, 1] - top[:, 0])
+    want = {"paged_attention": n_paged * (n_new - 1),
+            "flash_attention": n_attn * calls}
+    formula = {"paged_attention": f"{n_paged} paged layers x ({n_new} - 1) "
+                                  f"decode steps = {want['paged_attention']}"
+                                  f" a rank",
+               "flash_attention": f"{n_attn} attention layers x {calls} "
+                                  f"prefill calls = "
+                                  f"{want['flash_attention']} a rank"}
+
+    def held_to_ref(run, what: str) -> dict:
+        """The run's tokens and fused log-probs against the reference's;
+        its launches against the formula.  -> steps compared, the
+        largest log-prob gap."""
+        if run["launches"] != want:
+            raise AssertionError(f"{what}: launches {run['launches']}, "
+                                 f"expected {formula}")
+        compared, gap = [], 0.0
+        for i, (toks, lp) in enumerate(zip(run["outs"], run["lps"])):
+            n = margin_check(np, toks, ref["outs"][i], margins[i],
+                             f"{what} prompt {i}")
+            compared.append(n)
+            d = float(np.abs(lp[:n + 1] - ref["lps"][i][:n + 1]).max())
+            if d > MESH["lp_tol"]:
+                raise AssertionError(f"{what} prompt {i}: fused log-probs "
+                                     f"{d} from the reference's")
+            gap = max(gap, d)
+        for i, (toks, r) in enumerate(zip(run.get("scheduler", ()),
+                                          ref["scheduler"])):
+            margin_check(np, toks, r, margins[i % 4],
+                         f"{what} Scheduler request {i}")
+        return {"steps_compared": compared, "max_lp_gap": gap}
+
+    # the mesh path at world size 1: a 1-rank NCCL group, a 1x1 mesh
+    mesh = shd.local_mesh(MESH["ranks"], 1, device="cuda")
+    eng = mesh_engine(cfg, params, mesh)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = mesh_drive(torch, np, eng, prompts, n_new, scheduler=False)
+    one_check = held_to_ref(one, "world 1 (NCCL)")
+    if eng.cache_bytes() != ref["cache_bytes"]:
+        raise AssertionError("a 1x1 mesh's pool is not the whole pool")
+    eng.close()
+    del eng
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = {"gloo_1_card": dict(backend="gloo")}
+    if torch.cuda.device_count() >= 2:
+        runs["nccl_2_cards"] = dict(backend="nccl")
+    rows = {}
+    for name, kw in runs.items():
+        t0 = time.perf_counter()
+        ranks = shd.spawn(mesh_serve_rank, MESH["ranks"], (n_new,),
+                          device="cuda", timeout=MESH["timeout"], **kw)
+        world_s = time.perf_counter() - t0
+        lead = ranks[0]
+        check = held_to_ref(lead, f"{name} leader")
+        for r in ranks:
+            if r["launches"] != want:
+                raise AssertionError(f"{name} rank {r['rank']}: launches "
+                                     f"{r['launches']}, expected {formula}")
+            for key in ("out", "n_gen"):
+                if not np.array_equal(r["held"][key], lead["held"][key]):
+                    raise AssertionError(f"{name} rank {r['rank']}'s "
+                                         f"tokens differ from rank 0's")
+            if 2 * r["cache_bytes"] != ref["cache_bytes"]:
+                raise AssertionError(f"{name} rank {r['rank']}: cache "
+                                     f"{r['cache_bytes']} B, not half of "
+                                     f"{ref['cache_bytes']}")
+            if r["replay_errors"]:
+                raise AssertionError(f"{name} rank {r['rank']} replay "
+                                     f"errors {r['replay_errors']}")
+        rows[name] = {
+            "backend": lead["backend"], "world_s": world_s,
+            "devices": [r["device"] for r in ranks],
+            "member_rows": [r["rows"] for r in ranks], **check,
+            "generate_s": lead["generate_s"],
+            "decode_ms_per_step": [r["decode_ms_per_step"] for r in ranks],
+            "device_busy_ms_per_step": [r["busy_ms"] for r in ranks],
+            "device_idle_share": [1.0 - r["busy_ms"]
+                                  / r["decode_ms_per_step"] for r in ranks],
+            "collective_ms_per_step": [r["collective_ms"] for r in ranks],
+            "scheduler_s": lead["scheduler_s"],
+            "cache_bytes_per_rank": [r["cache_bytes"] for r in ranks],
+            "max_memory_allocated": [r["max_memory_allocated"]
+                                     for r in ranks],
+            "launches_per_rank": [r["launches"] for r in ranks]}
+        del ranks
+    emit({"phase": 22, "part": "a", "card": card, "arch": cfg.name,
+          "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+          "members": MESH["members"], "slots": SERVE["slots"],
+          "prompt_lens": SERVE["prompt_lens"], "new_tokens": n_new,
+          "requests": NET["requests"], "launch_formula": formula,
+          "runs": ["reference (mesh=None)", "world 1 (NCCL)", *runs],
+          "reference": {"decode_ms_per_step": ref["decode_ms_per_step"],
+                        "device_busy_ms_per_step": ref["busy_ms"],
+                        "device_idle_share": 1.0 - ref["busy_ms"]
+                        / ref["decode_ms_per_step"],
+                        "generate_s": ref["generate_s"],
+                        "scheduler_s": ref["scheduler_s"],
+                        "cache_bytes": ref["cache_bytes"],
+                        "max_memory_allocated":
+                            ref["max_memory_allocated"]},
+          "world_1_nccl": {**one_check,
+                           "decode_ms_per_step": one["decode_ms_per_step"],
+                           "device_busy_ms_per_step": one["busy_ms"],
+                           "collective_ms_per_step": one["collective_ms"]},
+          **rows, "sample": [int(x) for x in ref["outs"][0][:8]]})
+    return rows["gloo_1_card"]["launches_per_rank"][0]
+
+
+def ring_trainer(mesh):
+    """Phase 14's gemma3-1b trainer at K = 2 over `mesh` (a member a
+    rank), dense labels, the ring protocol."""
+    from repro_torch.common.types import ECConfig
+    from repro_torch.configs import registry
+    from repro_torch.data import lm_member_datasets
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import Trainer
+    c = RING
+    cfg = registry.get_config("gemma3-1b")
+    ec = ECConfig(tau=c["tau"], p_steps=c["p_steps"], lam=0.5,
+                  relabel_fraction=c["relabel"], label_mode="dense",
+                  top_m=c["top_m"], aggregator="ec", protocol="ring")
+    train, test = lm_member_datasets(c["members"], c["per_member"],
+                                     c["seq_len"], cfg.vocab_size, seed=0,
+                                     device="cuda")
+    return Trainer(cfg, ec, adamw(c["lr"]), c["members"], 0, train, test,
+                   batch_size=c["batch"], seed=0, device="cuda", mesh=mesh)
+
+
+def ring_train_rank(rank: int) -> dict:
+    """One rank of 22b: two dense EC rounds over the ring, then one with
+    top-64 labels, evaluate() after the dense rounds and after the last;
+    then, on one relabel subset, the ring against the mesh all-gather
+    (dense), both timed, and the ring at top-64; then 3 plain steps timed
+    on the host and profiled."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.common import sharding as shd
+    from repro_torch.core import aggregation as agg
+    from repro_torch.data import sample_batch, sample_relabel_subset
+    from repro_torch.kernels import distill_loss as dl
+    from repro_torch.kernels import flash_attention as fa
+    c = RING
+    mesh = shd.local_mesh(1, c["members"], device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    tr = ring_trainer(mesh)
+    cfg = tr.cfg
+    dl.distill_loss_fwd.launches = dl.distill_loss_bwd.launches = 0
+    fa.flash_attention.launches = 0
+    losses, evals, round_s = [], [], []
+    for r in range(c["rounds"]):
+        if r == c["dense_rounds"]:
+            tr.ec = dataclasses.replace(tr.ec, label_mode="topk")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(tr.run_round())
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t0)
+        if r in (c["dense_rounds"] - 1, c["rounds"] - 1):
+            t0 = time.perf_counter()
+            evals.append(tr.evaluate())
+            evals[-1]["eval_s"] = time.perf_counter() - t0
+    launches = {"fwd": dl.distill_loss_fwd.launches,
+                "bwd": dl.distill_loss_bwd.launches,
+                "flash_attention": fa.flash_attention.launches}
+    subset, _ = sample_relabel_subset(np.random.default_rng(7), tr.shards,
+                                      c["relabel"], of=tr._of)
+    params = tr.state["params"]
+    V = cfg.vocab_size
+    relabel = {}
+    for name, mode in (("ring", "dense"), ("allgather", "dense"),
+                       ("ring_topk", "topk")):
+        ec = dataclasses.replace(tr.ec, label_mode=mode)
+        fa.flash_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "allgather":
+            out = agg.allgather_relabel(params, subset, tr._logits, ec,
+                                        n_out=V, mesh=mesh, axis="data")
+        else:
+            out = agg.ring_relabel(mesh, params, subset, tr._logits, ec,
+                                   axis="data", n_out=V)
+        torch.cuda.synchronize()
+        relabel[name] = {"s": time.perf_counter() - t0,
+                         "flash_launches": fa.flash_attention.launches}
+        if name != "ring_topk":
+            relabel[name]["targets"] = out
+        del out
+    gap = float((relabel["ring"].pop("targets")
+                 - relabel["allgather"].pop("targets")).abs().max())
+    n, T = subset["tokens"].shape[1:]
+    tok_bytes = n * T * subset["tokens"].element_size()
+    hop = {"tokens_bytes": tok_bytes,
+           "dense_accumulator_bytes": n * T * V * 4,
+           "topk_accumulator_bytes": n * T * (c["top_m"] * 8 + 4)}
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = sample_batch(tr.rng, tr.shards, tr.batch, of=tr._of)
+        tr.state, _ = tr._plain_step(tr.state, batch, None, 0.0)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    prof = profile_steps(torch, lambda: [tr._plain_step(
+        tr.state, sample_batch(tr.rng, tr.shards, tr.batch, of=tr._of),
+        None, 0.0) for _ in range(2)], 2)
+    return {"rank": rank, "backend": torch.distributed.get_backend(),
+            "losses": losses, "evals": evals, "round_s": round_s,
+            "launches": launches, "relabel": relabel,
+            "ring_vs_allgather_max_abs": gap, "hop": hop,
+            "relabel_rows": n, "seq_len": T,
+            "chunk_rows": agg.chunk_rows({"tokens": subset["tokens"][0]},
+                                         V),
+            "n_layers": cfg.n_layers, "step_host_ms": times,
+            "step_busy_ms": prof["busy_ms"],
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def phase22_train(torch, np, card) -> dict:
+    """22b: the EC round across 2 ranks on the card under gloo, a member
+    a rank, over the ring.  -> the leader rank's launches."""
+    from repro_torch.common import sharding as shd
+    c = RING
+    K = c["members"]
+    t0 = time.perf_counter()
+    ranks = shd.spawn(ring_train_rank, K, device="cuda", backend="gloo",
+                      timeout=c["timeout"])
+    world_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    n, rows, L = r0["relabel_rows"], r0["chunk_rows"], r0["n_layers"]
+    ring_want = L * K * -(-n // rows)
+    ag_want = L * -(-K * n // rows)
+    distill_want = (c["rounds"] - 1) * c["p_steps"]
+    for r in ranks:
+        what = f"22b rank {r['rank']}"
+        vals = [*r["losses"], *(v for e in r["evals"] for v in e.values())]
+        if not all(math.isfinite(v) for v in vals):
+            raise AssertionError(f"{what}: non-finite {r['losses']}, "
+                                 f"{r['evals']}")
+        for e in r["evals"]:
+            if e["local_loss"] - e["global_loss"] < -1e-6:
+                raise AssertionError(f"{what}: Jensen gap < 0: {e}")
+        if r["ring_vs_allgather_max_abs"] > 1e-4:
+            raise AssertionError(f"{what}: ring targets "
+                                 f"{r['ring_vs_allgather_max_abs']} from "
+                                 f"the all-gather's")
+        for which in ("fwd", "bwd"):
+            if r["launches"][which] != distill_want:
+                raise AssertionError(
+                    f"{what}: distill_loss_{which} launched "
+                    f"{r['launches'][which]} times, expected "
+                    f"({c['rounds']} rounds - 1) x {c['p_steps']}")
+        got = {k: r["relabel"][k]["flash_launches"]
+               for k in ("ring", "allgather", "ring_topk")}
+        if got != {"ring": ring_want, "allgather": ag_want,
+                   "ring_topk": ring_want}:
+            raise AssertionError(f"{what}: flash launches {got}, expected "
+                                 f"ring {ring_want}, all-gather {ag_want}")
+        if r["launches"]["flash_attention"] < c["rounds"] * ring_want:
+            raise AssertionError(f"{what}: the rounds launched flash "
+                                 f"{r['launches']['flash_attention']} "
+                                 f"times, fewer than their relabels'")
+    emit({"phase": 22, "part": "b", "card": card, "arch": "gemma3-1b",
+          "dtype": "bfloat16", "members": K, "ranks": len(ranks),
+          "backend": r0["backend"], "protocol": "ring",
+          "batch_per_member": c["batch"], "seq_len": c["seq_len"],
+          "per_member": c["per_member"], "relabel_sequences": n,
+          "tau": c["tau"], "p_steps": c["p_steps"], "rounds": c["rounds"],
+          "label_modes": ["dense"] * c["dense_rounds"]
+          + ["topk"] * (c["rounds"] - c["dense_rounds"]),
+          "top_m": c["top_m"], "world_s": world_s,
+          "flash_formula": {
+              "ring": f"{L} layers x {K} batches x ceil({n} / {rows}) "
+                      f"chunks = {ring_want} a rank",
+              "allgather": f"{L} layers x ceil({K} x {n} / {rows}) "
+                           f"chunks = {ag_want} a rank"},
+          "distill_formula": f"({c['rounds']} rounds - 1) x "
+                             f"{c['p_steps']} = {distill_want} each way "
+                             f"a rank",
+          "round_loss": r0["losses"], "evaluate": r0["evals"],
+          "jensen_gap": [e["local_loss"] - e["global_loss"]
+                         for e in r0["evals"]],
+          "ring_vs_allgather_max_abs": [r["ring_vs_allgather_max_abs"]
+                                        for r in ranks],
+          "relabel_s": {k: [r["relabel"][k]["s"] for r in ranks]
+                        for k in ("ring", "allgather", "ring_topk")},
+          "hop_bytes": r0["hop"],
+          "round_s": [r["round_s"] for r in ranks],
+          "step_host_ms": [r["step_host_ms"] for r in ranks],
+          "step_busy_ms": [r["step_busy_ms"] for r in ranks],
+          "step_idle_share": [1.0 - r["step_busy_ms"]
+                              / sorted(r["step_host_ms"])[1]
+                              for r in ranks],
+          "launches_per_rank": [r["launches"] for r in ranks],
+          "max_memory_allocated": [r["max_memory_allocated"]
+                                   for r in ranks]})
+    return r0["launches"]
+
+
+def phase22(torch, np, card) -> dict:
+    """The member axis across ranks: 22a serving, 22b training.  -> each
+    part's launches on its first rank."""
+    return {"serve": phase22_serve(torch, np, card),
+            "train": phase22_train(torch, np, card)}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3408,6 +3955,7 @@ def main() -> int:
     phase6(torch)
     lm_launches = phase14(torch, np, card)
     ssm_launches = phase15(torch, np, card)
+    mesh_launches = phase22(torch, np, card)
 
     def entry(name, source, replaces, n, row, by_path=None):
         out = {"name": name, "route": "cuda", "source": source,
@@ -3440,6 +3988,10 @@ def main() -> int:
         for arch, n in ssm_launches.items():
             if kernel in n:
                 out[f"{arch} train"] = n[kernel]
+        if kernel in mesh_launches["serve"]:
+            out["gemma3-1b mesh"] = mesh_launches["serve"][kernel]
+        if kernel in mesh_launches["train"]:
+            out["gemma3-1b ring train"] = mesh_launches["train"][kernel]
         return out
 
     def by_shape(rows):
@@ -3482,7 +4034,9 @@ def main() -> int:
                      {"paper_nin train": distill_launches[which],
                       "gemma3-1b train": lm_launches[which],
                       **{f"{arch} train": n[which]
-                         for arch, n in ssm_launches.items()}}),
+                         for arch, n in ssm_launches.items()},
+                      "gemma3-1b ring train":
+                          mesh_launches["train"][which]}),
                by_shape=by_shape(distill_cases[which]))
           for which, line in (("fwd", 35), ("bwd", 71))),
         # the decode step's row; launches over decode and prefill both

@@ -41,6 +41,7 @@ def main() -> int:
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, os.path.join(root, "src"))
+    sys.path.insert(0, root)   # ranks a phase spawns import chip_smoke
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -49,6 +50,7 @@ def main() -> int:
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(root, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
+    sys.modules["chip_smoke"] = cs   # its functions pickle by name
     spec.loader.exec_module(cs)
     from repro_torch.kernels import build
     if not build.__file__.startswith(root):

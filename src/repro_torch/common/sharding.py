@@ -1,0 +1,447 @@
+"""The member axis over torch.distributed: one process a rank.
+
+The JAX package places the ensemble's leading (K,) member axis over the
+"member" dim of a ("member", "data") device mesh and runs its programs
+under shard_map, one controller for every device.  The port runs one
+process a rank instead (the decode path is host-bound: one thread
+dispatching every rank's members would multiply the host's time a step),
+and the mesh is a `torch.distributed.device_mesh.DeviceMesh` over the
+ranks of the process group.  A rank holds the members of its "member"
+coordinate; the "data" dim replicates.
+
+The collectives below stand for the JAX package's psum / pmax / pmean /
+ppermute over one mesh dim.  NCCL runs them on the card.  Under gloo (two
+ranks sharing one card, or CPU processes in the tests) a CUDA tensor is
+staged through pinned host memory, since gloo moves host buffers: the
+tensor is copied to the host, the collective runs there, and the result
+is copied back.  The kernels run on the card all the same.
+
+`spawn` starts a world of ranks (torch.multiprocessing, file:// rendezvous
+in a temporary directory, so that concurrent worlds cannot collide on a
+port) and returns each rank's result; a rank that fails makes it raise
+with that rank's traceback.
+
+The JAX module's tensor- and FSDP-parallel rules (pspec_for,
+make_param_pspecs, constrain, layout_ctx) are not here: their only users
+are the dry-run's meta-device accounting, which the port does not have.
+"""
+from __future__ import annotations
+
+import atexit
+import datetime
+import os
+import pickle
+import shutil
+import tempfile
+import time
+import traceback
+from typing import Any, Callable, List, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+MEMBER_AXIS = "member"
+DATA_AXIS = "data"
+
+PG_TIMEOUT_S = 60.0   # a collective that waits longer than this fails
+# a follower waits on the control group for the leader's next call,
+# however long the leader idles (an HTTP server between requests)
+CONTROL_TIMEOUT_S = 30 * 24 * 3600.0
+
+
+# ---------------------------------------------------------------------------
+# the mesh
+# ---------------------------------------------------------------------------
+
+def _init_single(device: str) -> None:
+    """A 1-rank process group: NCCL on the card, gloo on the CPU."""
+    backend = "nccl" if device == "cuda" else "gloo"
+    tmp = tempfile.mkdtemp(prefix="repro_torch_pg_")
+    # the group's store lives in this file (new groups meet there too)
+    atexit.register(shutil.rmtree, tmp, ignore_errors=True)
+    dist.init_process_group(
+        backend, init_method=f"file://{os.path.join(tmp, 'init')}",
+        rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+
+
+def local_mesh(member: int = 1, data: int = 1,
+               device: Optional[str] = None):
+    """A (member, data) DeviceMesh over the first member*data ranks of
+    the process group, each dim clamped to the ranks there are (member
+    first), as the JAX package clamps to the devices there are: one
+    process asking for local_mesh(2, 1) gets a 1x1 mesh, which runs the
+    same code path as two ranks, collectives included.  With no process
+    group yet, a 1-rank one is started (NCCL on the card, gloo on the
+    CPU; `device` "cuda" / "cpu", the card when there is one).  Every
+    rank of the group must call this with the same arguments.  A gloo
+    group for the engines' control messages (call replay) comes with the
+    mesh, as `mesh.control_group`."""
+    from torch.distributed.device_mesh import DeviceMesh
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    if not dist.is_initialized():
+        _init_single(device)
+    world = dist.get_world_size()
+    member = max(1, min(int(member), world))
+    data = max(1, min(int(data), world // member))
+    ranks = torch.arange(member * data).reshape(member, data)
+    kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    mesh = DeviceMesh(kind, ranks, mesh_dim_names=(MEMBER_AXIS, DATA_AXIS))
+    mesh.control_group = dist.new_group(
+        ranks=list(range(member * data)), backend="gloo",
+        timeout=datetime.timedelta(seconds=CONTROL_TIMEOUT_S))
+    return mesh
+
+
+def parse_mesh_arg(arg: str):
+    """'MxD' CLI string -> local_mesh(M, D); '' / '1x1' / 'none' / 'off'
+    -> None (the unsharded single-process path)."""
+    shape = mesh_shape_arg(arg)
+    return None if shape is None else local_mesh(*shape)
+
+
+def mesh_shape_arg(arg: str) -> Optional[Tuple[int, int]]:
+    """'MxD' -> (M, D), None where parse_mesh_arg gives no mesh."""
+    if not arg or arg.lower() in ("1x1", "none", "off"):
+        return None
+    try:
+        m, d = (int(x) for x in arg.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh wants 'MxD' (e.g. 2x1), got {arg!r}")
+    if m * d <= 1:
+        return None
+    return m, d
+
+
+def axis_size(mesh, axis: str) -> int:
+    return mesh.size(mesh.mesh_dim_names.index(axis))
+
+
+def axis_index(mesh, axis: str) -> int:
+    """This rank's coordinate along `axis`."""
+    return mesh.get_local_rank(axis)
+
+
+def member_rows(n_members: int, mesh, axis: str = MEMBER_AXIS) -> slice:
+    """The rows of a (K, ...) member stack this rank holds: the JAX
+    stack's rows [r K/M, (r+1) K/M).  Raises when M does not divide K."""
+    M = axis_size(mesh, axis)
+    if n_members % M:
+        raise ValueError(f"mesh {axis} axis {M} does not divide "
+                         f"K={n_members} members")
+    per = n_members // M
+    r = axis_index(mesh, axis)
+    return slice(r * per, (r + 1) * per)
+
+
+def is_leader(mesh) -> bool:
+    """Is this rank the mesh's first, the one that owns the host API?"""
+    return mesh.get_coordinate() is not None and \
+        not any(mesh.get_coordinate())
+
+
+# ---------------------------------------------------------------------------
+# collectives over one mesh dim
+# ---------------------------------------------------------------------------
+
+def _staged(x: torch.Tensor, group) -> Tuple[torch.Tensor, bool]:
+    """The buffer the collective runs on: a pinned host copy of a CUDA
+    tensor under gloo, else the tensor itself (contiguous)."""
+    if x.is_cuda and dist.get_backend(group) == "gloo":
+        h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        h.copy_(x)
+        return h, True
+    return x.contiguous(), False
+
+
+def _home(buf: torch.Tensor, like: torch.Tensor, staged: bool):
+    return buf.to(like.device, non_blocking=True) if staged else buf
+
+
+def _all_reduce(x: torch.Tensor, mesh, axis: str, op) -> torch.Tensor:
+    group = mesh.get_group(axis)
+    buf, staged = _staged(x, group)
+    if not staged:
+        buf = buf.clone()   # all_reduce works in place
+    dist.all_reduce(buf, op=op, group=group)
+    return _home(buf, x, staged)
+
+
+def psum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Sum of x over the ranks of `axis` (a new tensor on x's device)."""
+    return _all_reduce(x, mesh, axis, dist.ReduceOp.SUM)
+
+
+def pmax(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    return _all_reduce(x, mesh, axis, dist.ReduceOp.MAX)
+
+
+def pmean(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    return psum(x, mesh, axis) / axis_size(mesh, axis)
+
+
+def _global(mesh, axis: str, i: int) -> int:
+    return dist.get_global_rank(mesh.get_group(axis), i)
+
+
+def ppermute(x: torch.Tensor, mesh, axis: str, shift: int = 1
+             ) -> torch.Tensor:
+    """x sent to the rank `shift` places on along `axis` (cyclically),
+    and the one `shift` places back received: the JAX package's ppermute
+    with perm [(i, (i + shift) % n)]."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return x.clone()
+    group = mesh.get_group(axis)
+    me = axis_index(mesh, axis)
+    buf, staged = _staged(x, group)
+    recv = torch.empty_like(buf)
+    ops = [dist.P2POp(dist.isend, buf, _global(mesh, axis, (me + shift) % n),
+                      group),
+           dist.P2POp(dist.irecv, recv, _global(mesh, axis, (me - shift) % n),
+                      group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return _home(recv, x, staged)
+
+
+def all_gather(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """(n, *x.shape): every rank's x along `axis`, in rank order."""
+    group = mesh.get_group(axis)
+    buf, staged = _staged(x, group)
+    parts = [torch.empty_like(buf) for _ in range(axis_size(mesh, axis))]
+    dist.all_gather(parts, buf, group=group)
+    return _home(torch.stack(parts), x, staged)
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """x (n * m, ...) summed over the ranks of `axis`, of which this rank
+    receives only its own rows [r m, (r+1) m)."""
+    n = axis_size(mesh, axis)
+    group = mesh.get_group(axis)
+    buf, staged = _staged(x, group)
+    parts = list(buf.chunk(n))
+    out = torch.empty_like(parts[0])
+    if n == 1:
+        out.copy_(parts[0])
+    else:
+        dist.reduce_scatter(out, [p.contiguous() for p in parts],
+                            group=group)
+    return _home(out, x, staged)
+
+
+def broadcast_object(obj: Any, mesh) -> Any:
+    """The mesh's first rank's obj, on every rank of the mesh (pickled
+    over its gloo control group)."""
+    group = mesh.control_group
+    box = [obj]
+    dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0),
+                               group=group)
+    return box[0]
+
+
+def send_rows(x: Optional[torch.Tensor], out: torch.Tensor, mesh,
+              axis: str = MEMBER_AXIS) -> None:
+    """Copy into `out` (this rank's (K/M, ...) rows) its rows of the
+    global (K, ...) x that the mesh's first rank holds (x is read there
+    only): a scatter of member rows over `axis`, each data replica
+    served by its own coordinate.  Point to point from the first rank."""
+    first = int(mesh.mesh.flatten()[0])
+    me = dist.get_rank()
+    per = out.shape[0]
+    backend = dist.get_backend()
+    if me == first:
+        for coord_rank in mesh.mesh.flatten().tolist():
+            r = _coord(mesh, coord_rank, axis)
+            rows = x[r * per:(r + 1) * per]
+            if coord_rank == first:
+                out.copy_(rows)
+                continue
+            dist.send(rows.to("cpu" if backend == "gloo" else out.device)
+                      .contiguous(), coord_rank)
+        return
+    buf = torch.empty(out.shape, dtype=out.dtype,
+                      device="cpu" if backend == "gloo" else out.device)
+    dist.recv(buf, first)
+    out.copy_(buf)
+
+
+def gather_rows(x: torch.Tensor, mesh, axis: str = MEMBER_AXIS
+                ) -> Optional[torch.Tensor]:
+    """The global (K, ...) stack of every rank's (K/M, ...) rows along
+    `axis`, on the mesh's first rank (None elsewhere).  Only the data
+    coordinate 0 sends."""
+    first = int(mesh.mesh.flatten()[0])
+    me = dist.get_rank()
+    staged = dist.get_backend() == "gloo" and x.is_cuda
+    line = _axis_line(mesh, axis)
+    if me != first:
+        if me in line:
+            dist.send(x.contiguous().cpu() if staged else x.contiguous(),
+                      first)
+        return None
+    parts = []
+    for rank in line:
+        if rank == first:
+            parts.append(x)
+            continue
+        buf = torch.empty(x.shape, dtype=x.dtype,
+                          device="cpu" if staged else x.device)
+        dist.recv(buf, rank)
+        parts.append(buf.to(x.device))
+    return torch.cat(parts)
+
+
+def _axis_line(mesh, axis: str) -> List[int]:
+    """The global ranks along `axis` through the mesh's first rank."""
+    dim = mesh.mesh_dim_names.index(axis)
+    idx = [0] * mesh.mesh.dim()
+    out = []
+    for i in range(mesh.mesh.shape[dim]):
+        idx[dim] = i
+        out.append(int(mesh.mesh[tuple(idx)]))
+    return out
+
+
+def _coord(mesh, rank: int, axis: str) -> int:
+    """The coordinate of global `rank` along `axis`."""
+    dim = mesh.mesh_dim_names.index(axis)
+    where = (mesh.mesh == rank).nonzero()[0]
+    return int(where[dim])
+
+
+# ---------------------------------------------------------------------------
+# a world of ranks
+# ---------------------------------------------------------------------------
+
+def _rank_main(rank: int, world: int, init: str, backend: str,
+               device: str, out_dir: str) -> None:
+    torch.set_num_threads(1)
+    if device == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    try:
+        with open(os.path.join(out_dir, "call.pkl"), "rb") as f:
+            fn, args = pickle.load(f)
+        dist.init_process_group(
+            backend, init_method=f"file://{init}", rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+        result = fn(rank, *args)
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(result, f)
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise SystemExit(1)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+class World:
+    """A running world of ranks (see spawn)."""
+
+    def __init__(self, procs, out_dir: str, timeout: float):
+        self.procs, self.out_dir = procs, out_dir
+        self.deadline = time.monotonic() + timeout
+        self.timeout = timeout
+
+    def _stop(self) -> None:
+        for p in self.procs:
+            if p.is_alive():
+                p.terminate()
+        for p in self.procs:
+            p.join(5)
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+    def _first_failure(self, bad: List[int]) -> int:
+        """The rank whose traceback was written first: the others that
+        failed then did so on a collective it left (their peer gone)."""
+        def when(r):
+            path = os.path.join(self.out_dir, f"rank{r}.err")
+            return os.path.getmtime(path) if os.path.exists(path) \
+                else float("inf")
+        errs = [r for r in range(len(self.procs)) if when(r) < float("inf")]
+        return min(errs or bad, key=when)
+
+    def _error(self, rank: int) -> str:
+        path = os.path.join(self.out_dir, f"rank{rank}.err")
+        if os.path.exists(path):
+            with open(path) as f:
+                return f.read()
+        return "(no traceback: the process died)"
+
+    def join(self) -> List[Any]:
+        """Wait for every rank; -> each rank's result, in rank order.
+        Raises RuntimeError with a failed rank's traceback (the others
+        are stopped), TimeoutError past the world's timeout."""
+        try:
+            while True:
+                codes = [p.exitcode for p in self.procs]
+                bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
+                if bad:
+                    time.sleep(0.5)   # let a cascade's tracebacks land
+                    r = self._first_failure(bad)
+                    raise RuntimeError(f"rank {r} of {len(self.procs)} "
+                                       f"exited {self.procs[r].exitcode} "
+                                       f"first:\n{self._error(r)}")
+                if all(c == 0 for c in codes):
+                    break
+                if time.monotonic() > self.deadline:
+                    raise TimeoutError(f"ranks still running after "
+                                       f"{self.timeout} s (exit codes "
+                                       f"{codes})")
+                self.procs[codes.index(None)].join(0.05)
+            out = []
+            for r in range(len(self.procs)):
+                with open(os.path.join(self.out_dir, f"rank{r}.pkl"),
+                          "rb") as f:
+                    out.append(pickle.load(f))
+            return out
+        finally:
+            self._stop()
+            shutil.rmtree(self.out_dir, ignore_errors=True)
+
+
+def spawn(fn: Callable, nprocs: int, args: Sequence = (), *,
+          device: str = "cpu", backend: Optional[str] = None,
+          timeout: float = 120.0, wait: bool = True):
+    """Run fn(rank, *args) in `nprocs` fresh processes joined in one
+    process group; -> their return values in rank order (picklable), or,
+    with wait=False, the running World (its join() returns them).
+
+    device "cuda": rank r takes cuda:(r % device_count); backend None
+    picks NCCL when every rank has a card of its own, else gloo (NCCL
+    refuses two ranks on one device).  The children run one intra-op
+    thread (OMP_NUM_THREADS=1).  `timeout` bounds the whole world,
+    PG_TIMEOUT_S each collective.  fn must be importable by name."""
+    if backend is None:
+        backend = ("nccl" if device == "cuda"
+                   and torch.cuda.device_count() >= nprocs else "gloo")
+    out_dir = tempfile.mkdtemp(prefix="repro_torch_world_")
+    init = os.path.join(out_dir, "init")
+    # the call goes by file: a start() writes its process's pickle into
+    # a pipe that the child drains only as it imports what unpickling
+    # needs, so large arguments there would start the ranks one by one
+    with open(os.path.join(out_dir, "call.pkl"), "wb") as f:
+        pickle.dump((fn, tuple(args)), f)
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_rank_main,
+                         args=(r, nprocs, init, backend, device, out_dir),
+                         daemon=True)
+             for r in range(nprocs)]
+    old = os.environ.get("OMP_NUM_THREADS")
+    os.environ["OMP_NUM_THREADS"] = "1"
+    try:
+        for p in procs:
+            p.start()
+    finally:
+        if old is None:
+            del os.environ["OMP_NUM_THREADS"]
+        else:
+            os.environ["OMP_NUM_THREADS"] = old
+    world = World(procs, out_dir, timeout)
+    return world.join() if wait else world

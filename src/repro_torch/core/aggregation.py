@@ -16,11 +16,28 @@ allgather_relabel: every member scores every member's relabel batch and
   or, where one batch does not fit, a piece of one, its MoE layers
   carrying their arrival counts from piece to piece (apply's carry).
 
-ma_aggregate: parameter mean over the member axis (MA-DNN).
+  Over a mesh (common/sharding.py, one process a rank, each holding
+  K/M members and their batches), the batches, which are small, are
+  all-gathered; each rank scores all K with its own members into a
+  partial sum, and a reduce-scatter hands each rank only its own
+  batches' targets (at gemma3's vocabulary the (K, n, T, V) sum is
+  gigabytes: no rank needs all of it).
 
-The ring protocol (data rotating around a member mesh) waits for the
-multi-device port.  Straggler policy: a (K,) 0/1 quorum mask; dropped
-members contribute nothing and the rest renormalize to 1/(K-r).
+ring_relabel: the JAX package's ring, with data moving instead of
+  weights.  Each rank holds one member and its relabel batch; it scores
+  its own batch, then K-1 hops each pass (batch, accumulator) to the
+  next rank along the axis (sharding.ppermute) and merge the visiting
+  batch's score into the accumulator, and one last hop brings each
+  accumulator home.  Dense accumulators add; top-M ones merge
+  (compression.merge of from_dense's candidates).  A hop
+  moves the batch's tokens and the accumulator, never weights.
+
+ma_aggregate: parameter mean over the member axis (MA-DNN), an
+  all-reduce over a mesh; psum_gradients: the sync-SGD baseline's
+  all-reduce mean of gradients.
+
+Straggler policy: a (K,) 0/1 quorum mask; dropped members contribute
+nothing and the rest renormalize to 1/(K-r).
 """
 from __future__ import annotations
 
@@ -28,6 +45,7 @@ from typing import Callable, Iterator, Optional, Tuple
 
 import torch
 
+from repro_torch.common import sharding as shd
 from repro_torch.common.tree import tree_leaves, tree_map
 from repro_torch.common.types import ECConfig
 from repro_torch.core import compression as comp
@@ -98,14 +116,22 @@ def stream_logits(stacked_params, inputs: dict, logits_fn: Callable,
 @torch.no_grad()
 def allgather_relabel(stacked_params, batches: dict, logits_fn: Callable,
                       ec: ECConfig, quorum: Optional[torch.Tensor] = None,
-                      *, n_out: int, pooled: bool = False):
+                      *, n_out: int, pooled: bool = False, mesh=None,
+                      axis: str = "data"):
     """-> pseudo-labels for each member's own batch: dense probs (K, n,
     ..., V), or a TopM with leading (K, n, ...) in label_mode "topk".
 
     stacked_params: tree with leading K; batches: dict of (K, n, ...)
     tensors (each member's relabel inputs); n_out: the classes (V) the
     logits span; pooled: the model routes tokens by pool
-    (steps.routes_by_pool), so each batch is scored as its own."""
+    (steps.routes_by_pool), so each batch is scored as its own.  With a
+    mesh, stacked_params and batches are this rank's K/M rows along
+    `axis`, quorum is the global (K,) mask, and so is the result's
+    leading axis this rank's K/M."""
+    if mesh is not None:
+        return _allgather_relabel_mesh(stacked_params, batches, logits_fn,
+                                       ec, quorum, n_out, pooled, mesh,
+                                       axis)
     K, n = tree_leaves(batches)[0].shape[:2]
     every = {name: v.reshape(K * n, *v.shape[2:])
              for name, v in batches.items()}
@@ -130,6 +156,109 @@ def allgather_relabel(stacked_params, batches: dict, logits_fn: Callable,
     return tree_map(lambda o: o.reshape(K, n, *o.shape[1:]), out)
 
 
+def _allgather_relabel_mesh(params, batches, logits_fn, ec, quorum, n_out,
+                            pooled, mesh, axis):
+    """Every rank scores all K batches (all-gathered) with its own
+    members into a partial weighted sum; a reduce-scatter leaves each
+    rank the sum over its own batches' rows."""
+    Kl, n = tree_leaves(batches)[0].shape[:2]
+    K = Kl * shd.axis_size(mesh, axis)
+    lo = shd.axis_index(mesh, axis) * Kl
+    every = {name: shd.all_gather(v, mesh, axis).reshape(K * n,
+                                                         *v.shape[2:])
+             for name, v in batches.items()}
+    device = tree_leaves(batches)[0].device
+    partial = fused = None
+    for sl, k, logits in stream_logits(params, every, logits_fn, n_out,
+                                       pool_rows=n if pooled else None):
+        if k == 0:
+            fused = ens.StreamingEnsemble(K, quorum, ec.average_probs,
+                                          device)
+        fused.add(lo + k, logits)
+        if k < Kl - 1:
+            continue
+        if partial is None:
+            partial = fused.acc.new_empty((K * n, *fused.acc.shape[1:]))
+        partial[sl] = fused.acc
+    mine = shd.reduce_scatter(partial, mesh, axis)     # (Kl * n, ..., V)
+    del partial
+    probs = mine if ec.average_probs else torch.softmax(mine, dim=-1)
+    res = comp.from_dense(probs, ec.top_m) if ec.label_mode == "topk" \
+        else probs
+    return tree_map(lambda o: o.reshape(Kl, n, *o.shape[1:]), res)
+
+
 @torch.no_grad()
-def ma_aggregate(stacked_params, quorum: Optional[torch.Tensor] = None):
-    return ens.ma_average(stacked_params, weights=quorum)
+def ring_relabel(mesh, stacked_params, batches: dict, logits_fn: Callable,
+                 ec: ECConfig, axis: str = "data",
+                 quorum: Optional[torch.Tensor] = None, *, n_out: int,
+                 pooled: bool = False):
+    """The ring over `axis`: this rank's one member (stacked_params with
+    a leading 1) and its batch (dict of (1, n, ...)) -> its batch's
+    pseudo-labels with a leading 1, dense or TopM as allgather_relabel.
+    quorum: the global (K,) 0/1 mask (None: every member); the sum
+    divides by max(sum(quorum), 1).  Raises unless the axis holds one
+    member a rank (its size is K)."""
+    if tree_leaves(stacked_params)[0].shape[0] != 1:
+        raise ValueError(
+            f"ring_relabel holds one member a rank, but this rank holds "
+            f"{tree_leaves(stacked_params)[0].shape[0]}: the ring axis "
+            f"{axis!r} must have K ranks (use allgather_relabel)")
+    K = shd.axis_size(mesh, axis)
+    me = shd.axis_index(mesh, axis)
+    if quorum is not None and quorum.shape[0] != K:
+        raise ValueError(f"quorum has {quorum.shape[0]} entries, the ring "
+                         f"{K} members")
+    w_me = 1.0 if quorum is None else float(quorum[me])
+    topk = ec.label_mode == "topk"
+    batch = {name: v[0] for name, v in batches.items()}
+    n = tree_leaves(batch)[0].shape[0]
+
+    def score(visiting: dict):
+        """The member's weighted output on a visiting batch, dense (n,
+        ..., V) or TopM, a chunk of rows at a time."""
+        acc = None
+        for sl, _, logits in stream_logits(stacked_params, visiting,
+                                           logits_fn, n_out,
+                                           pool_rows=n if pooled else None):
+            lg = logits.float()
+            out = (torch.softmax(lg, dim=-1) if ec.average_probs else lg) \
+                * w_me
+            if topk:
+                out = comp.from_dense(out, ec.top_m)
+            if acc is None:
+                acc = tree_map(lambda x: x.new_empty((n, *x.shape[1:])),
+                               out)
+            tree_map(lambda a, x: a[sl].copy_(x), acc, out)
+        return acc
+
+    def merge(acc, part):
+        return comp.merge(acc, part) if topk else acc.add_(part)
+
+    hop = lambda tree: tree_map(  # noqa: E731
+        lambda x: shd.ppermute(x, mesh, axis), tree)
+    acc = score(batch)
+    for _ in range(K - 1):
+        batch, acc = hop(batch), hop(acc)
+        acc = merge(acc, score(batch))
+    acc = hop(acc)                                  # home
+    denom = float(K) if quorum is None else max(float(quorum.sum()), 1.0)
+    if topk:
+        return comp.TopM(*[x[None] for x in comp.scale(acc, 1.0 / denom)])
+    return (acc / denom)[None]
+
+
+@torch.no_grad()
+def ma_aggregate(stacked_params, quorum: Optional[torch.Tensor] = None,
+                 mesh=None, axis: str = "data"):
+    """MA-DNN: the parameter mean over the member axis; over a mesh,
+    stacked_params are this rank's rows and quorum its slice of the
+    global mask (core.ensemble.ma_average)."""
+    return ens.ma_average(stacked_params, weights=quorum, mesh=mesh,
+                          axis=axis)
+
+
+def psum_gradients(grads, mesh, axis: str):
+    """The sync-SGD baseline: the all-reduce mean of grads over the
+    ranks of `axis`."""
+    return tree_map(lambda g: shd.pmean(g, mesh, axis), grads)

@@ -34,6 +34,28 @@ def from_dense(probs: torch.Tensor, m: int) -> TopM:
     return TopM(vals.float(), idx.int(), rest.float())
 
 
+def from_dense_sharded(probs: torch.Tensor, m: int, n_shards: int) -> TopM:
+    """Top-M in two stages, as the JAX package's from_dense_sharded
+    takes it over a vocabulary split n_shards ways: the M heaviest of
+    each of n_shards equal slices of V, then the M heaviest of those
+    n_shards * M candidates.  The global top M always lie among the
+    slices' own, so the result is from_dense's (which it falls back to
+    where V does not split evenly or a slice holds fewer than M)."""
+    V = probs.shape[-1]
+    if V % n_shards or V // n_shards < m:
+        return from_dense(probs, m)
+    vs = V // n_shards
+    lv, li = torch.topk(probs.reshape(*probs.shape[:-1], n_shards, vs), m,
+                        dim=-1)
+    li = li + torch.arange(n_shards, device=probs.device)[:, None] * vs
+    cand_v = lv.reshape(*probs.shape[:-1], n_shards * m)
+    cand_i = li.reshape(*probs.shape[:-1], n_shards * m)
+    gv, pos = torch.topk(cand_v, m, dim=-1)
+    gi = cand_i.gather(-1, pos)
+    rest = probs.sum(-1) - gv.sum(-1)
+    return TopM(gv.float(), gi.int(), rest.float())
+
+
 def zeros(batch_shape, m: int, device=None) -> TopM:
     shape = tuple(batch_shape)
     return TopM(torch.zeros(shape + (m,), dtype=torch.float32,

@@ -8,7 +8,9 @@ distribution, so by Jensen L(G_E(x), y) <= (1/K) sum_k L(f(w_k; x), y),
 and `jensen_gap` returns that (always >= 0) slack.  `ma_average` averages
 member PARAMETERS, for which no such bound exists.  The serving engine
 fuses in log space with `ensemble_log_probs` under a (K,) quorum vector,
-so a dropped member contributes exactly nothing.
+so a dropped member contributes exactly nothing; over a member mesh
+(common/sharding.py: one rank a shard of the member axis) with
+`ensemble_log_probs_psum`, and `ma_average` takes the mesh too.
 """
 from __future__ import annotations
 
@@ -105,6 +107,41 @@ def ensemble_log_probs(member_logits: torch.Tensor,
     return torch.logsumexp(lp + logw, dim=0)
 
 
+def ensemble_log_probs_psum(member_logits: torch.Tensor,
+                            weights: Optional[torch.Tensor] = None,
+                            mesh=None, axis: str = "member",
+                            member_lp: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """Eqn-6 fusion of a member-sharded ensemble: member_logits are this
+    rank's (K_local, ..., V) rows of the member axis and weights the
+    matching slice of the global (K,) quorum.  Each rank fuses its own
+    members in log space and the ranks combine with one all-reduce MAX
+    and one all-reduce SUM over `axis`, so that only fused (..., V)
+    partials cross ranks:
+
+        log sum_k w_k softmax(z_k) = m + log(sum_r sum_{k in r}
+                                             exp(log w_k + log p_k - m)),
+        m = max_r max_{k in r} (log w_k + log p_k)
+
+    The weights normalize globally (an all-reduce SUM of the local
+    weight mass), so a zero-weight member contributes nothing and the
+    rest renormalize, as in ensemble_log_probs.  Every rank gets the
+    same bits: the all-reduces hand each rank the same sums.  member_lp:
+    the member log-probs when the caller has them."""
+    from repro_torch.common import sharding as shd
+    K = member_logits.shape[0]
+    w = torch.ones((K,), device=member_logits.device) if weights is None \
+        else weights.float()
+    w = w / shd.psum(w.sum(), mesh, axis).clamp_min(1e-9)
+    logw = torch.log(w.clamp_min(1e-30)).reshape(
+        (K,) + (1,) * (member_logits.dim() - 1))
+    lp = (member_log_probs(member_logits) if member_lp is None
+          else member_lp) + logw
+    m = shd.pmax(lp.amax(dim=0), mesh, axis)
+    s = shd.psum((lp - m[None]).exp().sum(dim=0), mesh, axis)
+    return m + torch.log(s)
+
+
 def prunable_members(member_logits: torch.Tensor,
                      fused_log_probs: torch.Tensor,
                      weights: Optional[torch.Tensor] = None,
@@ -152,9 +189,16 @@ def jensen_gap(member_logits: torch.Tensor,
         - ensemble_nll(member_logits, labels)
 
 
-def ma_average(stacked_params, weights: Optional[torch.Tensor] = None):
+def ma_average(stacked_params, weights: Optional[torch.Tensor] = None,
+               mesh=None, axis: str = "member"):
     """Parameter mean over the leading member axis, broadcast back to K
-    (the MA-DNN aggregation); `weights` (K,) as in ensemble_probs."""
+    (the MA-DNN aggregation); `weights` (K,) as in ensemble_probs.  Over
+    a mesh, stacked_params are this rank's rows and weights their slice
+    of the global quorum: the weighted sum of each leaf is all-reduced
+    over `axis` (in f32) and divided by the global weight mass."""
+    if mesh is not None:
+        return _ma_average_mesh(stacked_params, weights, mesh, axis)
+
     def avg(w):
         K = w.shape[0]
         if weights is None:
@@ -164,5 +208,23 @@ def ma_average(stacked_params, weights: Optional[torch.Tensor] = None):
             m = (w * ww.reshape((K,) + (1,) * (w.dim() - 1))).sum(
                 dim=0, keepdim=True)
         return m.expand_as(w).to(w.dtype).contiguous()
+
+    return tree_map(avg, stacked_params)
+
+
+def _ma_average_mesh(stacked_params, weights, mesh, axis: str):
+    from repro_torch.common import sharding as shd
+    from repro_torch.common.tree import tree_leaves
+    K = tree_leaves(stacked_params)[0].shape[0]
+    dev = tree_leaves(stacked_params)[0].device
+    w = torch.ones((K,), device=dev) if weights is None \
+        else weights.float().to(dev)
+    mass = shd.psum(w.sum(), mesh, axis).clamp_min(1e-9)
+
+    def avg(x):
+        wb = w.reshape((K,) + (1,) * (x.dim() - 1))
+        total = shd.psum((x.float() * wb).sum(dim=0, keepdim=True), mesh,
+                         axis)
+        return (total / mass).expand_as(x).to(x.dtype).contiguous()
 
     return tree_map(avg, stacked_params)

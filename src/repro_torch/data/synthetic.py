@@ -20,7 +20,7 @@ a JAX Trainer seeded alike draw the same indices.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -111,19 +111,33 @@ def take_rows(tree, idx: np.ndarray):
     return tree_map(lambda a: a[rows, i], tree)
 
 
-def sample_batch(rng: np.random.Generator, shards: dict, batch: int) -> dict:
-    """Per-member minibatch: same batch size, independent indices."""
-    K, n = tree_leaves(shards)[0].shape[:2]
+def _rows_of(shards: dict, of):
+    """(members the draw is for, the rows of them `shards` holds)."""
+    K = tree_leaves(shards)[0].shape[0]
+    return (K, slice(0, K)) if of is None else of
+
+
+def sample_batch(rng: np.random.Generator, shards: dict, batch: int,
+                 of: Optional[Tuple[int, slice]] = None) -> dict:
+    """Per-member minibatch: same batch size, independent indices.
+    of=(K, rows): shards hold rows `rows` of K members' shards (one rank
+    of a member mesh); the draw is the K members', so it is the same
+    whatever the rows, and the rows' part of it is taken."""
+    K, rows = _rows_of(shards, of)
+    n = tree_leaves(shards)[0].shape[1]
     idx = rng.integers(0, n, size=(K, batch))
-    return take_rows(shards, idx)
+    return take_rows(shards, idx[rows])
 
 
 def sample_relabel_subset(rng: np.random.Generator, shards: dict,
-                          fraction: float) -> Tuple[dict, np.ndarray]:
+                          fraction: float,
+                          of: Optional[Tuple[int, slice]] = None
+                          ) -> Tuple[dict, np.ndarray]:
     """The paper relabels a fraction of D_k (70% default).  Returns the
     subset and the indices (so the distill phase can pair pseudo-labels
-    with true labels)."""
-    K, n = tree_leaves(shards)[0].shape[:2]
+    with true labels); `of` as in sample_batch."""
+    K, rows = _rows_of(shards, of)
+    n = tree_leaves(shards)[0].shape[1]
     m = max(1, int(n * fraction))
-    idx = np.stack([rng.permutation(n)[:m] for _ in range(K)])
+    idx = np.stack([rng.permutation(n)[:m] for _ in range(K)])[rows]
     return take_rows(shards, idx), idx

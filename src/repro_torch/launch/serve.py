@@ -29,6 +29,21 @@ drains gracefully):
   python -m repro_torch.launch.serve --arch gemma3-1b --members 4 \
       --paged --http --port 8000 --replicas 2
   curl -s localhost:8000/v1/generate -d '{"tokens":[1,2,3],"max_new":8}'
+  curl -s localhost:8000/admin/swap -d '{"seed": 1}'   # drain-swap
+
+POST /admin/swap rolls out the stack transformer.init makes from a seed.
+
+--mesh MxD shards the member axis over M ranks (x D data ranks, which
+replicate): one process a rank on the cards there are, each dim clamped
+to them (member first), so one card runs --mesh 2x1 as a 1x1 mesh (a
+1-rank NCCL group: the mesh path with its collectives); --device cpu
+runs M x D CPU processes over gloo.  The first rank serves (the batch,
+--continuous or --http, one replica); the others replay its engine
+calls.  Each rank holds K/M members' params and cache.  Ctrl-C reaches
+every rank: the first drains and releases the others, which ignore it.
+
+  python -m repro_torch.launch.serve --reduced --members 4 --mesh 2x1 \
+      --paged --device cpu --dtype float32
 
 --fleet runs each replica as its own OS process (repro_torch.serving.
 frontend.replica, on the device --device names) behind a crash-latching
@@ -52,6 +67,8 @@ name and power limit (nvidia-smi --query-gpu=name,power.limit
 from __future__ import annotations
 
 import argparse
+import signal
+import sys
 import threading
 import time
 
@@ -70,7 +87,7 @@ def _load_requests(args, cfg):
 def serve_http(args, cfg, build_engine) -> int:
     """Mount --replicas engines behind the router + HTTP frontend."""
     from repro_torch.serving import client
-    from repro_torch.serving.frontend import Replica, Router, serve_frontend
+    from repro_torch.serving.frontend import FrontendServer, Replica, Router
 
     replicas = [Replica(f"r{i}", build_engine(),
                         prefill_budget=args.prefill_budget,
@@ -83,15 +100,18 @@ def serve_http(args, cfg, build_engine) -> int:
                           max_new=2)
         r.engine.update_slots(release=range(r.engine.n_slots))
     router = Router(replicas, max_queue_depth=args.max_queue_depth)
-    srv = serve_frontend(router, host=args.host, port=args.port,
+    srv = FrontendServer(router, host=args.host, port=args.port,
                          verbose=not args.load,
+                         admin_swap=_admin_swap(args, cfg, router),
                          profile_dir=args.profile_dir or None)
+    srv.start()
     print(f"frontend: {srv.url}  ({len(replicas)} replica(s), "
           f"K={replicas[0].engine.n_members} members, "
           f"{replicas[0].engine.n_slots} slots each)")
     print(f"  POST {srv.url}/v1/generate  "
           '{"tokens": [...], "max_new": N, "stream": true|false}')
     print(f"  GET  {srv.url}/healthz   GET  {srv.url}/metrics")
+    print(f"  POST {srv.url}/admin/swap  " '{"seed": s}')
     rc = 0
     try:
         if args.load:
@@ -111,6 +131,35 @@ def serve_http(args, cfg, build_engine) -> int:
         srv.shutdown(drain=True)
     print("drained; bye")
     return rc
+
+
+def _admin_swap(args, cfg, router):
+    """POST /admin/swap for the in-process replicas: {"seed": s} rolls
+    out the K-member stack transformer.init makes from that seed (drain
+    -> swap -> rejoin; --watch-ckpt rolls checkpoint rounds)."""
+    from repro_torch.models import transformer as tf
+
+    def admin_swap(body: dict) -> dict:
+        s = body.get("seed")
+        if not isinstance(s, int) or isinstance(s, bool):
+            raise ValueError(f'swap body needs an int "seed", got {s!r}')
+        eng = router.replicas[0].engine
+        router.rollout(tf.init(cfg, seed=s, device=eng.device,
+                               members=args.members))
+        return {"swaps_done": eng.swaps_done}
+
+    return admin_swap
+
+
+def _swap_template(engine):
+    """A tree of the global (K, ...) member stack to restore a round
+    into: the engine's live params, or over a mesh, where a rank holds
+    K/M rows, host tensors of the global shapes."""
+    from repro_torch.common.tree import tree_map
+    if engine.mesh is None:
+        return engine.params
+    return tree_map(lambda x: torch.empty((engine.n_members, *x.shape[1:]),
+                                          dtype=x.dtype), engine.params)
 
 
 def serve_fleet(args, cfg) -> int:
@@ -226,7 +275,7 @@ def watch_checkpoints(root: str, router, poll_s: float = 5.0,
     while True:
         latest = latest_step(root)
         if latest is not None and latest != served:
-            template = router.replicas[0].engine.params
+            template = _swap_template(router.replicas[0].engine)
             router.rollout(restore_checkpoint(root, latest, template),
                            canary=canary)
             served = latest
@@ -235,7 +284,7 @@ def watch_checkpoints(root: str, router, poll_s: float = 5.0,
         time.sleep(poll_s)
 
 
-def main(argv=None) -> int:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma3-1b")
     ap.add_argument("--reduced", action="store_true")
@@ -283,6 +332,10 @@ def main(argv=None) -> int:
     ap.add_argument("--eos-id", type=int, default=-1)
     ap.add_argument("--quorum", default="",
                     help="comma 0/1 per member, e.g. 1,1,0,1")
+    ap.add_argument("--mesh", default="",
+                    help="'MxD' member x data device grid (e.g. 2x1): "
+                         "shard the member axis over M devices; empty "
+                         "or 1x1 keeps the single-device path")
     ap.add_argument("--continuous", action="store_true",
                     help="continuous batching under synthetic load")
     ap.add_argument("--requests", type=int, default=32,
@@ -336,22 +389,81 @@ def main(argv=None) -> int:
     ap.add_argument("--dtype", default=None,
                     choices=["bfloat16", "float32"],
                     help="override the config's param/activation dtype")
-    args = ap.parse_args(argv)
+    return ap
 
-    from repro_torch.common.device import resolve_device
-    from repro_torch.common.tree import tree_map
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = _parser().parse_args(argv)
+    from repro_torch.common import sharding as shd
     from repro_torch.configs import registry
-    from repro_torch.models import transformer as tf
-    from repro_torch.serving import client
-    from repro_torch.serving.engine import EnsembleEngine
 
     cfg = registry.get_config(args.arch, reduced=args.reduced)
     if args.dtype:
         cfg = cfg.with_(dtype=args.dtype)
+    shape = shd.mesh_shape_arg(args.mesh)
+    if shape is not None:
+        if args.fleet or args.replicas > 1:
+            raise SystemExit("--mesh serves one engine: --fleet and "
+                             "--replicas > 1 over a mesh are not ported")
+        return serve_mesh(argv, shape, args.device)
     if args.http and args.fleet:
         # the replica processes build the engines (on --device, which
         # each resolves itself); the parent never makes params
         return serve_fleet(args, cfg)
+    return serve(args, cfg)
+
+
+def serve_mesh(argv, shape, device_arg) -> int:
+    """--mesh MxD: one rank a device, M x D clamped to the cards there
+    are (the CPU: as many processes as asked); a 1-rank mesh runs in
+    this process.  -> the ranks' largest exit code."""
+    from repro_torch.common import sharding as shd
+    from repro_torch.common.device import resolve_device
+    kind = resolve_device(device_arg).type
+    m, d = shape
+    if kind == "cuda":
+        count = torch.cuda.device_count()
+        m = max(1, min(m, count))
+        d = max(1, min(d, count // m))
+    if m * d == 1:
+        return _mesh_rank(0, argv, shape)
+    world = shd.spawn(_mesh_rank, m * d, (argv, shape), device=kind,
+                      timeout=float("inf"), wait=False)
+    # Ctrl-C reaches every process of the terminal's group: the leader
+    # drains and releases the followers, which ignore it, as this one does
+    on_main = threading.current_thread() is threading.main_thread()
+    old = signal.signal(signal.SIGINT, signal.SIG_IGN) if on_main else None
+    try:
+        return max(world.join())
+    finally:
+        if on_main:
+            signal.signal(signal.SIGINT, old)
+
+
+def _mesh_rank(rank: int, argv, shape) -> int:
+    """One rank of --mesh: its engine over local_mesh(M, D); the first
+    rank serves, the others follow."""
+    from repro_torch.common import sharding as shd
+    from repro_torch.common.device import resolve_device
+    from repro_torch.configs import registry
+    args = _parser().parse_args(argv)
+    cfg = registry.get_config(args.arch, reduced=args.reduced)
+    if args.dtype:
+        cfg = cfg.with_(dtype=args.dtype)
+    mesh = shd.local_mesh(*shape, device=resolve_device(args.device).type)
+    return serve(args, cfg, mesh)
+
+
+def serve(args, cfg, mesh=None) -> int:
+    """Build the engine (on a mesh, this rank's) and serve --http,
+    --continuous or the static batch."""
+    from repro_torch.common import sharding as shd
+    from repro_torch.common.device import resolve_device
+    from repro_torch.common.tree import tree_map
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.engine import EnsembleEngine
+
     device = resolve_device(args.device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -368,7 +480,7 @@ def main(argv=None) -> int:
               eos_id=args.eos_id, quorum=quorum, seed=args.seed,
               paged=args.paged, page_size=args.page_size,
               n_pages=args.n_pages, prefix_cache=args.prefix_cache,
-              kv_dtype=args.kv_dtype, device=device)
+              kv_dtype=args.kv_dtype, device=device, mesh=mesh)
     draft = None
     if args.draft_ckpt:
         from repro_torch.serving.spec.draft import load_draft
@@ -376,7 +488,7 @@ def main(argv=None) -> int:
             draft, step = load_draft(args.draft_ckpt, params)
             print(f"draft model: step {step} from {args.draft_ckpt}")
         else:
-            draft = tree_map(lambda x: x[:1], params)
+            draft = tree_map(lambda x: x[:1].clone(), params)
             print("draft model: member 0")
 
     def build_engine():
@@ -388,13 +500,39 @@ def main(argv=None) -> int:
         return SpeculativeEngine(cfg, params, draft, gamma=args.gamma,
                                  spec_sampling=args.spec_sampling, **kw)
 
+    if mesh is not None:
+        engine = build_engine()
+        del params                 # the engine holds this rank's rows
+        if not shd.is_leader(mesh):
+            signal.signal(signal.SIGINT, signal.SIG_IGN)  # the leader's
+            engine.follow()
+            if engine.replay_errors:
+                print(f"calls that raised on every rank: "
+                      f"{engine.replay_errors}", file=sys.stderr)
+                return 1
+            return 0
+        try:
+            return _drive(args, cfg, device, engine, K, lambda: engine)
+        finally:
+            engine.close()
     if args.http:
         return serve_http(args, cfg, build_engine)
-    engine = build_engine()
+    return _drive(args, cfg, device, build_engine(), K, build_engine)
+
+
+def _drive(args, cfg, device, engine, K, build_engine) -> int:
+    """Serve from `engine` (a mesh's leader, or the one device's)."""
+    from repro_torch.serving import client
+    where = (f"{device} ({torch.cuda.get_device_name(device)})"
+             if device.type == "cuda" else f"{device} (host)")
+    if engine.mesh is not None:
+        mesh = engine.mesh
+        grid = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+        where = (f"mesh {grid} over {mesh.mesh.numel()} devices, "
+                 f"{K // engine.member_shards} members/device, {where}")
     print(f"engine: K={K} members, {args.batch} slots, prefill chunk "
-          f"{engine.prefill_chunk}, {device} "
-          f"({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'host'}), "
-          f"cache pool {engine.cache_bytes() / 2**20:.1f} MiB")
+          f"{engine.prefill_chunk}, {where}, cache pool "
+          f"{engine.cache_bytes() / 2**20:.1f} MiB/device")
     if args.paged:
         ps = engine.page_stats()
         print(f"paged pool: {ps['n_pages']} pages x {ps['page_size']} tok "
@@ -402,6 +540,8 @@ def main(argv=None) -> int:
               f"{ps['free_pages']}/{ps['n_pages']}, {ps['kv_dtype']} "
               f"pages, {ps['page_bytes']} B/page, "
               f"{ps['bytes_per_token']} B/token")
+    if args.http:
+        return serve_http(args, cfg, build_engine)
 
     if args.continuous:
         reqs = client.make_requests(

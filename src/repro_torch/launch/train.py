@@ -40,6 +40,11 @@ def main(argv=None) -> int:
                     help="use the smoke-scale config")
     ap.add_argument("--aggregator", default="ec",
                     choices=["ec", "ma", "sync"])
+    ap.add_argument("--protocol", default="ring",
+                    choices=["ring", "allgather"],
+                    help="the relabel's protocol over a member mesh "
+                         "(Trainer(mesh=...)); this CLI trains on one "
+                         "device, where the relabel is the all-gather")
     ap.add_argument("--label-mode", default="dense",
                     choices=["dense", "topk"])
     ap.add_argument("--members", type=int, default=4)
@@ -87,7 +92,8 @@ def main(argv=None) -> int:
         opt = adamw(args.lr)
     ec = ECConfig(tau=args.tau, lam=args.lam, p_steps=args.p_steps,
                   relabel_fraction=args.relabel_fraction,
-                  label_mode=args.label_mode, aggregator=args.aggregator)
+                  label_mode=args.label_mode, aggregator=args.aggregator,
+                  protocol=args.protocol)
     tr = Trainer(cfg, ec, opt, args.members, args.seed, train, test,
                  batch_size=args.batch, ckpt_dir=args.ckpt, seed=args.seed,
                  device=device)

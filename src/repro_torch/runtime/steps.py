@@ -143,14 +143,18 @@ def make_member_grads(cfg: ModelConfig, grad_accum: int = 1) -> Callable:
 
 
 def make_local_step(cfg: ModelConfig, opt: Optimizer, grad_accum: int = 1,
-                    sync: bool = False) -> Callable:
+                    sync: bool = False, mesh=None,
+                    axis: str = "data") -> Callable:
     """EC local-training step over member-stacked state.
 
     (state {params, opt}, batch, pseudo, lam) -> (state, mean loss over
     members, a 0-d tensor on the state's device).  pseudo=None is the
     plain-CE step; sync=True all-reduces (means) the gradients over the
-    member axis first (the sync-SGD baseline).  An optimizer that updates
-    in place (adamw) returns the state's own tensors."""
+    member axis first (the sync-SGD baseline): over a mesh, this rank's
+    members' mean is averaged over the ranks of `axis`
+    (aggregation.psum_gradients), every rank holding as many members.
+    An optimizer that updates in place (adamw) returns the state's own
+    tensors; the loss is this rank's members' mean."""
     member_grads = make_member_grads(cfg, grad_accum)
 
     def step(state, batch, pseudo, lam):
@@ -158,8 +162,11 @@ def make_local_step(cfg: ModelConfig, opt: Optimizer, grad_accum: int = 1,
                           state["params"])
         total, grads = member_grads(params, batch, pseudo, lam)
         if sync:
-            grads = tree_map(lambda g: g.mean(0, keepdim=True).expand_as(g),
-                             grads)
+            mean = tree_map(lambda g: g.mean(0, keepdim=True), grads)
+            if mesh is not None:
+                from repro_torch.core import aggregation as agg
+                mean = agg.psum_gradients(mean, mesh, axis)
+            grads = tree_map(lambda m, g: m.expand_as(g), mean, grads)
         new_params, new_opt = opt.update(grads, state["opt"],
                                          state["params"])
         K = tree_leaves(params)[0].shape[0]

@@ -3,7 +3,7 @@
 Algorithm 1 of the paper, generalized over aggregator:
 
   aggregator="ec"   tau local steps; relabel a fraction of D_k with the
-                    ensemble (allgather protocol); the next round's
+                    ensemble (ring or allgather protocol); the next round's
                     first p steps minimize Eqn 9 with lambda annealing
                     to 0 (the fused distillation kernel on the card).
   aggregator="ma"   tau local steps; params <- mean_k params (MA-DNN).
@@ -22,10 +22,22 @@ The relabel, `evaluate` and `best_member` score member by member and
 chunk by chunk (core/aggregation.stream_logits): at gemma3's vocabulary
 K members' logits over the test set would not fit beside the state.
 
+Over a mesh (common/sharding.local_mesh, one process a rank) the K
+members lie along the dim `ec_axis()` names ("data", as in the JAX
+package): a rank holds its K/M members, their shards, their optimizer
+state and its slice of the quorum.  Every rank draws the host's indices
+for all K members and takes its own rows, so the batches are the
+single-process trainer's.  The relabel takes the ring
+(aggregation.ring_relabel, one member a rank) when ECConfig.protocol is
+"ring" and K > 1, else the all-gather; MA and sync all-reduce;
+evaluate() fuses the ensemble across ranks chunk by chunk; save()
+gathers the state to the first rank, which writes the single-process
+layout, and resume() sends each rank its rows back.
+
 Fault tolerance: with ckpt_dir, every round ends with an async save of
 the state (checkpoint/store.py: the JAX package's layout, keep 3), and
 `resume()` restores the newest committed round; `reshard(k_new)` changes
-K between rounds.
+K between rounds (not over a mesh).
 
 Straggler policy: members listed as lagging at aggregation time are
 excluded from the ensemble (and from the MA mean) via a (K,) quorum mask.
@@ -41,6 +53,7 @@ import torch
 from repro_torch import models
 from repro_torch.bridge import params_from_numpy
 from repro_torch.checkpoint import CheckpointManager, reshard_members
+from repro_torch.common import sharding as shd
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.common.tree import tree_leaves, tree_map
 from repro_torch.common.types import ECConfig, ModelConfig
@@ -74,7 +87,12 @@ class Trainer:
     trainer's device.  `params`: a numpy tree of member-stacked params
     (e.g. the JAX package's init, fetched with jax.device_get) to start
     from; else torch-seeded from init_seed.  grad_accum splits each
-    step's batch into that many microbatches."""
+    step's batch into that many microbatches.
+
+    mesh: a DeviceMesh whose ec_axis() dim holds the members (its other
+    dims of size 1), e.g. local_mesh(1, M).  Every rank is given the
+    global shards and params and keeps its rows; K stays the global
+    count and K_local is this rank's."""
 
     def __init__(self, cfg: ModelConfig, ec: ECConfig, opt: Optimizer,
                  n_members: int, init_seed: int, train_shards: dict,
@@ -82,32 +100,60 @@ class Trainer:
                  ckpt_dir: Optional[str] = None, seed: int = 0,
                  params=None, device: DeviceLike = None,
                  grad_accum: int = 1):
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device training needs common/sharding.py and the "
-                "ring relabel, not ported yet")
+        if mesh is not None and not hasattr(mesh, "mesh_dim_names"):
+            raise TypeError(f"mesh must be a DeviceMesh "
+                            f"(common.sharding.local_mesh), got "
+                            f"{type(mesh).__name__}")
         if ec.label_mode not in ("dense", "topk"):
             raise ValueError(f"unknown label_mode {ec.label_mode!r}")
         if ec.aggregator not in ("ec", "ma", "sync"):
             raise ValueError(f"unknown aggregator {ec.aggregator!r}")
         self.cfg, self.ec, self.opt = cfg, ec, opt
         self.K = n_members
+        self.mesh = mesh
+        self._rows = slice(0, n_members)
+        if mesh is not None:
+            axis = self.ec_axis()
+            rest = [n for n in mesh.mesh_dim_names if n != axis
+                    and shd.axis_size(mesh, n) > 1]
+            if rest:
+                raise NotImplementedError(
+                    f"the trainer's members lie along {axis!r}; replicas "
+                    f"along {rest} (data parallelism within a member) are "
+                    f"not ported")
+            self._rows = shd.member_rows(n_members, mesh, axis)
+            if ec.aggregator == "ec" and ec.protocol == "ring" \
+                    and n_members > 1 \
+                    and shd.axis_size(mesh, axis) != n_members:
+                raise ValueError(
+                    f"the ring holds one member a rank, but {n_members} "
+                    f"members lie on {shd.axis_size(mesh, axis)} ranks "
+                    f"along {axis!r}: use protocol='allgather'")
+        self.K_local = self._rows.stop - self._rows.start
+        self._leader = mesh is None or shd.is_leader(mesh)
         self.device = resolve_device(device)
-        self.shards = tree_map(lambda a: a.to(self.device), train_shards)
+        self.shards = tree_map(lambda a: a[self._rows].to(self.device),
+                               train_shards)
         self.test = tree_map(lambda a: a.to(self.device), test_set)
         self.batch = batch_size
         self.rng = np.random.default_rng(seed)
         self.metrics = TrainerMetrics()
-        self.ckpt = CheckpointManager(ckpt_dir, keep=3) if ckpt_dir else None
+        self.ckpt = CheckpointManager(ckpt_dir, keep=3) \
+            if ckpt_dir and self._leader else None
+        self._saves = bool(ckpt_dir)
         self.pseudo_buffer = None  # (subset_batch, pseudo_targets)
         self.round = 0
 
         if params is None:
             params = models.init(cfg, seed=init_seed, device=self.device,
                                  members=n_members)
+            if mesh is not None:
+                params = tree_map(lambda x: x[self._rows].clone(), params)
         else:
+            if mesh is not None:
+                params = _np_rows(params, self._rows)
             params = params_from_numpy(params, self.device)
-        if tree_leaves(params)[0].shape[0] != n_members:
+        if tree_leaves(params)[0].shape[0] != self.K_local:
             raise ValueError(f"params are stacked over "
                              f"{tree_leaves(params)[0].shape[0]} members, "
                              f"want {n_members}")
@@ -117,8 +163,17 @@ class Trainer:
         self._pooled = steps.routes_by_pool(cfg)
         self._member_loss = steps.make_member_loss(cfg)
         self._plain_step = steps.make_local_step(cfg, opt, grad_accum)
-        self._sync_step = steps.make_local_step(cfg, opt, grad_accum,
-                                                sync=True)
+        self._sync_step = steps.make_local_step(
+            cfg, opt, grad_accum, sync=True, mesh=mesh, axis=self.ec_axis())
+
+    def ec_axis(self) -> str:
+        """The mesh dim the members (and the ring) lie along."""
+        return "data"
+
+    @property
+    def _of(self):
+        """(K, this rank's rows): the host draws for all K members."""
+        return (self.K, self._rows)
 
     # ------------------------------------------------------------------
     # aggregation
@@ -126,13 +181,22 @@ class Trainer:
 
     def _relabel(self, quorum: Optional[torch.Tensor] = None) -> None:
         """Relabel relabel_fraction of each member's shard -> pseudo
-        buffer."""
+        buffer.  quorum: the global (K,) mask."""
         subset, _ = sample_relabel_subset(self.rng, self.shards,
-                                          self.ec.relabel_fraction)
-        pseudo = agg.allgather_relabel(self.state["params"], subset,
-                                       self._logits, self.ec, quorum=quorum,
-                                       n_out=self.cfg.vocab_size,
-                                       pooled=self._pooled)
+                                          self.ec.relabel_fraction,
+                                          of=self._of)
+        kw = dict(quorum=quorum, n_out=self.cfg.vocab_size,
+                  pooled=self._pooled)
+        if self.mesh is not None and self.ec.protocol == "ring" \
+                and self.K > 1:
+            pseudo = agg.ring_relabel(self.mesh, self.state["params"],
+                                      subset, self._logits, self.ec,
+                                      axis=self.ec_axis(), **kw)
+        else:
+            pseudo = agg.allgather_relabel(self.state["params"], subset,
+                                           self._logits, self.ec,
+                                           mesh=self.mesh,
+                                           axis=self.ec_axis(), **kw)
         self.pseudo_buffer = (subset, pseudo)
 
     # ------------------------------------------------------------------
@@ -157,10 +221,13 @@ class Trainer:
                 self.state, loss = self._plain_step(self.state, batch,
                                                     pseudo, lams[t])
             else:
-                batch = sample_batch(self.rng, self.shards, self.batch)
+                batch = sample_batch(self.rng, self.shards, self.batch,
+                                     of=self._of)
                 step = self._sync_step if ec.aggregator == "sync" \
                     else self._plain_step
                 self.state, loss = step(self.state, batch, None, 0.0)
+        if self.mesh is not None:  # the mean over all K members
+            loss = shd.pmean(loss, self.mesh, self.ec_axis())
 
         quorum = None
         if straggler_mask is not None:
@@ -169,12 +236,14 @@ class Trainer:
         if ec.aggregator == "ec":
             self._relabel(quorum)
         elif ec.aggregator == "ma":
-            self.state = {"params": agg.ma_aggregate(self.state["params"],
-                                                     quorum),
-                          "opt": self.state["opt"]}
+            self.state = {"params": agg.ma_aggregate(
+                self.state["params"],
+                None if quorum is None else quorum[self._rows],
+                mesh=self.mesh, axis=self.ec_axis()),
+                "opt": self.state["opt"]}
         self.round += 1
-        if self.ckpt is not None:
-            self.ckpt.save(self.round, self.state)
+        if self._saves:
+            self._save_state(wait=False)
         return float(loss)
 
     def _sample_pseudo_batch(self):
@@ -183,21 +252,27 @@ class Trainer:
         subset, pseudo = self.pseudo_buffer
         n = tree_leaves(subset)[0].shape[1]
         idx = self.rng.integers(0, n, size=(self.K, self.batch))
-        return take_rows((subset, pseudo), idx)
+        return take_rows((subset, pseudo), idx[self._rows])
 
     # ------------------------------------------------------------------
     # evaluation / reporting (paper Figures 1-3, Table 1)
     # ------------------------------------------------------------------
 
     @torch.no_grad()
-    def _eval_members(self, params, test_b: dict):
+    def _eval_members(self, params, test_b: dict, mesh=None):
         """-> (mean member NLL, ensemble NLL, mean member error, ensemble
         error) on test_b, shared by the members; as the JAX package's
         eval, scored a chunk and a member at a time.  A MoE model routes
         a member's test rows as one token pool, as the JAX package does:
         where their logits pass CHUNK_BYTES (full-width jamba: 64 of the
-        256 rows a chunk), its chunks are pieces of that pool."""
-        K = tree_leaves(params)[0].shape[0]
+        256 rows a chunk), its chunks are pieces of that pool.  With a
+        mesh, params are this rank's members: each chunk's ensemble sum
+        is all-reduced over the members' axis before it is read."""
+        Kl = tree_leaves(params)[0].shape[0]
+        K, lo = Kl, 0
+        if mesh is not None:
+            K = Kl * shd.axis_size(mesh, self.ec_axis())
+            lo = shd.axis_index(mesh, self.ec_axis()) * Kl
         labels = test_b["labels"]
         m_nll = m_err = e_nll = e_err = 0.0
         pool = labels.shape[0] if self._pooled else None
@@ -209,11 +284,16 @@ class Trainer:
             m_err = m_err + (logits.argmax(-1) != y).sum()
             if k == 0:
                 fused = ens.StreamingEnsemble(K, device=self.device)
-            fused.add(k, logits)
-            if k == K - 1:
-                p = fused.probs()
+            fused.add(lo + k, logits)
+            if k == Kl - 1:
+                p = fused.probs() if mesh is None else \
+                    shd.psum(fused.acc, mesh, self.ec_axis())
                 e_nll = e_nll + ens.gold_nll(p, y).sum()
                 e_err = e_err + (p.argmax(-1) != y).sum()
+        if mesh is not None:
+            m_nll, m_err = (shd.psum(torch.as_tensor(x, device=self.device)
+                                     .float(), mesh, self.ec_axis())
+                            for x in (m_nll, m_err))
         n = labels.numel()
         return m_nll / (K * n), e_nll / n, m_err / (K * n), e_err / n
 
@@ -223,12 +303,12 @@ class Trainer:
     def evaluate(self, record: bool = True) -> Dict[str, float]:
         test_b = self._test_batch()
         m_nll, e_nll, m_err, e_err = self._eval_members(
-            self.state["params"], test_b)
+            self.state["params"], test_b, self.mesh)
         out = {"local_loss": float(m_nll), "global_loss": float(e_nll),
                "local_err": float(m_err), "global_err": float(e_err)}
         if self.ec.aggregator == "ma":
-            one = tree_map(lambda x: x[:1],
-                           agg.ma_aggregate(self.state["params"]))
+            one = tree_map(lambda x: x[:1], agg.ma_aggregate(
+                self.state["params"], mesh=self.mesh, axis=self.ec_axis()))
             nll, _, err, _ = self._eval_members(one, test_b)
             out["global_loss"], out["global_err"] = float(nll), float(err)
         if record:
@@ -242,7 +322,7 @@ class Trainer:
     def evaluate_compressed(self) -> Dict[str, float]:
         """After distill steps, members ARE the compressed models."""
         m_nll, _, m_err, _ = self._eval_members(self.state["params"],
-                                                self._test_batch())
+                                                self._test_batch(), self.mesh)
         out = {"compressed_loss": float(m_nll),
                "compressed_err": float(m_err)}
         self.metrics.compressed_loss.append(out["compressed_loss"])
@@ -251,38 +331,73 @@ class Trainer:
 
     @torch.no_grad()
     def best_member(self):
-        """EC-DNN_L: the member with smallest training loss.
-        -> (its params without the member axis, its index)."""
-        batch = sample_batch(self.rng, self.shards, min(self.batch, 64))
+        """EC-DNN_L: the member with smallest training loss, of all K.
+        -> (its params without the member axis, its index); over a mesh
+        the params are on the rank that holds the member (None
+        elsewhere)."""
+        batch = sample_batch(self.rng, self.shards, min(self.batch, 64),
+                             of=self._of)
         params = self.state["params"]
         losses = torch.stack([
             self._member_loss(tree_map(lambda x: x[k:k + 1], params),
                               tree_map(lambda x: x[k:k + 1], batch),
                               None, 0.0)
-            for k in range(self.K)])
+            for k in range(self.K_local)])
+        if self.mesh is not None:
+            losses = shd.all_gather(losses, self.mesh,
+                                    self.ec_axis()).reshape(-1)
         k = int(torch.argmin(losses))
-        return tree_map(lambda x: x[k], params), k
+        if not self._rows.start <= k < self._rows.stop:
+            return None, k
+        return tree_map(lambda x: x[k - self._rows.start], params), k
 
     # ------------------------------------------------------------------
     # fault tolerance / elasticity
     # ------------------------------------------------------------------
 
-    def save(self) -> None:
+    def _save_state(self, wait: bool) -> None:
+        """Write the state at this round (over a mesh, gathered to the
+        first rank, which writes the single-process layout)."""
+        state = self.state
+        if self.mesh is not None:
+            state = tree_map(
+                lambda x: shd.gather_rows(x, self.mesh, self.ec_axis()),
+                state)
         if self.ckpt is not None:
-            self.ckpt.save(self.round, self.state)
-            self.ckpt.wait()
+            self.ckpt.save(self.round, state)
+            if wait:
+                self.ckpt.wait()
+
+    def save(self) -> None:
+        if self._saves:
+            self._save_state(wait=True)
 
     def resume(self) -> bool:
         """Restore the newest committed round, if any: the state, and
         `round`; the pseudo buffer is dropped (the next round boundary
         relabels).  The host's index generator is not checkpointed, as in
-        the JAX package."""
-        if self.ckpt is None:
+        the JAX package.  Over a mesh the first rank reads the state and
+        sends each rank its rows."""
+        if not self._saves:
             return False
-        latest = self.ckpt.latest()
+        latest = self.ckpt.latest() if self.ckpt is not None else None
+        if self.mesh is not None:
+            latest = shd.broadcast_object(latest, self.mesh)
         if latest is None:
             return False
-        self.state = self.ckpt.restore(self.state, latest)
+        if self.mesh is None:
+            self.state = self.ckpt.restore(self.state, latest)
+        else:
+            full = None
+            if self.ckpt is not None:
+                template = tree_map(lambda x: torch.empty(
+                    (self.K, *x.shape[1:]), dtype=x.dtype), self.state)
+                full = self.ckpt.restore(template, latest)
+            live = tree_leaves(self.state)
+            got = tree_leaves(full) if full is not None \
+                else [None] * len(live)
+            for x, out in zip(got, live):
+                shd.send_rows(x, out, self.mesh, self.ec_axis())
         self.round = latest
         self.pseudo_buffer = None
         return True
@@ -295,10 +410,24 @@ class Trainer:
         its AdamW moments too, where noise makes v negative); the
         shards follow.  The steps read K from the state: nothing to
         rebuild."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "reshard over a mesh: K' must split over the ranks and the "
+                "grown members' rows move between them; not ported")
         self.state = {"params": reshard_members(self.state["params"], k_new,
                                                 perturb=1e-3,
                                                 generator=generator),
                       "opt": reshard_members(self.state["opt"], k_new)}
         self.shards = reshard_members(self.shards, k_new)
-        self.K = k_new
+        self.K = self.K_local = k_new
+        self._rows = slice(0, k_new)
         self.pseudo_buffer = None
+
+
+def _np_rows(tree, rows: slice):
+    """Rows `rows` of every leaf of a numpy tree."""
+    if isinstance(tree, dict):
+        return {k: _np_rows(v, rows) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_np_rows(v, rows) for v in tree)
+    return np.asarray(tree)[rows]

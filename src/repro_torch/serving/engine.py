@@ -1,4 +1,4 @@
-"""EC-DNN_G ensemble serving engine on one device.
+"""EC-DNN_G ensemble serving engine: one device, or a member mesh.
 
 All K members score every decode step together: the params and the
 cache pool carry a leading member axis and every layer runs the members
@@ -31,6 +31,38 @@ in the JAX package: each member's encoder runs once per params install
 over stub frame embeddings, and every prefill and decode cross-attends
 the frames it left in the pool.
 
+Over a member mesh (mesh=common.sharding.local_mesh(M, D): one process
+a rank, torch.distributed between them) a rank holds the members of its
+"member" coordinate, the JAX stack's rows [r K/M, (r+1) K/M), their
+params and their cache pool; the "data" dim replicates.  Members never
+communicate in the forward pass: the only cross-rank traffic a step is
+the Eqn-6 fusion's (core.ensemble.ensemble_log_probs_psum: an all-reduce
+of the weight mass, one MAX and one SUM of fused (B, V) partials).  The
+all-reduces hand every rank the same sums, so every rank computes the
+same fused log-probs, bit for bit, and samples the same tokens; the slot
+state is replicated.
+
+The host API is the single-device engine's, and it is the mesh's first
+rank's (the leader's): a Scheduler, the HTTP frontend or the CLI drives
+that rank's engine as it would drive any other.  The other ranks call
+follow(), which replays the leader's calls in its order and with its
+arguments until the leader calls close(): every method that touches
+device state (update_slots, prefill, step, reserve_decode_pages,
+note_harvest, swap_params' install, set_quorum, score) first broadcasts
+its name and arguments over the mesh's gloo control group, and after it
+has run, how it ended (returned, or the exception it raised).  A
+follower that ends a call otherwise than the leader did raises out of
+follow(): the ranks' states have come apart, and the world stops rather
+than fuse from them.  The leader takes a lock around broadcast, run and
+outcome, so that calls made from two threads (a Scheduler's loop and a
+rollout's swap_params) reach the followers whole and in one order; the
+nesting that keeps an inner replayed call from being broadcast again is
+counted per thread.  Replay, not a scheduler on every rank: the
+Scheduler reads the wall clock, so ranks scheduling on their own could
+admit differently and then wait forever in a collective.  swap_params
+takes the global stack on the leader and sends each rank its rows;
+set_quorum takes the global (K,) mask.
+
 The pool and the slot state are updated in place where the JAX package
 donates buffers to its jitted programs.  The greedy decode loop never
 waits for the device: sampling, output bookkeeping and the EOS/length
@@ -39,11 +71,14 @@ growth.
 """
 from __future__ import annotations
 
+import functools
+import threading
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.common import sharding as shd
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.common.types import ModelConfig
 from repro_torch.core import ensemble as ens
@@ -88,6 +123,57 @@ def _to(tree, device):
     return tree.to(device)
 
 
+def _rows_to(tree, rows: slice, device):
+    """Copies of rows `rows` of every (K, ...) leaf, on `device` (copies,
+    so that the global stack can be freed)."""
+    if isinstance(tree, dict):
+        return {k: _rows_to(v, rows, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rows_to(v, rows, device) for v in tree)
+    return tree[rows].to(device, copy=True)
+
+
+def _host_arg(x):
+    """A call's argument as it crosses to the follower ranks: tensors go
+    as host copies."""
+    return x.cpu() if torch.is_tensor(x) else x
+
+
+def replayed(fn):
+    """Mark an engine method that touches device state.  On a mesh the
+    leader runs it under the engine's replay lock: it broadcasts the
+    call (name and arguments), runs it, then broadcasts how the run
+    ended (None, or the exception's repr), and the followers (follow())
+    replay it and compare.  A call made from inside another replayed
+    call on the same thread is not broadcast: the outer one replays
+    it."""
+    @functools.wraps(fn)
+    def call(self, *args, **kwargs):
+        depth = getattr(self._nest, "depth", 0)
+        lead = self.mesh is not None and self._leader and not depth
+        if not lead:
+            self._nest.depth = depth + 1
+            try:
+                return fn(self, *args, **kwargs)
+            finally:
+                self._nest.depth = depth
+        with self._replay_lock:
+            shd.broadcast_object(
+                (fn.__name__, [_host_arg(a) for a in args],
+                 {k: _host_arg(v) for k, v in kwargs.items()}), self.mesh)
+            self._nest.depth = 1
+            try:
+                out = fn(self, *args, **kwargs)
+            except BaseException as e:
+                shd.broadcast_object(repr(e), self.mesh)
+                raise
+            finally:
+                self._nest.depth = 0
+            shd.broadcast_object(None, self.mesh)
+            return out
+    return call
+
+
 class EnsembleEngine:
     """Member-batched decode engine over a fixed pool of batch slots.
 
@@ -95,6 +181,13 @@ class EnsembleEngine:
     transformer.init(members=K) and bridge.params_from_numpy produce).
     K = 1 serves a single model through the identical path.  The engine
     runs on `device` (the card unless given); params are moved there.
+
+    mesh: a ("member", "data") DeviceMesh (common.sharding.local_mesh).
+    stacked_params is still the global (K,) stack, on any device; the
+    engine copies this rank's rows to `device` (M must divide K).  The
+    leader rank's engine is driven as usual and the others follow()
+    (see the module docstring).  n_members stays the global K;
+    n_local is this rank's share.
     """
 
     def __init__(self, cfg: ModelConfig, stacked_params, *,
@@ -105,10 +198,10 @@ class EnsembleEngine:
                  mesh=None, paged: bool = False, page_size: int = 16,
                  n_pages: Optional[int] = None, prefix_cache: bool = False,
                  kv_dtype: str = "f32", device: DeviceLike = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: sharding the member axis over several cards comes "
-                "with the multi-device slice")
+        if mesh is not None and not hasattr(mesh, "mesh_dim_names"):
+            raise TypeError(f"mesh must be a DeviceMesh "
+                            f"(common.sharding.local_mesh), got "
+                            f"{type(mesh).__name__}")
         if kv_dtype not in attn.KV_DTYPES:
             raise ValueError(f"kv_dtype must be one of {attn.KV_DTYPES}, "
                              f"got {kv_dtype!r}")
@@ -119,11 +212,26 @@ class EnsembleEngine:
                 "bit-exact reference)")
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.params = _to(stacked_params, self.device)
-        # swap_params holds incoming trees to this structure
+        self.mesh = mesh
+        self._nest = threading.local()   # .depth: nesting of replayed calls
+        self._replay_lock = threading.Lock()  # one replayed call at a time
+        self._closed = False
+        self.replay_errors: list = []  # calls that raised on every rank
+        # swap_params holds incoming trees to this structure (global K)
         self._param_spec = [(path, tuple(x.shape), x.dtype)
-                            for path, x in _flatten(self.params)]
-        self.n_members = self.params["embed"].shape[0]
+                            for path, x in _flatten(stacked_params)]
+        self.n_members = stacked_params["embed"].shape[0]
+        if mesh is None:
+            self._leader = True
+            self.member_shards = 1
+            self._rows = slice(0, self.n_members)
+            self.params = _to(stacked_params, self.device)
+        else:
+            self._leader = shd.is_leader(mesh)
+            self.member_shards = shd.axis_size(mesh, shd.MEMBER_AXIS)
+            self._rows = shd.member_rows(self.n_members, mesh)
+            self.params = _rows_to(stacked_params, self._rows, self.device)
+        self.n_local = self._rows.stop - self._rows.start
         self.kv_dtype = kv_dtype
         self.n_slots = n_slots
         self.max_prompt = max_prompt
@@ -140,10 +248,9 @@ class EnsembleEngine:
         self.temperature = temperature
         self.top_k = top_k
         self.eos_id = eos_id
-        self.quorum = (torch.ones(self.n_members, device=self.device)
-                       if quorum is None
-                       else torch.as_tensor(quorum, dtype=torch.float32,
-                                            device=self.device))
+        q = (torch.ones(self.n_members) if quorum is None
+             else torch.as_tensor(quorum, dtype=torch.float32))
+        self.quorum = q[self._rows].to(self.device)  # this rank's slice
         self.paged = bool(paged)
         self.page_size = int(page_size)
         self.prefix: Optional[prefix_mod.PrefixCache] = None
@@ -191,7 +298,7 @@ class EnsembleEngine:
             cfg, self.n_members, n_slots, self.max_seq,
             page_size=self.page_size if self.paged else 0,
             n_pages=self.n_pages if self.paged else 0, device=self.device,
-            kv_dtype=kv_dtype)
+            kv_dtype=kv_dtype, mesh=mesh)
         if cfg.enc_dec:
             self.cache["enc"] = self._encode_stub(n_slots)
         self.state = self._blank_state()
@@ -234,8 +341,23 @@ class EnsembleEngine:
         logits, cache = step(self.params, self.cfg, self.cache, tok[:, None])
         return logits[:, :, 0], cache
 
-    def _fuse(self, member_logits: torch.Tensor) -> torch.Tensor:
-        return ens.ensemble_log_probs(member_logits, weights=self.quorum)
+    def _fuse(self, member_logits: torch.Tensor,
+              member_lp: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Eqn 6 in log space under the quorum: over this rank's members
+        and then, on a mesh, across ranks (all-reduces over "member")."""
+        if self.mesh is None:
+            return ens.ensemble_log_probs(member_logits, weights=self.quorum,
+                                          member_lp=member_lp)
+        return ens.ensemble_log_probs_psum(member_logits, self.quorum,
+                                           self.mesh, shd.MEMBER_AXIS,
+                                           member_lp=member_lp)
+
+    def _quorum_normalized(self) -> torch.Tensor:
+        """This rank's slice of the quorum normalized over all K."""
+        total = self.quorum.sum()
+        if self.mesh is not None:
+            total = shd.psum(total, self.mesh, shd.MEMBER_AXIS)
+        return self.quorum / total.clamp_min(1e-9)
 
     def _sample(self, logp: torch.Tensor, rows) -> torch.Tensor:
         return sampling.sample_slots(
@@ -306,7 +428,7 @@ class EnsembleEngine:
         carries a replica)."""
         tbl = torch.as_tensor(self.allocator.table(), device=self.device)
         self.cache["page_table"] = tbl.expand(
-            self.n_members, *tbl.shape).contiguous()
+            self.n_local, *tbl.shape).contiguous()
         self._table_stale = False
 
     def _host_decoding(self) -> np.ndarray:
@@ -324,6 +446,7 @@ class EnsembleEngine:
         step: one)."""
         return 1
 
+    @replayed
     def reserve_decode_pages(self) -> list:
         """Grow each decoding slot's chain to cover this step's write
         positions; -> slots the free list left starved.  [] when not
@@ -431,6 +554,7 @@ class EnsembleEngine:
             stats["shared_attaches"] = a.shared_attach_count
         return stats
 
+    @replayed
     def step(self) -> SlotState:
         """Advance every slot one token: all K members score the step,
         fuse, sample, and the slot state advances in place.  Rows that
@@ -476,6 +600,7 @@ class EnsembleEngine:
             self._host_pos[self._host_decoding()] += 1
         return self.state
 
+    @replayed
     def prefill(self, slot: int) -> SlotState:
         """Advance one mid-prompt slot by up to prefill_chunk prompt
         tokens; a slot whose prompt completes emits its first generated
@@ -523,6 +648,7 @@ class EnsembleEngine:
                 self._host_pos[b] += min(C, int(left))
         return self.state
 
+    @replayed
     def update_slots(self, release: Sequence[int] = (),
                      admits: Sequence[tuple] = ()) -> dict:
         """Evict slots and admit new requests.
@@ -667,6 +793,7 @@ class EnsembleEngine:
         empty)."""
         return self.state.n_gen.new_zeros(0)
 
+    @replayed
     def note_harvest(self, n_gen: np.ndarray,
                      extra: Optional[np.ndarray] = None) -> None:
         """The host copy of every slot's n_gen (and of harvest_extra) from
@@ -707,7 +834,7 @@ class EnsembleEngine:
                                     st.n_gen]).cpu().numpy()
                 done = host[1] != 0
                 if sync_done:
-                    self._host_active &= ~done
+                    self._retire(done)
                 if early:
                     self.note_harvest(host[2])
                     if not (host[0].astype(bool) & ~done).any():
@@ -716,20 +843,30 @@ class EnsembleEngine:
         n_gen = self.state.n_gen.cpu().numpy()
         return [out[i, :n_gen[i]] for i in range(len(prompts))]
 
+    @replayed
+    def _retire(self, done: np.ndarray) -> None:
+        """generate()'s host read of the done flags: finished slots stop
+        holding decode pages."""
+        self._host_active &= ~np.asarray(done, bool)
+
+    @replayed
     def score(self, tokens, labels):
         """Teacher-forced NLL of a (B, T) batch -> (per-member (K,),
         ensemble ()) tensors on the engine's device.  The ensemble NLL
         is at most the mean member NLL for any members (Jensen), also
         under a quorum.  Runs through a private contiguous pool; the
-        serving pool and slot state are untouched."""
+        serving pool and slot state are untouched.  On a mesh the
+        per-member vector is the global (K,), gathered from the ranks,
+        and the ensemble NLL fuses across them."""
         tokens = torch.as_tensor(np.asarray(tokens), device=self.device)
         labels = torch.as_tensor(np.asarray(labels), device=self.device)
         B, T = tokens.shape
+        K = self.n_local
         cache = kv_cache.init_pool(self.cfg, self.n_members, B, T,
-                                   device=self.device)
+                                   device=self.device, mesh=self.mesh)
         if self.cfg.enc_dec:
             cache["enc"] = self._encode_stub(B)
-        m_tot = torch.zeros(self.n_members, device=self.device)
+        m_tot = torch.zeros(K, device=self.device)
         e_tot = torch.zeros((), device=self.device)
         for t in range(T):
             logits, cache = tf.decode_step_slots(self.params, self.cfg,
@@ -737,9 +874,12 @@ class EnsembleEngine:
             logits = logits[:, :, 0].float()               # (K, B, V)
             gold = labels[:, t].long()
             lp = ens.member_log_probs(logits)
-            m_tot -= lp.gather(2, gold.expand(self.n_members, B)[..., None]
+            m_tot -= lp.gather(2, gold.expand(K, B)[..., None]
                                )[..., 0].mean(1)
             e_tot -= self._fuse(logits).gather(1, gold[:, None]).mean()
+        if self.mesh is not None:
+            m_tot = shd.all_gather(m_tot, self.mesh,
+                                   shd.MEMBER_AXIS).reshape(-1)
         return m_tot / T, e_tot / T
 
     def swap_params(self, new_stacked_params) -> None:
@@ -753,7 +893,8 @@ class EnsembleEngine:
         one model).  An encoder-decoder's frames are recomputed from the
         new weights, into the pool's "enc" in place.  With the prefix
         cache on, the trie is flushed: cached pages hold the old model's
-        KV."""
+        KV.  On a mesh the leader is given the global stack and sends
+        each rank its rows."""
         new = list(_flatten(new_stacked_params))
         want = [path for path, _, _ in self._param_spec]
         if [path for path, _ in new] != want:
@@ -766,24 +907,89 @@ class EnsembleEngine:
                 raise ValueError(
                     f"swap_params: leaf {path} is {tuple(x.shape)}/"
                     f"{x.dtype}, the live engine's is {shape}/{dtype}")
+        self._incoming = [x for _, x in new]
+        try:
+            self._install_params()
+        finally:
+            self._incoming = None
+
+    @replayed
+    def _install_params(self) -> None:
+        """swap_params' device half, once the tree is checked: copy the
+        new leaves into the live ones (on a mesh the leader sends each
+        rank its rows; a follower replays this with nothing in hand)."""
+        leaves = getattr(self, "_incoming", None) or \
+            [None] * len(self._param_spec)
         with torch.no_grad():
-            for (_, live), (_, x) in zip(_flatten(self.params), new):
-                live.copy_(x)
+            for (_, live), x in zip(_flatten(self.params), leaves):
+                if self.mesh is None:
+                    live.copy_(x)
+                else:
+                    shd.send_rows(x, live, self.mesh)
             if self.cfg.enc_dec:
                 self.cache["enc"].copy_(self._encode_stub(self.n_slots))
         if self.prefix is not None:
             self.allocator.flush_cache()
         self.swaps_done += 1
 
+    @replayed
     def set_quorum(self, mask: Sequence[float]):
-        """0/1 liveness per member, renormalized; the next step fuses
-        over the survivors only."""
+        """0/1 liveness per member (the global (K,) vector, on a mesh
+        too), renormalized; the next step fuses over the survivors
+        only."""
         q = ens.quorum_weights(torch.as_tensor(mask, dtype=torch.float32))
         if q.shape != (self.n_members,):
             raise ValueError(f"quorum mask wants {self.n_members} entries, "
                              f"got {tuple(q.shape)}")
-        self.quorum = q.to(self.device)
+        self.quorum = q[self._rows].to(self.device)
 
     def cache_bytes(self) -> int:
-        """Bytes of the cache pool on the device (capacity telemetry)."""
+        """Bytes of the cache pool on this device (capacity telemetry):
+        on a mesh, this rank's K/M members' planes, the figure a card
+        budgets."""
         return kv_cache.pool_bytes(self.cache)
+
+    # -- the mesh's ranks ----------------------------------------------------
+
+    def follow(self, max_calls: Optional[int] = None) -> int:
+        """On a follower rank: replay the leader's calls until it calls
+        close(), or for max_calls calls (a caller that measures a known
+        stretch of the leader's calls).  After each call the leader says
+        how its own run ended.  A call that raised on both is kept in
+        replay_errors and the loop goes on (the leader's caller saw the
+        error: arguments it refused, say); one that raised on one side
+        only leaves the ranks' states apart, and follow() raises (a
+        world of common.sharding.spawn then stops every rank).
+        -> the calls replayed."""
+        if self.mesh is None or self._leader:
+            raise RuntimeError("follow() runs on a follower rank of a mesh")
+        n = 0
+        while max_calls is None or n < max_calls:
+            name, args, kwargs = shd.broadcast_object(None, self.mesh)
+            if name == "close":
+                self._closed = True
+                return n
+            mine = None
+            try:
+                getattr(self, name)(*args, **kwargs)
+            except Exception as e:  # noqa: BLE001 - compared below
+                mine = e
+            theirs = shd.broadcast_object(None, self.mesh)
+            if mine is not None and theirs is None:
+                raise RuntimeError(f"replayed {name} raised on this rank "
+                                   f"only") from mine
+            if mine is None and theirs is not None:
+                raise RuntimeError(f"{name} raised on the leader only "
+                                   f"({theirs}): the ranks' states differ")
+            if mine is not None:
+                self.replay_errors.append(f"{name}: {mine!r}")
+            n += 1
+        return n
+
+    def close(self) -> None:
+        """On the leader of a mesh: release the followers from follow()
+        (once).  A no-op without a mesh."""
+        if self.mesh is not None and self._leader and not self._closed:
+            with self._replay_lock:
+                shd.broadcast_object(("close", [], {}), self.mesh)
+        self._closed = True

@@ -164,6 +164,13 @@ class EngineSpec:
     def build_engine(self):
         from repro_torch.common.tree import tree_map
         from repro_torch.serving.engine import EnsembleEngine
+        if self.mesh:
+            # a replica over a member mesh would be a world of processes
+            # of its own, its followers outside the fleet's supervision
+            raise NotImplementedError(
+                f"mesh {self.mesh!r}: a fleet replica serves from one "
+                f"process; the member mesh (serve --mesh) runs without "
+                f"--fleet")
         cfg = self.config()
         dev = self.torch_device()
         if dev.type == "cuda":
@@ -179,7 +186,7 @@ class EngineSpec:
                   max_out=self.max_out, prefill_chunk=self.prefill_chunk,
                   temperature=self.temperature, top_k=self.top_k,
                   eos_id=self.eos_id, quorum=self.quorum, seed=self.seed,
-                  mesh=self.mesh or None, paged=self.paged,
+                  paged=self.paged,
                   page_size=self.page_size, n_pages=self.n_pages,
                   prefix_cache=self.prefix_cache, kv_dtype=self.kv_dtype,
                   device=dev)

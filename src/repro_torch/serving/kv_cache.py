@@ -34,7 +34,9 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.common import sharding as shd
 from repro_torch.common.device import DeviceLike
+from repro_torch.common.tree import tree_map
 from repro_torch.common.types import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tf
@@ -71,17 +73,36 @@ def _map(tree, fn, name: str = ""):
 
 def init_pool(cfg: ModelConfig, n_members: int, n_slots: int, max_seq: int,
               page_size: int = 0, n_pages: int = 0,
-              device: DeviceLike = None, kv_dtype: str = "f32") -> dict:
+              device: DeviceLike = None, kv_dtype: str = "f32",
+              mesh=None) -> dict:
     """Allocate the (K members) x (B slots) cache pool on `device` (the
     card unless given).  page_size > 0 allocates the paged layout with an
     all-sentinel page table.  kv_dtype picks the paged planes' storage
     ("f32" the model's dtype; "bf16"; "int8" / "fp8" quantized with
     per-token scale sidecars, which end in "_pages" and so are copied,
     folded and counted with their planes); rings and recurrent state
-    are never quantized."""
+    are never quantized.  With a mesh (common/sharding.local_mesh) the
+    pool holds this rank's K/M members only (M must divide K)."""
+    if mesh is not None:
+        rows = shd.member_rows(n_members, mesh)
+        n_members = rows.stop - rows.start
     return tf.init_slot_cache(cfg, n_slots, max_seq, page_size=page_size,
                               n_pages=n_pages, members=n_members,
                               device=device, kv_dtype=kv_dtype)
+
+
+def shard_pool(pool: dict, mesh) -> dict:
+    """This rank's rows of a pool (or any tree of leading-(K,) leaves)
+    over a member mesh, as copies (the global pool can be freed)."""
+    rows = None
+
+    def take(x):
+        nonlocal rows
+        if rows is None:
+            rows = shd.member_rows(x.shape[0], mesh)
+        return x[rows].clone()
+
+    return tree_map(take, pool)
 
 
 def reset_slots(pool: dict, mask: torch.Tensor,

@@ -24,6 +24,11 @@ Member pruning rides the verify pass as telemetry
 (core.ensemble.prunable_members): members whose whole vote cannot flip
 the fused argmax at a position are counted, never skipped.
 
+Over a member mesh (as EnsembleEngine's) the K = 1 draft is replicated
+on every rank, each rank verifies with its own members, the verify
+pass's fusion is the cross-rank one, and the pruning test stays local
+(its counts are summed over the ranks).
+
 The host contract is the plain engine's: a greedy step reads nothing
 back from the device.  The rows' accepted lengths reach the host in the
 Scheduler's one read a tick (n_gen, with the stats vector appended:
@@ -50,7 +55,9 @@ from repro_torch.common.types import ModelConfig
 from repro_torch.core import ensemble as ens
 from repro_torch.models import transformer as tf
 from repro_torch.serving import kv_cache, sampling
-from repro_torch.serving.engine import EnsembleEngine, _flatten, _to
+from repro_torch.common import sharding as shd
+from repro_torch.serving.engine import (EnsembleEngine, _flatten, _to,
+                                        replayed)
 from repro_torch.serving.spec import draft as draft_mod
 from repro_torch.serving.spec import verify as verify_mod
 
@@ -198,6 +205,7 @@ class SpeculativeEngine(EnsembleEngine):
     def harvest_extra(self) -> torch.Tensor:
         return self.stats_vec
 
+    @replayed
     def note_harvest(self, n_gen: np.ndarray,
                      extra: Optional[np.ndarray] = None) -> None:
         self._host_stats = extra
@@ -247,7 +255,7 @@ class SpeculativeEngine(EnsembleEngine):
         from the snapshot."""
         st = self.state
         B, G, C, K = self.n_slots, self.gamma, self.gamma + 1, \
-            self.n_members
+            self.n_local
         dev = self.device
         adv = st.active & ~st.done & (st.pos >= st.prompt_len)
         spec_row = adv & self._draft_rows
@@ -280,15 +288,16 @@ class SpeculativeEngine(EnsembleEngine):
         verify = tf.verify_step_paged if self.paged else tf.verify_slots
         lg, _ = verify(self.params, self.cfg, self.cache, chunk, n_val)
         mlp = ens.member_log_probs(lg)                      # (K, B, C, V)
-        fused = ens.ensemble_log_probs(lg, weights=self.quorum,
-                                       member_lp=mlp)       # (B, C, V)
+        fused = self._fuse(lg, member_lp=mlp)               # (B, C, V)
         choice = fused.argmax(dim=-1)
-        wn = self.quorum / self.quorum.sum().clamp_min(1e-9)
-        prunable = ens.prunable_members(lg, fused, wn, member_lp=mlp)
+        prunable = ens.prunable_members(lg, fused, self._quorum_normalized(),
+                                        member_lp=mlp)
         validp = spec_row[:, None] & (
             torch.arange(C, device=dev)[None, :] < n_val[:, None])
         pc = (prunable & validp[None]).sum()
-        pt = K * validp.sum()
+        if self.mesh is not None:
+            pc = shd.psum(pc, self.mesh, shd.MEMBER_AXIS)
+        pt = self.n_members * validp.sum()
 
         # -- 3. accept
         a = verify_mod.greedy_accept(chunk[:, 1:], choice)
@@ -395,10 +404,12 @@ class SpeculativeEngine(EnsembleEngine):
         end = int(self._host_plen[b] + self._host_new[b]) - 1
         return max(min(self.gamma + 1, end - int(self._host_pos[b])), 1)
 
+    @replayed
     def reserve_decode_pages(self) -> list:
         self._sync_host()
         return super().reserve_decode_pages()
 
+    @replayed
     def step(self):
         """One speculative iteration when any live slot drafts; otherwise
         the inherited plain step, so an all-draft-off server runs the
@@ -421,6 +432,7 @@ class SpeculativeEngine(EnsembleEngine):
         self._host_stats = None
         return self.state
 
+    @replayed
     def prefill(self, slot: int):
         b = int(slot)
         if 0 <= b < self.n_slots and self._host_draft[b]:
@@ -429,6 +441,7 @@ class SpeculativeEngine(EnsembleEngine):
             self._draft_prefill(b)
         return super().prefill(slot)
 
+    @replayed
     def update_slots(self, release: Sequence[int] = (),
                      admits: Sequence[tuple] = ()) -> dict:
         """The base engine's; an admission drafts unless its options say

@@ -191,7 +191,8 @@ def test_validate_request_names_its_limits(models):
 
 @pytest.mark.parametrize("option", ["mesh", "prefix_cache", "kv_dtype"])
 def test_options_of_later_slices_raise(models, option):
-    """mesh comes with a later slice.  The prefix cache is ported: rwkv6-7b
+    """mesh is ported (tests/test_torch_mesh.py): what is not a
+    DeviceMesh is refused.  The prefix cache is ported: rwkv6-7b
     refuses it with the JAX package's reason (its recurrent state is per
     slot, so a hit could not skip it).  Quantized KV pages are ported: a
     contiguous pool refuses them with the JAX package's reason."""
@@ -215,7 +216,7 @@ def test_options_of_later_slices_raise(models, option):
                            device="cpu", **kw)
         assert str(got.value) == str(want.value)
         return
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         EnsembleEngine(tcfg, tp, device="cpu", **dict(KW, mesh=object()))
 
 

@@ -205,14 +205,16 @@ def test_baseline_round_matches_jax_trainer(data, aggr):
 
 
 def test_trainer_rejects_what_is_not_ported(data):
-    """A mesh names the module it waits for, an unknown label mode is
-    refused; checkpoints, elastic K and the recurrent families (rwkv6's
-    ssm, jamba's hybrid) are ported (tests/test_torch_checkpoint.py,
-    tests/test_torch_ssm_train.py) and build."""
+    """A mesh that is not a DeviceMesh (common/sharding.py's local_mesh;
+    the mesh path is tests/test_torch_ring.py's) and an unknown label
+    mode are refused; checkpoints, elastic K and the recurrent families
+    (rwkv6's ssm, jamba's hybrid) are ported
+    (tests/test_torch_checkpoint.py, tests/test_torch_ssm_train.py) and
+    build."""
     train, test, _ = data
     args = (TMC(**CFG), _ec(TEC), tsgd(0.02), K, 0, _torch(train),
             _torch(test), 16)
-    with pytest.raises(NotImplementedError, match="common/sharding.py"):
+    with pytest.raises(TypeError, match="common.sharding.local_mesh"):
         TTrainer(*args, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="label_mode"):
         TTrainer(*args[:1], TEC(label_mode="sparse"), *args[2:],
