@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, one JSON line each, in the order 0, 1, 7, 10, 11, 2, 8, 9, 12,
-16, 17, 18, 13, 19, 20, 21, 3, 4, 5, 6, 14, 15, 22:
+16, 17, 18, 13, 19, 20, 21, 3, 4, 5, 6, 14, 15, 22, 23:
   0  the card's name and power limit; build every CUDA kernel from
      src/repro_torch/kernels/csrc (one nvcc per source, all at once);
      every kernel function's registers and spills (ptxas) and each
@@ -200,7 +200,8 @@ Phases, one JSON line each, in the order 0, 1, 7, 10, 11, 2, 8, 9, 12,
      the formula's count in a relabel, peak below 80 GB; host ms, busy
      ms, AdamW's device ms, relabel and round seconds, tokens/s;
  22  the member axis across ranks (common/sharding.py, one process a
-     rank).  22a: gemma3-1b at full width and depth, f32, K = 4, paged,
+     rank), gemma3-1b at full width cut to 13 of 26 layers.  22a: f32,
+     K = 4, paged,
      phase 2's prompts and 32 new tokens: the single-process engine
      (mesh=None) as the reference, then the mesh path at world size 1
      under NCCL in this process, then two ranks on the card under gloo
@@ -212,7 +213,7 @@ Phases, one JSON line each, in the order 0, 1, 7, 10, 11, 2, 8, 9, 12,
      launches per rank as phase 2's formula, flash per prefill call,
      each rank's cache bytes half the reference's; decode ms a step,
      each rank's busy ms and idle share, the fusion's all-reduce ms a
-     step (profiler), peak memory a rank.  22b: phase 14's gemma3-1b
+     step (profiler), peak memory a rank.  22b: phase 14's training
      (bf16, AdamW) at K = 2 over two ranks on the card under gloo, a
      member a rank, protocol ring: two dense EC rounds and one top-64,
      evaluate() after each mode (finite, Jensen gap >= 0); distill
@@ -220,7 +221,20 @@ Phases, one JSON line each, in the order 0, 1, 7, 10, 11, 2, 8, 9, 12,
      ring's dense targets equal the mesh all-gather's within 1e-4, each
      relabel's flash launches as its formula; relabel seconds (ring,
      all-gather, ring top-64), the bytes a hop moves, host and busy ms
-     a step, peak memory a rank.
+     a step, peak memory a rank;
+ 23  the paper's experiments and the examples through their entry points
+     (repro_torch/paper, repro_torch/examples): Table 1 and Figures 1-2
+     at --fast (NiN width 96, K = 4), the faithful run at --fast (the
+     paper's NiN, K = 4, 32x32), the quickstart, the LM example on
+     reduced gemma3-1b (top-8 labels, 2 rounds, then resumed from its
+     checkpoint for a third) and the serving example on reduced
+     deepseek-7b on one device with its paged and frontend demos; every
+     kernel count set to 0 before each and read after: each trainer's
+     distill launches equal (rounds - 1) x p_steps each way for an EC
+     run with dense labels and 0 otherwise, every EC evaluate()'s
+     Jensen gap >= -1e-6, every number finite, the LM example's flash
+     and the serving example's paged and flash launches above 0; the
+     paper's orderings printed, not asserted.
 Then the kernels line, the card line, and last the result line.  Any
 failure exits non-zero before the result line.  Imports nothing of JAX.
 """
@@ -615,7 +629,11 @@ def flash_positions(torch, N, S, C, idx, n_tok, ring_window):
 # whisper-tiny's encoder stub (K 4 x 4 slots over 1500 frames), a
 # 128-token prefill chunk's cross-attention over the frames and its
 # self-attention over the slot's 192 positions (one chunk a prompt);
-# qwen2-vl-2b's chunk over 576 gathered positions (g = 6)
+# qwen2-vl-2b's chunk over 576 gathered positions (g = 6); phase 23's
+# examples at their reduced configs (head_dim 32): train_ec_dnn's relabel
+# and eval (gemma3-1b, K 4 x 64 sequences of 64, window 16 or none) and
+# serve_ensemble's first paged prefill chunk (deepseek-7b, 16 tokens over
+# 3 pages of 8)
 FLASH_CASES = {
     "gemma3_ring_mid": (4, 128, 512, 4, 1, 256, 512, 256, 128),
     "gemma3_ring_tail": (4, 128, 512, 4, 1, 256, 512, 256, 44),
@@ -632,6 +650,9 @@ FLASH_CASES = {
     "whisper_cross_chunk": (4, 128, 1500, 6, 6, 64, 0, 0, 0, False),
     "whisper_self_chunk": (4, 128, 192, 6, 6, 64, 0, 0, 96),
     "qwen2_vl_chunk": (4, 128, 576, 12, 2, 128, 0, 256, 128),
+    "gemma3_reduced_relabel_64": (256, 64, 0, 4, 1, 32, 0, 0, 0),
+    "gemma3_reduced_relabel_64_w16": (256, 64, 0, 4, 1, 32, 16, 0, 0),
+    "deepseek_reduced_prefill": (4, 16, 24, 4, 4, 32, 0, 0, 16),
 }
 # speculative verify (phase 20's pass): K 4 x 4 slots of gamma+1 = 5
 # queries at per-row positions 300-512 over S = 576 gathered keys at
@@ -2560,6 +2581,11 @@ def phase4(torch, flush, card):
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [  # name, N, V, logits dtype, pseudo dtype, padded labels
         ("nin_f32", 256, 100, f32, f32, False),      # the main path's shape
+        # phase 23's NiN steps at --fast (K 4 x B 32): the quickstart's
+        # 10 classes and table1 / fig12's 20, V % 4 != 0 taking the
+        # kernels' scalar loads
+        ("nin_v10_f32", 128, 10, f32, f32, False),
+        ("nin_v20_f32", 128, 20, f32, f32, False),
         ("vocab_bf16", 2048, 262144, bf16, f32, False),
         # rwkv6-7b's distill step in phase 15 (K 4 x B 8 x T 64 rows)
         ("vocab65k_bf16", 2048, 65536, bf16, f32, False),
@@ -3367,13 +3393,19 @@ def phase15(torch, np, card) -> dict:
 
 # 22a: gemma3-1b in f32, K = 4, paged, phase 2's prompts; two ranks hold
 # 2 members each.  22b: phase 14's training at K = 2, a member a rank.
-MESH = dict(members=4, ranks=2, lp_tol=1e-4, profile=3, timeout=900.0)
-RING = dict(LM_TRAIN, members=2, rounds=3, dense_rounds=2, timeout=900.0)
+# phase 22 runs gemma3-1b cut to 13 of its 26 layers (two 5:1 periods and
+# one local layer): its runs are host-bound, and the cut keeps the whole
+# script inside the call's time with phase 23
+MESH = dict(members=4, ranks=2, lp_tol=1e-4, profile=3, timeout=900.0,
+            n_layers=13)
+RING = dict(LM_TRAIN, members=2, rounds=3, dense_rounds=2, timeout=900.0,
+            n_layers=13)
 
 
 def mesh_cfg():
     from repro_torch.configs import registry
-    return registry.get_config("gemma3-1b").with_(dtype="float32")
+    return registry.get_config("gemma3-1b").with_(
+        dtype="float32", n_layers=MESH["n_layers"])
 
 
 def mesh_prompts(np, vocab: int) -> list:
@@ -3695,7 +3727,7 @@ def ring_trainer(mesh):
     from repro_torch.optim import adamw
     from repro_torch.runtime.trainer import Trainer
     c = RING
-    cfg = registry.get_config("gemma3-1b")
+    cfg = registry.get_config("gemma3-1b").with_(n_layers=c["n_layers"])
     ec = ECConfig(tau=c["tau"], p_steps=c["p_steps"], lam=0.5,
                   relabel_fraction=c["relabel"], label_mode="dense",
                   top_m=c["top_m"], aggregator="ec", protocol="ring")
@@ -3843,7 +3875,8 @@ def phase22_train(torch, np, card) -> dict:
                                  f"{r['launches']['flash_attention']} "
                                  f"times, fewer than their relabels'")
     emit({"phase": 22, "part": "b", "card": card, "arch": "gemma3-1b",
-          "dtype": "bfloat16", "members": K, "ranks": len(ranks),
+          "dtype": "bfloat16", "n_layers": c["n_layers"], "members": K,
+          "ranks": len(ranks),
           "backend": r0["backend"], "protocol": "ring",
           "batch_per_member": c["batch"], "seq_len": c["seq_len"],
           "per_member": c["per_member"], "relabel_sequences": n,
@@ -3884,6 +3917,183 @@ def phase22(torch, np, card) -> dict:
     part's launches on its first rank."""
     return {"serve": phase22_serve(torch, np, card),
             "train": phase22_train(torch, np, card)}
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the paper's experiments and the examples
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def trainer_tap():
+    """Every Trainer made while open, as a record: its K and p_steps, each
+    round's aggregator (read at the round: table1's S-DNN switches it
+    after construction), loss and distill launches each way, and each
+    evaluate()'s result."""
+    from repro_torch.kernels import distill_loss as dl
+    from repro_torch.runtime.trainer import Trainer
+    runs = []
+    real = {name: getattr(Trainer, name)
+            for name in ("__init__", "run_round", "evaluate")}
+
+    def init(self, *a, **kw):
+        real["__init__"](self, *a, **kw)
+        self._tap = {"K": self.K, "p_steps": self.ec.p_steps,
+                     "labels": self.ec.label_mode, "rounds": [],
+                     "evals": []}
+        runs.append(self._tap)
+
+    def run_round(self, *a, **kw):
+        f0 = dl.distill_loss_fwd.launches
+        b0 = dl.distill_loss_bwd.launches
+        loss = real["run_round"](self, *a, **kw)
+        self._tap["rounds"].append({
+            "aggregator": self.ec.aggregator, "loss": loss,
+            "fwd": dl.distill_loss_fwd.launches - f0,
+            "bwd": dl.distill_loss_bwd.launches - b0})
+        return loss
+
+    def evaluate(self, *a, **kw):
+        out = real["evaluate"](self, *a, **kw)
+        self._tap["evals"].append(dict(out, aggregator=self.ec.aggregator))
+        return out
+
+    Trainer.__init__, Trainer.run_round, Trainer.evaluate = \
+        init, run_round, evaluate
+    try:
+        yield runs
+    finally:
+        for name, fn in real.items():
+            setattr(Trainer, name, fn)
+
+
+def finite_numbers(obj) -> list:
+    """Every float in a nest of dicts, lists and tuples."""
+    if isinstance(obj, dict):
+        return [x for v in obj.values() for x in finite_numbers(v)]
+    if isinstance(obj, (list, tuple)):
+        return [x for v in obj for x in finite_numbers(v)]
+    return [obj] if isinstance(obj, float) else []
+
+
+def twin_path(torch, name: str, fn) -> dict:
+    """Drive one twin on the card with every kernel's count set to 0
+    just before and read just after; its stdout is kept.  Per trainer it
+    made: the distill launches each way must equal (rounds - 1) x p_steps
+    for an EC run with dense labels and 0 for an MA one or top-M labels
+    (their Eqn-9 loss is not the fused kernel's), every EC evaluate()
+    keep the Jensen gap >= -1e-6, and every number be finite."""
+    import io
+    from repro_torch.kernels import distill_loss as dl
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    kernels = {"fwd": dl.distill_loss_fwd, "bwd": dl.distill_loss_bwd,
+               "flash_attention": fa.flash_attention,
+               "paged_attention": pa.paged_attention}
+    buf = io.StringIO()
+    with trainer_tap() as runs:
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            result = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {n: k.launches for n, k in kernels.items()}
+    formulas, gaps = [], []
+    for i, run in enumerate(runs):
+        aggs = {r["aggregator"] for r in run["rounds"]}
+        n = len(run["rounds"])
+        dense = run["labels"] == "dense"
+        want = (n - 1) * run["p_steps"] if aggs == {"ec"} and n and dense \
+            else 0
+        formulas.append(f"{'/'.join(sorted(aggs))} K={run['K']} "
+                        f"{run['labels']}: "
+                        + (f"({n} rounds - 1) x {run['p_steps']} = {want}"
+                           if want else "0"))
+        for way in ("fwd", "bwd"):
+            got = sum(r[way] for r in run["rounds"])
+            if got != want:
+                raise AssertionError(f"{name} trainer {i}: distill_loss_"
+                                     f"{way} launched {got} times, "
+                                     f"expected {formulas[-1]}")
+        for ev in run["evals"]:
+            if ev["aggregator"] == "ec":
+                gap = ev["local_loss"] - ev["global_loss"]
+                gaps.append(gap)
+                if gap < -1e-6:
+                    raise AssertionError(f"{name} trainer {i}: Jensen gap "
+                                         f"{gap} < 0")
+    total = {way: sum(r[way] for run in runs for r in run["rounds"])
+             for way in ("fwd", "bwd")}
+    if total != {way: launches[way] for way in total}:
+        raise AssertionError(f"{name}: distill launches {launches} outside "
+                             f"its trainers' rounds {total}")
+    numbers = finite_numbers([result, runs])
+    if not all(math.isfinite(x) for x in numbers):
+        raise AssertionError(f"{name}: a number is not finite: {result}")
+    return {"seconds": seconds, "launches": launches,
+            "launch_formula": formulas, "jensen_gaps": gaps,
+            "trainers": len(runs), "numbers_checked": len(numbers),
+            "result": result, "printed": buf.getvalue().splitlines()}
+
+
+def phase23(torch, np, card) -> dict:
+    """The paper's experiments (repro_torch/paper) and the examples
+    (repro_torch/examples) through their entry points on the card: Table
+    1 and Figures 1-2 at --fast, the faithful run at --fast (K = 4, the
+    paper's NiN at 32x32), the quickstart, and at its reduced size the
+    LM example (top-8 labels, a checkpoint and resume) and the serving
+    example on one device with the paged demo and the frontend.  The
+    paper's orderings are printed, not asserted: on synthetic data they
+    are findings.  -> each path's launches."""
+    import tempfile
+
+    from repro_torch.examples import quickstart, serve_ensemble, train_ec_dnn
+    from repro_torch.paper import faithful, fig12, table1
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        paths = {
+            "paper_nin table1": lambda: table1.main(["--fast"]),
+            "paper_nin fig12": lambda: fig12.main(["--fast"]),
+            "paper_nin faithful": lambda: {
+                f"{a}-K{k}": r for (a, k), r in
+                faithful.main(["--fast"]).items()},
+            "nin quickstart": lambda: quickstart.main([]),
+            "gemma3-1b reduced train_ec_dnn": lambda: [
+                train_ec_dnn.main(["--rounds", str(r), "--ckpt", ckpt])
+                for r in (2, 3)],
+            "deepseek-7b reduced serve_ensemble": lambda:
+                serve_ensemble.main(["--mesh", "", "--paged",
+                                     "--frontend"])}
+        out = {name: twin_path(torch, name, fn) for name, fn in paths.items()}
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    lm = out["gemma3-1b reduced train_ec_dnn"]
+    if [r["start_round"] for r in lm["result"]] != [0, 2]:
+        raise AssertionError(f"train_ec_dnn did not resume from round 2: "
+                             f"{lm['result']}")
+    if not lm["launches"]["flash_attention"]:
+        raise AssertionError("train_ec_dnn's relabel and eval launched no "
+                             "flash attention")
+    serve = out["deepseek-7b reduced serve_ensemble"]
+    if not (serve["launches"]["paged_attention"]
+            and serve["launches"]["flash_attention"]):
+        raise AssertionError(f"serve_ensemble's paged demo launched "
+                             f"{serve['launches']}")
+    t1 = out["paper_nin table1"]["result"]
+    f12 = out["paper_nin fig12"]["result"]
+    claims = {
+        "table1 EC_G <= EC_L": t1["EC-DNN_G"] <= t1["EC-DNN_L"],
+        "table1 EC_L <= S-DNN": t1["EC-DNN_L"] <= t1["S-DNN"],
+        "table1 EC <= MA (+0.02)": t1["EC-DNN_L"] <= t1["MA-DNN_L"] + 0.02
+        and t1["EC-DNN_G"] <= t1["MA-DNN_G"] + 0.02,
+        "fig12 MA worse in some rounds": f12["ma_bad_fraction"] > 0}
+    emit({"phase": 23, "card": card, "paths": out,
+          "claims_printed_not_asserted": {
+              k: "OK" if v else "VIOLATED" for k, v in claims.items()}})
+    torch.cuda.empty_cache()
+    return {name: path["launches"] for name, path in out.items()}
 
 
 def main() -> int:
@@ -3956,6 +4166,7 @@ def main() -> int:
     lm_launches = phase14(torch, np, card)
     ssm_launches = phase15(torch, np, card)
     mesh_launches = phase22(torch, np, card)
+    paper_launches = phase23(torch, np, card)
 
     def entry(name, source, replaces, n, row, by_path=None):
         out = {"name": name, "route": "cuda", "source": source,
@@ -3992,6 +4203,9 @@ def main() -> int:
             out["gemma3-1b mesh"] = mesh_launches["serve"][kernel]
         if kernel in mesh_launches["train"]:
             out["gemma3-1b ring train"] = mesh_launches["train"][kernel]
+        for path, n in paper_launches.items():
+            if n.get(kernel):
+                out[path] = n[kernel]
         return out
 
     def by_shape(rows):
@@ -4036,7 +4250,10 @@ def main() -> int:
                       **{f"{arch} train": n[which]
                          for arch, n in ssm_launches.items()},
                       "gemma3-1b ring train":
-                          mesh_launches["train"][which]}),
+                          mesh_launches["train"][which],
+                      **{path: n[which]
+                         for path, n in paper_launches.items()
+                         if n[which]}}),
                by_shape=by_shape(distill_cases[which]))
           for which, line in (("fwd", 35), ("bwd", 71))),
         # the decode step's row; launches over decode and prefill both

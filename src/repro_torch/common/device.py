@@ -24,6 +24,17 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return torch.device(device)
 
 
+def entry_device(device: DeviceLike = None) -> torch.device:
+    """resolve_device for an entry point: on the card, f32 products and
+    convolutions stay f32 (no TF32), as the JAX package and the CPU
+    compute them."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return dev
+
+
 def torch_dtype(name: str) -> torch.dtype:
     """ModelConfig.dtype string -> torch dtype."""
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]

@@ -51,22 +51,27 @@ from repro_torch.common.types import ECConfig
 from repro_torch.core import compression as comp
 from repro_torch.core import ensemble as ens
 
-# f32 logits one scoring call may return: 1,024 token rows at gemma3's
-# 262k vocabulary; a NiN relabel set (100 classes) scores in one call
+# f32 one scoring call may hold: logits of 1,024 token rows at gemma3's
+# 262k vocabulary, or one layer's output of 1,365 images of 32x32 at
+# the paper's NiN width
 CHUNK_BYTES = 1 << 30
 
 
-def chunk_rows(inputs: dict, n_out: int) -> int:
+def chunk_rows(inputs: dict, n_out: int, row_floats: int = 0) -> int:
     """Input rows (images, or sequences of T tokens) one scoring call
     takes, so that its f32 logits over n_out classes stay within
-    CHUNK_BYTES."""
-    per_row = inputs["tokens"].shape[-1] if "tokens" in inputs else 1
-    return max(1, CHUNK_BYTES // (4 * per_row * n_out))
+    CHUNK_BYTES, and so do row_floats f32 a row, the model's largest
+    activation (models.activation_floats: a K = 8 CIFAR-100 relabel set
+    of 35,000 images in one call would hold 27.5 GB of one NiN layer)."""
+    per_row = n_out
+    if "tokens" in inputs:
+        per_row *= inputs["tokens"].shape[-1]
+    return max(1, CHUNK_BYTES // (4 * max(per_row, row_floats)))
 
 
 def stream_logits(stacked_params, inputs: dict, logits_fn: Callable,
                   n_out: int, fold: bool = False,
-                  pool_rows: Optional[int] = None
+                  pool_rows: Optional[int] = None, row_floats: int = 0
                   ) -> Iterator[Tuple[slice, int, torch.Tensor]]:
     """Score inputs {name: (n, ...)}, shared by every member, a chunk of
     chunk_rows rows at a time and, within it, member by member.  ->
@@ -78,12 +83,13 @@ def stream_logits(stacked_params, inputs: dict, logits_fn: Callable,
     chunk then holds whole pools, as many as fit; where one pool does
     not fit, its chunks are pieces of it, and each member carries its
     MoE layers' arrival counts from one piece to the next (logits_fn's
-    carry, a dict started afresh at each pool).
+    carry, a dict started afresh at each pool).  row_floats: see
+    chunk_rows.
     logits_fn takes member-stacked params and a batch with a leading
     member axis, as steps.make_logits_fn's do."""
     K = tree_leaves(stacked_params)[0].shape[0]
     n = tree_leaves(inputs)[0].shape[0]
-    rows = chunk_rows(inputs, n_out)
+    rows = chunk_rows(inputs, n_out, row_floats)
     kw = {} if pool_rows is None else {"pool_rows": pool_rows}
 
     def members(sl, carries=None):
@@ -117,21 +123,22 @@ def stream_logits(stacked_params, inputs: dict, logits_fn: Callable,
 def allgather_relabel(stacked_params, batches: dict, logits_fn: Callable,
                       ec: ECConfig, quorum: Optional[torch.Tensor] = None,
                       *, n_out: int, pooled: bool = False, mesh=None,
-                      axis: str = "data"):
+                      axis: str = "data", row_floats: int = 0):
     """-> pseudo-labels for each member's own batch: dense probs (K, n,
     ..., V), or a TopM with leading (K, n, ...) in label_mode "topk".
 
     stacked_params: tree with leading K; batches: dict of (K, n, ...)
     tensors (each member's relabel inputs); n_out: the classes (V) the
     logits span; pooled: the model routes tokens by pool
-    (steps.routes_by_pool), so each batch is scored as its own.  With a
-    mesh, stacked_params and batches are this rank's K/M rows along
+    (steps.routes_by_pool), so each batch is scored as its own;
+    row_floats: the model's largest activation a row (chunk_rows).  With
+    a mesh, stacked_params and batches are this rank's K/M rows along
     `axis`, quorum is the global (K,) mask, and so is the result's
     leading axis this rank's K/M."""
     if mesh is not None:
         return _allgather_relabel_mesh(stacked_params, batches, logits_fn,
                                        ec, quorum, n_out, pooled, mesh,
-                                       axis)
+                                       axis, row_floats)
     K, n = tree_leaves(batches)[0].shape[:2]
     every = {name: v.reshape(K * n, *v.shape[2:])
              for name, v in batches.items()}
@@ -139,7 +146,8 @@ def allgather_relabel(stacked_params, batches: dict, logits_fn: Callable,
     out = fused = None
     for sl, k, logits in stream_logits(stacked_params, every, logits_fn,
                                        n_out,
-                                       pool_rows=n if pooled else None):
+                                       pool_rows=n if pooled else None,
+                                       row_floats=row_floats):
         if k == 0:
             fused = ens.StreamingEnsemble(K, quorum, ec.average_probs,
                                           device)
@@ -157,7 +165,7 @@ def allgather_relabel(stacked_params, batches: dict, logits_fn: Callable,
 
 
 def _allgather_relabel_mesh(params, batches, logits_fn, ec, quorum, n_out,
-                            pooled, mesh, axis):
+                            pooled, mesh, axis, row_floats):
     """Every rank scores all K batches (all-gathered) with its own
     members into a partial weighted sum; a reduce-scatter leaves each
     rank the sum over its own batches' rows."""
@@ -170,7 +178,8 @@ def _allgather_relabel_mesh(params, batches, logits_fn, ec, quorum, n_out,
     device = tree_leaves(batches)[0].device
     partial = fused = None
     for sl, k, logits in stream_logits(params, every, logits_fn, n_out,
-                                       pool_rows=n if pooled else None):
+                                       pool_rows=n if pooled else None,
+                                       row_floats=row_floats):
         if k == 0:
             fused = ens.StreamingEnsemble(K, quorum, ec.average_probs,
                                           device)
@@ -192,7 +201,7 @@ def _allgather_relabel_mesh(params, batches, logits_fn, ec, quorum, n_out,
 def ring_relabel(mesh, stacked_params, batches: dict, logits_fn: Callable,
                  ec: ECConfig, axis: str = "data",
                  quorum: Optional[torch.Tensor] = None, *, n_out: int,
-                 pooled: bool = False):
+                 pooled: bool = False, row_floats: int = 0):
     """The ring over `axis`: this rank's one member (stacked_params with
     a leading 1) and its batch (dict of (1, n, ...)) -> its batch's
     pseudo-labels with a leading 1, dense or TopM as allgather_relabel.
@@ -220,7 +229,8 @@ def ring_relabel(mesh, stacked_params, batches: dict, logits_fn: Callable,
         acc = None
         for sl, _, logits in stream_logits(stacked_params, visiting,
                                            logits_fn, n_out,
-                                           pool_rows=n if pooled else None):
+                                           pool_rows=n if pooled else None,
+                                           row_floats=row_floats):
             lg = logits.float()
             out = (torch.softmax(lg, dim=-1) if ec.average_probs else lg) \
                 * w_me

@@ -459,15 +459,12 @@ def serve(args, cfg, mesh=None) -> int:
     """Build the engine (on a mesh, this rank's) and serve --http,
     --continuous or the static batch."""
     from repro_torch.common import sharding as shd
-    from repro_torch.common.device import resolve_device
+    from repro_torch.common.device import entry_device
     from repro_torch.common.tree import tree_map
     from repro_torch.models import transformer as tf
     from repro_torch.serving.engine import EnsembleEngine
 
-    device = resolve_device(args.device)
-    if device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    device = entry_device(args.device)
     K = args.members
     quorum = ([float(x) for x in args.quorum.split(",")]
               if args.quorum else None)

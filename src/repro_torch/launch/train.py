@@ -67,17 +67,14 @@ def main(argv=None) -> int:
                          "on the CPU)")
     args = ap.parse_args(argv)
 
-    from repro_torch.common.device import resolve_device
+    from repro_torch.common.device import entry_device
     from repro_torch.common.types import ECConfig
     from repro_torch.configs import registry
     from repro_torch.data import image_member_datasets, lm_member_datasets
     from repro_torch.optim import adamw, sgd_momentum
     from repro_torch.runtime.trainer import Trainer
 
-    device = resolve_device(args.device)
-    if device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    device = entry_device(args.device)
     cfg = registry.get_config(args.arch, reduced=args.reduced)
     rng = np.random.default_rng(args.seed)
     if cfg.family == "cnn":

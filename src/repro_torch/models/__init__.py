@@ -14,7 +14,8 @@ from repro_torch.common.types import ModelConfig
 def init(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
          members: int = 1) -> dict:
     """Member-stacked params, torch-seeded, on the card unless `device`
-    says otherwise."""
+    says otherwise; device="meta" makes each leaf's shape and dtype and
+    draws nothing (the JAX package's jax.eval_shape of init)."""
     if cfg.family == "cnn":
         from repro_torch.models import cnn
         # d_model doubles as the NiN width knob (192 = the paper's size)
@@ -23,6 +24,19 @@ def init(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
                             device=device, members=members)
     from repro_torch.models import transformer
     return transformer.init(cfg, seed=seed, device=device, members=members)
+
+
+def activation_floats(cfg: ModelConfig, params, inputs: dict) -> int:
+    """f32 elements of the largest activation one input row (an image)
+    makes in one member's forward, at the resolution of `inputs`: a
+    CNN's widest layer output (cnn.peak_floats); 0 for the transformer,
+    whose logits, which aggregation.chunk_rows bounds anyway, are the
+    larger."""
+    if cfg.family == "cnn":
+        from repro_torch.models import cnn
+        h, w = inputs["images"].shape[-3:-1]
+        return cnn.peak_floats(params, h, w)
+    return 0
 
 
 def predict_logits(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.common.device import DeviceLike, resolve_device
+from repro_torch.models.layers import init_generator
 
 # (kind, out_channels, kernel, stride) — kind: conv | maxpool | avgpool
 NIN_SPEC = (
@@ -39,12 +40,14 @@ def nin_init(n_classes: int = 100, in_ch: int = 3, width_mult: float = 1.0,
              members: int = 1) -> dict:
     """Member-stacked params, torch-seeded, with the names, shapes and
     init scales of the JAX package's nin_init (the numbers differ:
-    torch's generator is not jax.random)."""
+    torch's generator is not jax.random); on device="meta", shapes and
+    dtypes only, nothing drawn."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(seed))
+    gen = init_generator(seed, dev)
 
     def normal(shape, std):
+        if dev.type == "meta":
+            return torch.empty((members, *shape), device=dev)
         return torch.randn((members, *shape), generator=gen,
                            device=dev) * std
 
@@ -106,6 +109,19 @@ def nin_apply(params: dict, images: torch.Tensor) -> torch.Tensor:
     x = _conv(x, params["conv_out_w"], params["bias_out"])
     logits = x.mean(dim=(2, 3))  # global average pool, (B, K*n_classes)
     return logits.reshape(B, K, -1).transpose(0, 1)
+
+
+def peak_floats(params: dict, h: int, w: int) -> int:
+    """Elements of the largest layer output (the input included) of one
+    member on one h x w image: the widest conv at the resolution it
+    runs at, read from params' kernels (any width_mult)."""
+    peak = params["conv_0_w"].shape[-2] * h * w
+    for i, (kind, _out, _k, s) in enumerate(NIN_SPEC):
+        if kind == "conv":
+            peak = max(peak, params[f"conv_{i}_w"].shape[-1] * h * w)
+        else:
+            h, w = -(-h // s), -(-w // s)   # "SAME" pooling
+    return max(peak, params["conv_out_w"].shape[-1] * h * w)
 
 
 def l2_reg(params: dict) -> torch.Tensor:

@@ -16,6 +16,25 @@ import torch.nn.functional as F
 from repro_torch.common.types import ModelConfig
 
 
+class _ShapeOnly:
+    """The init's generator on the meta device: it carries the device
+    and draws nothing (a torch.Generator cannot live there)."""
+
+    device = torch.device("meta")
+
+
+def init_generator(seed: int, device: torch.device):
+    """The generator an init draws from on `device`, seeded.  On the
+    meta device, a stand-in: the init then makes every leaf with its
+    shape and dtype and no storage (the port's jax.eval_shape of init),
+    and draws nothing."""
+    if device.type == "meta":
+        return _ShapeOnly()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return gen
+
+
 def dense_init(gen: torch.Generator, lead: Sequence[int], shape, dtype,
                scale: Optional[float] = None) -> torch.Tensor:
     """Normal(0, 1/sqrt(fan_in)) weights of per-layer `shape`, stacked
@@ -24,10 +43,12 @@ def dense_init(gen: torch.Generator, lead: Sequence[int], shape, dtype,
     The leaf is allocated in `dtype` and filled one (member, layer)
     slice at a time through one reused f32 buffer, so init holds at most
     one slice in f32 beside the weights (a full-width 7B model at K = 4
-    fits on one 80 GB card)."""
+    fits on one 80 GB card).  On the meta device it is left unfilled."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     w = torch.empty(*lead, *shape, dtype=dtype, device=gen.device)
+    if w.is_meta:
+        return w
     buf = torch.empty(*shape, dtype=torch.float32, device=gen.device)
     for part in w.view(-1, *shape):
         torch.randn(*shape, generator=gen, out=buf)

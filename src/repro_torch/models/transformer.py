@@ -48,8 +48,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe
 from repro_torch.models import ssm
 from repro_torch.models.layers import (embed_init, embed_lookup, head_init,
-                                       lm_logits, mlp_apply, mlp_init,
-                                       rmsnorm, sinusoidal_positions)
+                                       init_generator, lm_logits, mlp_apply,
+                                       mlp_init, rmsnorm,
+                                       sinusoidal_positions)
 
 
 # (mixer, ffn) pairs of the ported layers
@@ -106,11 +107,12 @@ def init(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
     scales of the JAX package's transformer.init, stacked over `members`
     (the numbers differ: torch's generator is not jax.random).  An
     encoder-decoder's decoder blocks carry "norm_cross" and "cross"; its
-    encoder is one segment of n_enc_layers plain attention blocks."""
+    encoder is one segment of n_enc_layers plain attention blocks.
+    device="meta" gives every leaf's shape and dtype and draws nothing
+    (the JAX package's jax.eval_shape of init)."""
     _check_supported(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(seed))
+    gen = init_generator(seed, dev)
     dtype = torch_dtype(cfg.dtype)
     K = (members,)
     params: Dict[str, Any] = {}

@@ -45,7 +45,7 @@ excluded from the ensemble (and from the MA mean) via a (K,) quorum mask.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -161,6 +161,8 @@ class Trainer:
 
         self._logits = steps.make_logits_fn(cfg)
         self._pooled = steps.routes_by_pool(cfg)
+        self._row_floats = models.activation_floats(cfg, params,
+                                                    self.shards)
         self._member_loss = steps.make_member_loss(cfg)
         self._plain_step = steps.make_local_step(cfg, opt, grad_accum)
         self._sync_step = steps.make_local_step(
@@ -186,7 +188,7 @@ class Trainer:
                                           self.ec.relabel_fraction,
                                           of=self._of)
         kw = dict(quorum=quorum, n_out=self.cfg.vocab_size,
-                  pooled=self._pooled)
+                  pooled=self._pooled, row_floats=self._row_floats)
         if self.mesh is not None and self.ec.protocol == "ring" \
                 and self.K > 1:
             pseudo = agg.ring_relabel(self.mesh, self.state["params"],
@@ -278,7 +280,7 @@ class Trainer:
         pool = labels.shape[0] if self._pooled else None
         for sl, k, logits in agg.stream_logits(
                 params, test_b, self._logits, self.cfg.vocab_size,
-                fold=True, pool_rows=pool):
+                fold=True, pool_rows=pool, row_floats=self._row_floats):
             y = labels[sl]
             m_nll = m_nll + ens.member_nll(logits, y).sum()
             m_err = m_err + (logits.argmax(-1) != y).sum()
@@ -309,8 +311,7 @@ class Trainer:
         if self.ec.aggregator == "ma":
             one = tree_map(lambda x: x[:1], agg.ma_aggregate(
                 self.state["params"], mesh=self.mesh, axis=self.ec_axis()))
-            nll, _, err, _ = self._eval_members(one, test_b)
-            out["global_loss"], out["global_err"] = float(nll), float(err)
+            out["global_loss"], out["global_err"] = self.evaluate_model(one)
         if record:
             self.metrics.round_idx.append(self.round)
             self.metrics.local_loss.append(out["local_loss"])
@@ -318,6 +319,13 @@ class Trainer:
             self.metrics.local_err.append(out["local_err"])
             self.metrics.global_err.append(out["global_err"])
         return out
+
+    def evaluate_model(self, params) -> Tuple[float, float]:
+        """-> (NLL, error) of one model on evaluate()'s test rows:
+        `params` stacked over one member, e.g. row 0 of the members'
+        parameter average (the JAX Trainer's _single_eval)."""
+        nll, _, err, _ = self._eval_members(params, self._test_batch())
+        return float(nll), float(err)
 
     def evaluate_compressed(self) -> Dict[str, float]:
         """After distill steps, members ARE the compressed models."""
