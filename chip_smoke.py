@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, one JSON line each, in the order 0, 1, 7, 10, 11, 2, 8, 9, 12,
-16, 17, 18, 13, 19, 20, 21, 3, 4, 5, 6, 14, 15, 22, 23:
+16, 17, 18, 13, 19, 20, 21, 3, 4, 5, 6, 14, 15, 22, 23, 24:
   0  the card's name and power limit; build every CUDA kernel from
      src/repro_torch/kernels/csrc (one nvcc per source, all at once);
      every kernel function's registers and spills (ptxas) and each
@@ -234,7 +234,22 @@ Phases, one JSON line each, in the order 0, 1, 7, 10, 11, 2, 8, 9, 12,
      run with dense labels and 0 otherwise, every EC evaluate()'s
      Jensen gap >= -1e-6, every number finite, the LM example's flash
      and the serving example's paged and flash launches above 0; the
-     paper's orderings printed, not asserted.
+     paper's orderings printed, not asserted;
+ 24  the dry-run (launch/dryrun.py) held against the card: gemma3-1b's
+     prefill_32k (batch cut 32 -> 1), decode_32k (128 rows over a 32k
+     cache, depth 26 -> 13 layers) and train_4k[plain] (K = 1 of 16
+     members, batch 256 -> 1, depth 26 -> 6 layers; both depth cuts for
+     the phase's time: a fake op costs ~0.3 ms of host) on a (1, 1) mesh:
+     each traced on fake CUDA tensors (the kernels through their custom
+     ops' fake implementations), then run for real from seeded weights,
+     once under the accounting and a few times timed (CUDA events).
+     The fake and the real FLOPs must be equal, max(t_comp, t_mem) of
+     the roofline at most 1.05x the measured median (a bound the card
+     beats is a wrong count), and the prefill's flash launches equal
+     layers x calls; the predicted peak bytes are printed beside
+     max_memory_allocated.  Also the host microseconds a call of the
+     flash kernel takes through its custom op, the routing ops.py and the
+     wrapper alone.
 Then the kernels line, the card line, and last the result line.  Any
 failure exits non-zero before the result line.  Imports nothing of JAX.
 """
@@ -4096,6 +4111,177 @@ def phase23(torch, np, card) -> dict:
     return {name: path["launches"] for name, path in out.items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the dry-run against the card
+# ---------------------------------------------------------------------------
+
+# gemma3-1b's cells on a (1, 1) mesh, cut to fit one card and the phase's
+# time: (seq_len, batch, layers or None for all 26)
+DRYRUN_CELLS = {"prefill_32k": (32768, 1, None),
+                "decode_32k": (32768, 128, 13),
+                "train_4k": (4096, 1, 6)}
+DRYRUN_RUNS = 3            # timed runs a cell (the median is reported)
+DRYRUN_SLACK = 1.05        # a bound may exceed the measured time by 5%
+OP_CALLS = 200             # calls a way in the custom op's host timing
+
+
+def dryrun_real_args(torch, cell, cfg, seed: int = 0):
+    """The cell's inputs for real on the card: seeded weights, zero
+    optimizer state and cache, random tokens."""
+    from repro_torch import models
+    from repro_torch.models import transformer
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = cell.shape
+
+    def tokens(*lead):
+        return torch.randint(0, cfg.vocab_size, lead, generator=g,
+                             device="cuda", dtype=torch.int32)
+
+    k = cell.meta["k"]
+    if shape.kind == "train":
+        params = models.init(cfg, seed=seed, device="cuda", members=k)
+        moment = cell.args[0]["opt"]["m"]["embed"].dtype
+        z = lambda p: torch.zeros(p.shape, dtype=moment,  # noqa: E731
+                                  device="cuda")
+        from repro_torch.common.tree import tree_map
+        opt = {"m": tree_map(z, params), "v": tree_map(z, params),
+               "step": torch.zeros((k,), dtype=torch.int32, device="cuda")}
+        b = shape.global_batch // k
+        batch = {"tokens": tokens(k, b, shape.seq_len),
+                 "labels": tokens(k, b, shape.seq_len)}
+        return ({"params": params, "opt": opt}, batch)
+    params = models.init(cfg, seed=seed, device="cuda")
+    if shape.kind == "prefill":
+        return (params, {"tokens": tokens(shape.global_batch,
+                                          shape.seq_len)})
+    cache = transformer.init_slot_cache(cfg, shape.global_batch,
+                                        shape.seq_len, device="cuda")
+    return (params, cache, tokens(shape.global_batch, 1))
+
+
+def op_host_us(torch) -> dict:
+    """Host microseconds a flash call takes (a decode-sized call: 16
+    rows, one query, 576 keys, gemma3-1b's heads, bf16) through the
+    custom op, through ops.py's routing (a plain tensor: the wrapper)
+    and through the wrapper alone, OP_CALLS calls a way, interleaved
+    twice."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import library  # noqa: F401  (registers)
+    from repro_torch.kernels import ops
+    q = torch.randn(16, 1, 4, 256, device="cuda", dtype=torch.bfloat16)
+    kv = torch.randn(16, 576, 1, 256, device="cuda", dtype=torch.bfloat16)
+    ways = {
+        "custom_op": lambda: torch.ops.repro_torch.flash_attention(
+            q, kv, kv, None, None, False, 0, None),
+        "ops_routing": lambda: ops.flash_attention(q, kv, kv, causal=False),
+        "wrapper": lambda: fa.flash_attention(q, kv, kv, causal=False)}
+    got = {name: [] for name in ways}
+    for _ in range(2):
+        for name, fn in ways.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(OP_CALLS):
+                fn()
+            got[name].append((time.perf_counter() - t0) / OP_CALLS * 1e6)
+            torch.cuda.synchronize()
+    return {name: min(v) for name, v in got.items()}
+
+
+def phase24(torch, np, card) -> dict:
+    """The dry-run against the card (see the module note).  -> the
+    prefill cell's flash launches."""
+    from repro_torch.common.types import ShapeConfig
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import cost_analysis, dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch.specs import build_cell
+    kinds = {"prefill_32k": "prefill", "decode_32k": "decode",
+             "train_4k": "train"}
+    t0 = time.perf_counter()
+    with FakeTensorMode():   # its first use imports DTensor and more
+        torch.empty(1, device="cuda")
+    setup_s = time.perf_counter() - t0
+    mesh = make_test_mesh()
+    rows, launches = {}, {}
+    for name, (seq, batch, layers) in DRYRUN_CELLS.items():
+        cfg = registry.get_config("gemma3-1b")
+        if layers:
+            cfg = cfg.with_(n_layers=layers)
+        shape = ShapeConfig(name, seq, batch, kinds[name])
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell("gemma3-1b", name, False, device="cuda",
+                              mesh=mesh, cfg=cfg, shape=shape)
+        fake_s = time.perf_counter() - t0
+        if rec["status"] != "ok":
+            raise AssertionError(f"phase 24 {name}: the trace failed: "
+                                 f"{rec['error']}\n{rec['traceback']}")
+        with FakeTensorMode():   # the cell's step and specs, not its inputs
+            cell = build_cell("gemma3-1b", name, mesh, False, device="cuda",
+                              cfg=cfg, shape=shape)
+        args = dryrun_real_args(torch, cell, cfg)
+        torch.cuda.synchronize()
+        fa.flash_attention.launches = 0
+        # once under the accounting (its ops run for real), then timed
+        _, real = cost_analysis.analyze(cell.fn, *args)
+        times = []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(DRYRUN_RUNS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            cell.fn(*args)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        peak = torch.cuda.max_memory_allocated()
+        real_s = time.perf_counter() - t0 - fake_s
+        calls = 1 + DRYRUN_RUNS
+        launches[name] = fa.flash_attention.launches
+        ms = float(np.median(times))
+        bound_ms = max(rec["t_compute_s"], rec["t_memory_s"]) * 1e3
+        row = {"fake_flops": rec["flops_per_dev"], "real_flops": real.flops,
+               "fake_flops_executed": rec["flops_executed_per_dev"],
+               "real_flops_executed": real.flops_executed,
+               "fake_hbm_bytes": rec["hbm_bytes_per_dev"],
+               "real_hbm_bytes": real.hbm_bytes,
+               "predicted_peak_bytes": rec["bytes_per_device"],
+               "real_trace_peak_bytes": real.peak_bytes,
+               "max_memory_allocated": peak,
+               "t_compute_ms": rec["t_compute_s"] * 1e3,
+               "t_memory_ms": rec["t_memory_s"] * 1e3,
+               "bound_ms": bound_ms, "measured_ms": ms, "runs_ms": times,
+               "bound_over_measured": bound_ms / ms,
+               "dominant": rec["dominant"], "fake_s": fake_s,
+               "real_s": real_s,
+               "kernel_calls": rec["kernel_calls"],
+               "flash_launches": launches[name], "calls": calls,
+               "cuts": {"seq_len": seq, "batch": batch,
+                        "layers": cfg.n_layers}}
+        rows[name] = row
+        del args, cell, real
+        torch.cuda.empty_cache()
+        if row["fake_flops"] != row["real_flops"] or \
+                row["fake_flops_executed"] != row["real_flops_executed"]:
+            raise AssertionError(f"phase 24 {name}: fake and real FLOPs "
+                                 f"differ: {row}")
+        if bound_ms > DRYRUN_SLACK * ms:
+            raise AssertionError(f"phase 24 {name}: the roofline bound "
+                                 f"{bound_ms:.3f} ms exceeds the measured "
+                                 f"{ms:.3f} ms by more than 5%: {row}")
+        if kinds[name] == "prefill" and \
+                launches[name] != cfg.n_layers * calls:
+            raise AssertionError(f"phase 24 {name}: {launches[name]} flash "
+                                 f"launches, want {cfg.n_layers} layers x "
+                                 f"{calls} calls")
+    host_us = op_host_us(torch)
+    emit({"phase": 24, "card": card, "setup_s": setup_s, "cells": rows,
+          "flash_host_us_per_call": host_us})
+    return {"prefill": launches["prefill_32k"]}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4167,6 +4353,7 @@ def main() -> int:
     ssm_launches = phase15(torch, np, card)
     mesh_launches = phase22(torch, np, card)
     paper_launches = phase23(torch, np, card)
+    dryrun_launches = phase24(torch, np, card)
 
     def entry(name, source, replaces, n, row, by_path=None):
         out = {"name": name, "route": "cuda", "source": source,
@@ -4206,6 +4393,8 @@ def main() -> int:
         for path, n in paper_launches.items():
             if n.get(kernel):
                 out[path] = n[kernel]
+        if kernel == "flash_attention":
+            out["gemma3-1b dryrun prefill"] = dryrun_launches["prefill"]
         return out
 
     def by_shape(rows):

@@ -21,18 +21,25 @@ in a temporary directory, so that concurrent worlds cannot collide on a
 port) and returns each rank's result; a rank that fails makes it raise
 with that rank's traceback.
 
-The JAX module's tensor- and FSDP-parallel rules (pspec_for,
-make_param_pspecs, constrain, layout_ctx) are not here: their only users
-are the dry-run's meta-device accounting, which the port does not have.
+The second half of the module holds the JAX module's tensor- and
+FSDP-parallel rules, the dry-run's layouts (launch/specs.py): a spec is
+what the JAX package's PartitionSpec holds, a tuple with one entry per
+tensor dim (None, a mesh axis name or a tuple of names), `placements`
+turns it into DTensor placements over a DeviceMesh, and `constrain` is
+with_sharding_constraint over a DTensor (a no-op on a plain tensor, so
+the serving and training paths never pay for it).
 """
 from __future__ import annotations
 
 import atexit
+import contextlib
 import datetime
 import os
 import pickle
 import shutil
+import sys
 import tempfile
+import threading
 import time
 import traceback
 from typing import Any, Callable, List, Optional, Sequence, Tuple
@@ -445,3 +452,257 @@ def spawn(fn: Callable, nprocs: int, args: Sequence = (), *,
             os.environ["OMP_NUM_THREADS"] = old
     world = World(procs, out_dir, timeout)
     return world.join() if wait else world
+
+
+# ---------------------------------------------------------------------------
+# tensor- and FSDP-parallel layout rules (the dry-run's)
+# ---------------------------------------------------------------------------
+# Every parameter has a standardized leaf name (models/*.py); pspec_for
+# maps (leaf name, rank) -> spec under a ParallelConfig (TP = the "model"
+# axis, FSDP = the optional fsdp axis):
+#   - column-parallel weights (d_model, X): (fsdp, "model")  [output dim]
+#   - row-parallel weights    (X, d_model): ("model", fsdp)  [input dim]
+#   - embeddings (V, d): vocab over "model", d over fsdp
+#   - per-expert weights (E, ...): experts over "model" (EP)
+#   - norms / small lora mats: replicated
+# Stacked segment leaves get a leading None; the ensemble adds a leading
+# ensemble-axis dim on top of that.
+
+_COLUMN = {
+    "w_q", "w_k", "w_v", "w_gate", "w_up", "mamba_in", "rwkv_r", "rwkv_k",
+    "rwkv_v", "rwkv_g", "cmix_k", "q_up", "kv_up", "w_cross_q",
+}
+_ROW = {"w_o", "w_down", "mamba_out", "rwkv_o", "cmix_v"}
+_EXPERT_COLUMN = {"experts_gate", "experts_up"}
+_EXPERT_ROW = {"experts_down"}
+_EMBED = {"embed", "head", "enc_embed"}
+_REPLICATED_PREFIXES = (
+    "norm", "bias", "router", "rwkv_mix", "rwkv_decay", "rwkv_first",
+    "mamba_dt", "mamba_A", "mamba_D", "mamba_conv", "q_down", "kv_down",
+    "k_rope", "qk_scale", "alibi", "pos",
+)
+
+BATCH = "batch"        # role name usable in constrain() specs
+REP = "__replicate__"  # force replication of a dim (None means "free")
+
+
+def pspec_for(name: str, ndim: int, par) -> tuple:
+    m, f = par.model_axis, (par.fsdp_axis or None)
+
+    def pad(tail):
+        # left-pad with None for stacked-segment leading dims
+        return (None,) * (ndim - len(tail)) + tuple(tail)
+
+    if any(name.startswith(p) for p in _REPLICATED_PREFIXES):
+        return (None,) * ndim
+    if name in _EMBED:
+        return pad((m, f))
+    if name in _EXPERT_COLUMN:
+        return pad((m, f, None))
+    if name in _EXPERT_ROW:
+        return pad((m, None, f))
+    if name in _COLUMN:
+        return pad((f, m))
+    if name in _ROW:
+        return pad((m, f))
+    return (None,) * ndim  # conservative default: replicate
+
+
+def leaf_name(path) -> str:
+    """The last dict key of a tree path (tree.tree_map_with_path)."""
+    for e in reversed(path):
+        if isinstance(e, str):
+            return e
+    return ""
+
+
+def mesh_sizes(mesh) -> dict:
+    """{axis name: size} of a DeviceMesh (or of anything whose `shape` is
+    that dict already, as the JAX package's tests' stand-in meshes)."""
+    if hasattr(mesh, "mesh_dim_names"):
+        return dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return dict(mesh.shape)
+
+
+def _axsize(sizes: dict, axes) -> int:
+    n = 1
+    for a in (axes if isinstance(axes, (tuple, list)) else (axes,)):
+        n *= sizes.get(a, 1)
+    return n
+
+
+def make_param_pspecs(params: Any, par, ensemble: bool = False,
+                      mesh=None, lead: int = 0) -> Any:
+    """Tree of specs matching `params`.  ensemble=True: leaves carry a
+    leading member dim over par.ensemble_axis.  `lead` more leading dims
+    stay replicated (the port's member dim of a single-model cell, K = 1).
+    With `mesh`, an axis whose size does not divide its dim is dropped
+    (whisper's 51865 vocab cannot split 16 ways, so it replicates)."""
+    from repro_torch.common.tree import tree_map_with_path
+    sizes = None if mesh is None else mesh_sizes(mesh)
+
+    def sanitize(spec, shape):
+        if sizes is None:
+            return spec
+        return tuple(a if (a is None or dim % _axsize(sizes, a) == 0)
+                     else None for dim, a in zip(shape, spec))
+
+    def rule(path, leaf):
+        extra = lead + (1 if ensemble else 0)
+        spec = pspec_for(leaf_name(path), leaf.dim() - extra, par)
+        if ensemble:
+            spec = (par.ensemble_axis or None,) + spec
+        return sanitize((None,) * lead + spec, leaf.shape)
+
+    return tree_map_with_path(rule, params)
+
+
+def placements(spec: tuple, mesh) -> list:
+    """A spec -> one DTensor placement per mesh dim: Shard(d) on every mesh
+    dim that tensor dim d names, Replicate elsewhere.  A tuple of axes on
+    one dim shards it over each of them, the major one first, which is
+    DTensor's own order when the tuple follows the mesh's."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = mesh.mesh_dim_names
+    out = [Replicate() for _ in names]
+    for d, a in enumerate(spec):
+        axes = () if a is None else (tuple(a) if isinstance(a, (tuple, list))
+                                     else (a,))
+        idx = [names.index(x) for x in axes if x in names]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {a!r} is not in mesh order "
+                             f"{names}")
+        for i in idx:
+            out[i] = Shard(d)
+    return out
+
+
+def make_shardings(mesh, pspecs: Any) -> Any:
+    """Tree of placement lists matching a tree of specs."""
+    from repro_torch.common.tree import tree_map_with_path
+    return tree_map_with_path(lambda _, s: placements(s, mesh), pspecs,
+                              is_leaf=lambda x: isinstance(x, tuple))
+
+
+# layout context: symbolic roles resolved at trace time.  Model code names
+# *roles* ("batch"); the step function decides what mesh axes that role
+# maps to.  EC ensemble training maps "batch" to the member batch's axes
+# (the member axis is carried by the stacked leading dim), while
+# single-model serving maps it to ("pod", "data").
+
+_layout = threading.local()
+
+
+def _layout_map() -> dict:
+    return getattr(_layout, "map", {"batch": ("pod", "data"),
+                                    "seq": None, "train": False})
+
+
+def layout_flag(name: str) -> bool:
+    return bool(_layout_map().get(name))
+
+
+@contextlib.contextmanager
+def layout_ctx(**roles):
+    """layout_ctx(batch=("data",)) remaps symbolic axes inside the block."""
+    old = _layout_map()
+    _layout.map = {**old, **roles}
+    try:
+        yield
+    finally:
+        _layout.map = old
+
+
+def _resolve(axis):
+    if isinstance(axis, str) and axis in _layout_map():
+        v = _layout_map()[axis]
+        return tuple(v) if isinstance(v, (tuple, list)) else v
+    return axis
+
+
+def _axis_ok(axis, names) -> bool:
+    if isinstance(axis, (tuple, list)):
+        return all(a in names for a in axis)
+    return axis in names
+
+
+def is_dtensor(x) -> bool:
+    """Is x a DTensor?  Answered without importing DTensor (a second on
+    first import): where it was never imported, nothing is one."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def mesh_axis_size(axis: str, x) -> int:
+    """Size of a mesh axis of the mesh x lies on (1 for a plain tensor or
+    an axis the mesh lacks)."""
+    if not is_dtensor(x):
+        return 1
+    return mesh_sizes(x.device_mesh).get(axis, 1)
+
+
+def constrain(x, *spec):
+    """with_sharding_constraint over a DTensor; a plain tensor is returned
+    as it is.
+
+    Axes absent from x's mesh are dropped (model code names its ideal
+    layout and still runs off-mesh), and roles (BATCH, "seq") resolve
+    through layout_ctx.  A named dim is pinned to its axes; REP forces a
+    dim replicated; an unnamed dim keeps its current placement, which is
+    JAX's P.UNCONSTRAINED and NOT replication: forcing every unnamed dim
+    replicated would silently undo the propagated batch sharding (the
+    JAX package measured 30 GiB a device of attention scores on arctic
+    prefill before making that distinction).  A mesh dim that no entry
+    names keeps sharding an unnamed dim; one that shards a pinned dim,
+    or holds a pending sum, is replicated (all-reduced), as the
+    constrained value of JAX's program is a materialized array."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    clean = []
+    for a in spec[:x.dim()]:  # decode paths reuse prefill constraints
+        a = _resolve(a)
+        if a == REP:
+            clean.append(REP)
+        elif a is not None and a != () and _axis_ok(a, names):
+            clean.append(a)
+        else:
+            clean.append(None)
+    clean += [None] * (x.dim() - len(clean))
+    if all(c is None for c in clean):
+        return x
+    named = {}
+    for d, a in enumerate(clean):
+        if a is not None and a != REP:
+            for ax in (a if isinstance(a, (tuple, list)) else (a,)):
+                named[names.index(ax)] = d
+    new = []
+    for m, p in enumerate(x.placements):
+        if m in named:
+            new.append(Shard(named[m]))
+        elif isinstance(p, Partial) or (isinstance(p, Shard)
+                                        and clean[p.dim] is not None):
+            new.append(Replicate())
+        else:
+            new.append(p)
+    if tuple(new) == tuple(x.placements) and not x.requires_grad:
+        return x
+    return _Pin.apply(x, tuple(new))
+
+
+class _Pin(torch.autograd.Function):
+    """x laid out as `placements`, and its gradient too: the transpose of
+    JAX's sharding constraint constrains the cotangent alike (DTensor's
+    own redistribute sends a gradient back to the input's layout, and
+    none at all where the layout did not change)."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.placements), None

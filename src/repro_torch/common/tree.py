@@ -3,7 +3,7 @@
 included."""
 from __future__ import annotations
 
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import torch
 
@@ -29,3 +29,21 @@ def tree_leaves(tree) -> List[torch.Tensor]:
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+def tree_map_with_path(fn: Callable, tree, path: tuple = (),
+                       is_leaf: Optional[Callable] = None):
+    """fn(path, leaf) over one tree; path holds the dict keys (str) and
+    sequence indices (int) from the root.  is_leaf(x) marks subtrees to
+    treat as leaves (a spec tuple)."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(path, tree)
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (k,), is_leaf)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [tree_map_with_path(fn, v, path + (i,), is_leaf)
+               for i, v in enumerate(tree)]
+        return type(tree)(*out) if hasattr(tree, "_fields") \
+            else type(tree)(out)
+    return fn(path, tree)

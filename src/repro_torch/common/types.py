@@ -162,6 +162,27 @@ SHAPES = {
 
 
 @dataclass(frozen=True)
+class ParallelConfig:
+    """How a model is laid out on the mesh (the JAX package's, field for
+    field): the dry-run's TP / FSDP / DP roles (launch/specs.py)."""
+
+    # mesh axis (or tuple of axes) the EC ensemble dimension is sharded over
+    ensemble_axis: str = "data"
+    ensemble_size: int = 0  # 0 => size of ensemble_axis in the active mesh
+    # axis for FSDP-style parameter sharding inside one ensemble member
+    # ("" => params replicated within the member, TP only)
+    fsdp_axis: str = ""
+    model_axis: str = "model"
+    # batch sharding axes for the per-member batch dim
+    batch_axes: Tuple[str, ...] = ()
+    # shard long sequences over this axis for decode/prefill (SP)
+    seq_axis: str = ""
+    remat: bool = True
+    # microbatches for gradient accumulation (1 = no accumulation)
+    grad_accum: int = 1
+
+
+@dataclass(frozen=True)
 class ECConfig:
     """The paper's hyper-parameters (Section 4/5)."""
 

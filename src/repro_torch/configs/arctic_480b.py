@@ -15,6 +15,9 @@ CONFIG = ModelConfig(
     max_seq=131072,
 )
 
+SIZE_CLASS = "big"
+SKIP_SHAPES = {"long_500k": "pure full-attention arch"}
+
 
 def reduced() -> ModelConfig:
     return CONFIG.with_(

@@ -19,6 +19,11 @@ CONFIG = ModelConfig(
     max_seq=524288,
 )
 
+SIZE_CLASS = "small"
+# long_500k RUNS: 25/26 of layers are 512-window SWA (bounded cache);
+# global layers decode linearly with a replicated kv=1 cache.
+SKIP_SHAPES = {}
+
 
 def reduced() -> ModelConfig:
     return CONFIG.with_(

@@ -29,6 +29,11 @@ CONFIG = ModelConfig(
     max_seq=262144,
 )
 
+SIZE_CLASS = "big"
+# long_500k RUNS: mamba layers carry O(1) state; the 4 attention layers'
+# KV caches shard over the model axis (kv=8).
+SKIP_SHAPES = {}
+
 
 def reduced() -> ModelConfig:
     return CONFIG.with_(

@@ -12,6 +12,11 @@ CONFIG = ModelConfig(
     max_seq=131072,
 )
 
+SIZE_CLASS = "big"
+# pure full attention: 500k-token decode cache is O(seq) per layer at 126
+# layers: sub-quadratic-attention shapes are out of scope.
+SKIP_SHAPES = {"long_500k": "pure full-attention arch"}
+
 
 def reduced() -> ModelConfig:
     return CONFIG.with_(

@@ -12,6 +12,11 @@ CONFIG = ModelConfig(
     max_seq=1024,  # 32*32 pixels; unused by the CNN path
 )
 
+SIZE_CLASS = "small"
+SKIP_SHAPES = {"train_4k": "cnn: paper's own 32x32 image shape instead",
+               "prefill_32k": "cnn", "decode_32k": "cnn",
+               "long_500k": "cnn"}
+
 PAPER_EC = ECConfig(tau=40, lam=0.5, p_steps=20, relabel_fraction=0.7,
                     label_mode="dense", aggregator="ec")
 

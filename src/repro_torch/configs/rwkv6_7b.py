@@ -18,6 +18,9 @@ CONFIG = ModelConfig(
     max_seq=1048576,
 )
 
+SIZE_CLASS = "small"
+SKIP_SHAPES = {}
+
 
 def reduced() -> ModelConfig:
     return CONFIG.with_(

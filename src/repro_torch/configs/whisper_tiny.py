@@ -20,6 +20,10 @@ CONFIG = ModelConfig(
     max_seq=32768,
 )
 
+SIZE_CLASS = "small"
+SKIP_SHAPES = {"long_500k": "enc-dec; audio context is 1500 frames by "
+                            "construction (pure full attention)"}
+
 
 def reduced() -> ModelConfig:
     return CONFIG.with_(

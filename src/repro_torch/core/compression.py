@@ -20,6 +20,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.common.sharding import constrain
+
 
 class TopM(NamedTuple):
     vals: torch.Tensor   # (..., M) f32, descending
@@ -34,19 +36,23 @@ def from_dense(probs: torch.Tensor, m: int) -> TopM:
     return TopM(vals.float(), idx.int(), rest.float())
 
 
-def from_dense_sharded(probs: torch.Tensor, m: int, n_shards: int) -> TopM:
+def from_dense_sharded(probs: torch.Tensor, m: int, n_shards: int,
+                       shard_axis: str = "model") -> TopM:
     """Top-M in two stages, as the JAX package's from_dense_sharded
     takes it over a vocabulary split n_shards ways: the M heaviest of
     each of n_shards equal slices of V, then the M heaviest of those
     n_shards * M candidates.  The global top M always lie among the
     slices' own, so the result is from_dense's (which it falls back to
-    where V does not split evenly or a slice holds fewer than M)."""
+    where V does not split evenly or a slice holds fewer than M).  Over
+    a DTensor the slice dim is pinned to `shard_axis`, so each shard's
+    top-M is local and only the candidates cross ranks."""
     V = probs.shape[-1]
     if V % n_shards or V // n_shards < m:
         return from_dense(probs, m)
     vs = V // n_shards
-    lv, li = torch.topk(probs.reshape(*probs.shape[:-1], n_shards, vs), m,
-                        dim=-1)
+    p = constrain(probs.reshape(*probs.shape[:-1], n_shards, vs),
+                  *(None,) * (probs.dim() - 1), shard_axis, None)
+    lv, li = torch.topk(p, m, dim=-1)
     li = li + torch.arange(n_shards, device=probs.device)[:, None] * vs
     cand_v = lv.reshape(*probs.shape[:-1], n_shards * m)
     cand_i = li.reshape(*probs.shape[:-1], n_shards * m)

@@ -17,6 +17,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.common.sharding import REP, constrain, is_dtensor
 from repro_torch.core import compression as comp
 from repro_torch.kernels import ops
 
@@ -54,9 +55,30 @@ def pseudo_ce_topm(logits: torch.Tensor, t: comp.TopM) -> torch.Tensor:
     return _topm_ce(torch.log_softmax(logits.float(), dim=-1), t)
 
 
+def _log_softmax(logits: torch.Tensor) -> torch.Tensor:
+    """log_softmax over the last dim in f32.  Over a DTensor (the
+    dry-run's logits, the vocab sharded over "model") it is formed from
+    the row's max and its sum of exponentials, each reduced across the
+    shards (two small all-reduces), where DTensor's own log_softmax
+    would gather every row whole."""
+    x = logits.float()
+    if not is_dtensor(x):
+        return torch.log_softmax(x, dim=-1)
+    lead = (None,) * (x.dim() - 1)
+    m = constrain(x.detach().amax(-1, keepdim=True), *lead, REP)
+    s = constrain(torch.exp(x - m).sum(-1, keepdim=True), *lead, REP)
+    return x - (m + torch.log(s))
+
+
 def _gold_nll(logp: torch.Tensor, labels: torch.Tensor,
               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    gold = logp.gather(-1, labels.long()[..., None])[..., 0]
+    if is_dtensor(logp):
+        # the label's entry by a select and a sum over the sharded vocab
+        hit = torch.arange(logp.shape[-1], device=labels.device) \
+            == labels.long()[..., None]
+        gold = torch.where(hit, logp, 0.0).sum(-1)
+    else:
+        gold = logp.gather(-1, labels.long()[..., None])[..., 0]
     if mask is not None:
         return -(gold * mask).sum() / mask.sum().clamp_min(1.0)
     return -gold.mean()
@@ -64,8 +86,7 @@ def _gold_nll(logp: torch.Tensor, labels: torch.Tensor,
 
 def true_ce(logits: torch.Tensor, labels: torch.Tensor,
             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    return _gold_nll(torch.log_softmax(logits.float(), dim=-1), labels,
-                     mask)
+    return _gold_nll(_log_softmax(logits), labels, mask)
 
 
 def mixed_ce(logits: torch.Tensor, labels: torch.Tensor, pseudo,
@@ -77,7 +98,7 @@ def mixed_ce(logits: torch.Tensor, labels: torch.Tensor, pseudo,
     if pseudo is None:
         return true_ce(logits, labels)
     if isinstance(pseudo, comp.TopM):
-        logp = torch.log_softmax(logits.float(), dim=-1)
+        logp = _log_softmax(logits)
         return _gold_nll(logp, labels) + lam * _topm_ce(logp, pseudo)
     if not torch.is_tensor(pseudo):
         raise TypeError(f"pseudo-labels are dense probs or a "

@@ -133,31 +133,36 @@ distill_loss_bwd.launches = 0
 
 
 class FusedDistillLoss(torch.autograd.Function):
-    """(logits (N, V), labels (N,), pseudo (N, V), lam 0-d f32) -> the
-    Eqn-9 mean; gradient for the logits only."""
+    """(logits (N, V), labels (N,), pseudo (N, V), lam 0-d f32,
+    (fwd, bwd)) -> the Eqn-9 mean; gradient for the logits only."""
 
     @staticmethod
-    def forward(ctx, logits, labels, pseudo, lam):
-        lse, gold, dot = distill_loss_fwd(logits, labels, pseudo)
+    def forward(ctx, logits, labels, pseudo, lam, kernels):
+        lse, gold, dot = kernels[0](logits, labels, pseudo)
         ctx.save_for_backward(logits, labels, pseudo, lam, lse)
+        ctx.bwd = kernels[1]
         return ((1.0 + lam) * lse - gold - dot * lam).mean()
 
     @staticmethod
     def backward(ctx, g):
         logits, labels, pseudo, lam, lse = ctx.saved_tensors
-        dz = distill_loss_bwd(logits, labels, pseudo, lse,
-                              g.float().contiguous(), lam)
-        return dz, None, None, None
+        dz = ctx.bwd(logits, labels, pseudo, lse, g.float().contiguous(),
+                     lam)
+        return dz, None, None, None, None
 
 
 def fused_distill_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       pseudo: torch.Tensor, lam) -> torch.Tensor:
+                       pseudo: torch.Tensor, lam,
+                       kernels=(distill_loss_fwd, distill_loss_bwd)
+                       ) -> torch.Tensor:
     """Eqn 9 over (..., V) logits on the card, rows flattened into one
     launch each way.  `lam` is a float or a 0-d f32 tensor on the card;
-    pass a tensor in a loop (a float is copied there on every call)."""
+    pass a tensor in a loop (a float is copied there on every call).
+    kernels: the (forward, backward) launchers, the wrappers or their
+    custom ops (kernels/ops.py picks)."""
     V = logits.shape[-1]
     if not torch.is_tensor(lam):
         lam = torch.tensor(lam, dtype=torch.float32, device=logits.device)
     _check("lam", lam, logits.device, (), (torch.float32,))
     return FusedDistillLoss.apply(logits.reshape(-1, V), labels.reshape(-1),
-                                  pseudo.reshape(-1, V), lam)
+                                  pseudo.reshape(-1, V), lam, kernels)

@@ -7,17 +7,49 @@ recurrence kernels are forward-only: on the card they refuse an input
 that requires grad while grad mode is on (their output would carry no
 gradient), where the plain versions on the CPU would differentiate.
 Training takes the models' plain routes (transformer.apply(remat=True)).
+
+A CUDA tensor that is fake (FakeTensorMode), a DTensor, or met under a
+dispatch mode (the dry-run's accounting) goes through the kernel's
+torch.library custom op (kernels/library.py): its fake implementation,
+flop formula and DTensor sharding rule are what the dry-run traces, and
+on a real tensor its CUDA implementation is the same wrapper.  A plain
+CUDA tensor calls the wrapper directly, without the op's dispatch.  A
+fake tensor on any device takes the custom op too (the op's fake
+implementation serves every device): the dry-run's trace of the card's
+program on a CPU-only torch, whose fake CUDA tensors cannot dispatch.
+A real CPU tensor always takes the plain version.
 """
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
+from repro_torch.common.sharding import is_dtensor
 from repro_torch.kernels import distill_loss as dl
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssm_scan as ss
 from repro_torch.kernels import wkv6 as wk
+
+
+def _kernel(x: torch.Tensor) -> bool:
+    """Does x go to the kernel (its wrapper or its custom op)?  A CUDA
+    tensor, or a fake one (a DTensor's local shard included)."""
+    if x.is_cuda:
+        return True
+    local = x._local_tensor if is_dtensor(x) else x
+    return isinstance(local, FakeTensor)
+
+
+def _via_op(x: torch.Tensor) -> bool:
+    """Take the custom op (a fake tensor, a DTensor, a dispatch mode)?"""
+    if isinstance(x, FakeTensor) or is_dtensor(x) \
+            or _get_current_dispatch_mode() is not None:
+        from repro_torch.kernels import library  # noqa: F401  (registers)
+        return True
+    return False
 
 
 def _forward_only(name: str, *tensors) -> None:
@@ -35,8 +67,12 @@ def paged_attention(q, k_pages, v_pages, table, lens, window: int = 0,
     contract.  The kernel reads only each slot's live pages."""
     kw = dict(window=window, scale=scale, k_scale=k_scale, v_scale=v_scale,
               k_extra=k_extra)
-    if q.is_cuda:
+    if _kernel(q):
         _forward_only("paged_attention", q, k_pages, v_pages, k_extra)
+        if _via_op(q):
+            return torch.ops.repro_torch.paged_attention(
+                q, k_pages, v_pages, table, lens, window, scale, k_scale,
+                v_scale, k_extra)
         return pa.paged_attention(q, k_pages, v_pages, table, lens, **kw)
     if q.device.type == "cpu":
         return ref.paged_attention(q, k_pages, v_pages, table, lens, **kw)
@@ -51,8 +87,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     every row and head."""
     kw = dict(causal=causal, window=window, scale=scale, q_pos=q_pos,
               k_pos=k_pos)
-    if q.is_cuda:
+    if _kernel(q):
         _forward_only("flash_attention", q, k, v)
+        if _via_op(q):
+            return torch.ops.repro_torch.flash_attention(
+                q, k, v, q_pos, k_pos, causal, window,
+                None if scale is None else float(scale))
         return fa.flash_attention(q, k, v, **kw)
     if q.device.type == "cpu":
         return ref.attention(q, k, v, **kw)
@@ -63,7 +103,12 @@ def fused_distill_loss(logits, labels, pseudo, lam):
     """Eqn 9, mean over rows: (1+lam)*lse - z[y] - lam*<pseudo, z>; see
     kernels/ref.distill_loss.  On the card one forward and one backward
     kernel launch cover all rows."""
-    if logits.is_cuda:
+    if _kernel(logits):
+        if _via_op(logits):
+            return dl.fused_distill_loss(
+                logits, labels, pseudo, lam,
+                kernels=(torch.ops.repro_torch.distill_loss_fwd,
+                         torch.ops.repro_torch.distill_loss_bwd))
         return dl.fused_distill_loss(logits, labels, pseudo, lam)
     if logits.device.type == "cpu":
         return ref.distill_loss(logits, labels, pseudo, lam)
@@ -77,8 +122,10 @@ def wkv6(r, k, v, log_w, u, state):
     s0 and overwritten with s_T in place; -> y (N, T, H, dh).  See
     kernels/ref.wkv6.  On the card one launch covers every row and
     head."""
-    if r.is_cuda:
+    if _kernel(r):
         _forward_only("wkv6", r, k, v, log_w, u, state)
+        if _via_op(r):
+            return torch.ops.repro_torch.wkv6(r, k, v, log_w, u, state)
         return wk.wkv6(r, k, v, log_w, u, state)
     if r.device.type == "cpu":
         N, _, H, dh = r.shape
@@ -94,8 +141,10 @@ def ssm_scan(a, b, state):
     read as h0 and overwritten with h_T in place; -> hs (N, T, D, Ns).
     See kernels/ref.ssm_scan.  On the card one launch covers every row
     and state element."""
-    if a.is_cuda:
+    if _kernel(a):
         _forward_only("ssm_scan", a, b, state)
+        if _via_op(a):
+            return torch.ops.repro_torch.ssm_scan(a, b, state)
         return ss.ssm_scan(a, b, state)
     if a.device.type == "cpu":
         N, _, D, Ns = a.shape

@@ -49,6 +49,12 @@ K members, the latent pages as keys and values, the rope keys as
 as the JAX package does (the flash kernel takes only dk = dv).  The
 JAX package's MLA has no norm on the latents, so neither has this.
 
+Layouts: under the dry-run (launch/specs.py) the tensors are DTensors and
+the `constrain` calls below are the JAX package's with_sharding_constraint
+sites, each with a leading None for the member dim: heads over "model"
+where the head count divides it, else the flat projections replicated
+before the head reshape (`_head_spec`).  On a plain tensor they do nothing.
+
 Numerics: `attend` rounds the probabilities to the input dtype before
 the value product, as the JAX package's `attend` does; the flash path
 keeps them in f32, as the TPU flash kernel does.  At f32 the two agree
@@ -62,6 +68,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.common.sharding import (REP, constrain, is_dtensor,
+                                         mesh_axis_size)
 from repro_torch.common.types import AttnConfig, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, dense_init, member_view, mm
@@ -190,12 +198,46 @@ def _attend_chunked(q, k, v, q_pos, k_pos, window, causal, scale,
     return o.permute(0, 3, 1, 2, 4).reshape(N, Tq, H, dv).to(v.dtype)
 
 
+def _paired(q, k, v):
+    """Folded q (N, T, H, dh), k / v (N, S, Hkv, *) for the core math.
+    Over DTensors whose query heads are sharded where the kv heads are
+    too few to be (the JAX package's REP kv layout), DTensor cannot split
+    the sharded heads into (Hkv, g) groups: a one-query step gathers its
+    query heads (a head a rank is a small read; the keys may be sharded
+    over the sequence), a longer one repeats each kv head for its group,
+    so that heads pair up shard by shard (a rank then holds as many kv
+    rows as the reference's replicated ones).  Plain tensors pass."""
+    if not is_dtensor(q) or k.shape[2] == q.shape[2] or not any(
+            getattr(p, "dim", None) == 2 for p in q.placements):
+        return q, k, v
+    if q.shape[1] == 1:
+        return constrain(q, None, None, REP, None), k, v
+    g = q.shape[2] // k.shape[2]
+    # in training the repeat's gradient sums over each group, which
+    # DTensor cannot split out of sharded heads: the repeated heads stay
+    # whole (each rank reads its queries' shard of them; the backward
+    # gathers their gradient first, a cost the reference's partial sums
+    # do not pay: ROADMAP, queue 3)
+    lay = REP if k.requires_grad else "model"
+
+    def heads(t):
+        return constrain(t.repeat_interleave(g, dim=2), None, None, lay,
+                         None)
+    return q, heads(k), heads(v)
+
+
 def attend(q, k, v, q_pos, k_pos, *, window: int, causal: bool,
            scale: float, force_dense: Optional[bool] = None) -> torch.Tensor:
     """Dispatch dense vs chunked on KV length.  Positions are (T,) shared
     by every row or (N, T) per row."""
+    q, k, v = _paired(q, k, v)
     Tk = k.shape[1]
     dense = Tk <= ATTN_CHUNK if force_dense is None else force_dense
+    if is_dtensor(k) and q.shape[1] == 1:
+        # a one-query step over a DTensor cache (the dry-run's, its keys
+        # possibly sharded over the sequence): the chunk loop's slices
+        # would gather every shard, the dense scores are one row a head
+        dense = True
     if dense:
         return _attend_dense(q, k, v, _mask_bias(q_pos, k_pos, window,
                                                  causal), scale)
@@ -217,12 +259,30 @@ def _maybe_qknorm(params, q, k, eps):
     return q, k
 
 
+def _head_spec(n: int, x):
+    """Layout of n heads: over "model" when they divide it, else
+    replicated (the JAX package's gqa: the KV heads of a GQA whole on
+    every rank while the Q heads split; its Q heads' rule reduces to
+    the same test, since they are a multiple of the KV heads)."""
+    return "model" if n % mesh_axis_size("model", x) == 0 else REP
+
+
+def _heads(flat: torch.Tensor, n: int, dh: int, spec) -> torch.Tensor:
+    """A projection (K, B, T, n*dh) -> (K, B, T, n, dh), its heads laid
+    out by `spec`.  REP replicates the FLAT projection before the head
+    reshape: a column sharding that survives into the reshape lands
+    inside head_dim and turns the score contraction into partial sums."""
+    if spec == REP:
+        flat = constrain(flat, None, None, None, REP)
+    return constrain(flat.reshape(*flat.shape[:-1], n, dh),
+                     None, None, None, spec, None)
+
+
 def _qkv(params, x, a: AttnConfig, cfg: ModelConfig, pos, theta):
     """x (K, B, T, d), pos (B, T) -> rotated q (K,B,T,H,dh), k, v."""
-    K, B, T, _ = x.shape
-    q = mm(x, params["w_q"]).reshape(K, B, T, a.n_heads, a.head_dim)
-    k = mm(x, params["w_k"]).reshape(K, B, T, a.n_kv_heads, a.head_dim)
-    v = mm(x, params["w_v"]).reshape(K, B, T, a.n_kv_heads, a.head_dim)
+    q, k, v = (_heads(mm(x, params[w]), n, a.head_dim, _head_spec(n, x))
+               for w, n in (("w_q", a.n_heads), ("w_k", a.n_kv_heads),
+                            ("w_v", a.n_kv_heads)))
     q, k = _maybe_qknorm(params, q, k, cfg.norm_eps)
     if a.use_rope:
         # M-RoPE's three position streams (temporal, height, width)
@@ -239,7 +299,15 @@ def _fold(x: torch.Tensor) -> torch.Tensor:
 
 
 def _out(params, o: torch.Tensor, K: int, B: int) -> torch.Tensor:
-    return mm(o.reshape(K, B, o.shape[1], -1), params["w_o"])
+    """Folded heads' output o (K*B, T, H, dv) -> (K, B, T, d) through
+    w_o, the heads over "model" where they divide it."""
+    hs = _head_spec(o.shape[2], o)
+    o = constrain(o, None, None, hs, None)
+    # the flat view too: its gradient must reach the head reshape in the
+    # heads' layout, not the row-parallel w_o's (DTensor cannot split a
+    # flat dim sharded 16 ways into 4 heads)
+    flat = constrain(o.reshape(K, B, o.shape[1], -1), None, None, None, hs)
+    return mm(flat, params["w_o"])
 
 
 def gqa_apply(params: dict, x: torch.Tensor, a: AttnConfig,
@@ -260,7 +328,7 @@ def gqa_apply(params: dict, x: torch.Tensor, a: AttnConfig,
         o = attend(_fold(q), _fold(k), _fold(v), positions[0],
                    positions[0], window=window, causal=causal, scale=scale)
     else:
-        o = ops.flash_attention(_fold(q), _fold(k), _fold(v),
+        o = ops.flash_attention(*_paired(_fold(q), _fold(k), _fold(v)),
                                 causal=causal, window=window, scale=scale)
     return _out(params, o, K, B)
 
@@ -325,6 +393,49 @@ def _ring_pos(idx: torch.Tensor, slots: int, window: int) -> torch.Tensor:
     return torch.where(slot_ids <= i, slot_ids, FAR)
 
 
+def _write_token(plane: torch.Tensor, vals: torch.Tensor,
+                 rows: torch.Tensor, slot: torch.Tensor) -> None:
+    """plane (K, B, S, ...)[:, rows, slot] = vals (K, B, ...), in place,
+    rows = arange(B).  A DTensor plane (the dry-run's sharded cache)
+    writes shard by shard (_write_token_local)."""
+    if is_dtensor(plane):
+        _write_token_local(plane, vals, slot)
+    else:
+        plane[:, rows, slot] = vals
+
+
+def _write_token_local(plane, vals, slot) -> None:
+    """_write_token on this rank's shard of a DTensor plane: the rows it
+    holds whose slot lies in its share of S, an indexed write of one
+    token a row, as the reference's in-place update (an indexed write
+    into the DTensor would gather its sharded dims).  A row whose slot
+    lies on another shard rewrites its own entry at a clamped slot."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = plane.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    # vals in the plane's layout (its dims past S one lower); a mesh dim
+    # that splits S holds vals whole
+    lay = [Shard(p.dim - (p.dim > 2)) if isinstance(p, Shard)
+           and p.dim != 2 else Replicate() for p in plane.placements]
+    if not is_dtensor(vals):
+        vals = DTensor.from_local(vals, mesh, rep, run_check=False)
+    vals = vals.redistribute(mesh, lay).to_local()
+    if is_dtensor(slot):
+        slot = slot.redistribute(mesh, rep).to_local()
+    shape, off = compute_local_shape_and_global_offset(
+        plane.shape, mesh, plane.placements)
+    local = plane.to_local()
+    at = slot[off[1]:off[1] + shape[1]].long() - off[2]
+    inside = ((at >= 0) & (at < shape[2])).reshape(
+        1, shape[1], *([1] * (vals.dim() - 2)))
+    at = at.clamp(0, shape[2] - 1)
+    rows = torch.arange(shape[1], device=local.device)
+    local[:, rows, at] = torch.where(inside, vals.to(local.dtype),
+                                     local[:, rows, at])
+
+
 def gqa_decode(params: dict, x: torch.Tensor, cache: dict,
                idx: torch.Tensor, a: AttnConfig, cfg: ModelConfig,
                window: int, theta: float) -> torch.Tensor:
@@ -340,8 +451,8 @@ def gqa_decode(params: dict, x: torch.Tensor, cache: dict,
     S = cache["k"].shape[2]
     slot = pos[:, 0] % S if window > 0 else pos[:, 0]
     rows = torch.arange(B, device=x.device)
-    cache["k"][:, rows, slot] = k[:, :, 0]
-    cache["v"][:, rows, slot] = v[:, :, 0]
+    _write_token(cache["k"], k[:, :, 0], rows, slot)
+    _write_token(cache["v"], v[:, :, 0], rows, slot)
     k_pos = _ring_pos(idx, S, window)
     o = attend(_fold(q), _fold(cache["k"]), _fold(cache["v"]),
                _rows(pos, K), _rows(k_pos, K), window=window, causal=True,
@@ -413,7 +524,7 @@ def gqa_prefill(params: dict, x: torch.Tensor, cache: dict,
     k_pos = torch.cat([_cache_entry_pos(S, idx, window), c_pos], 1)
     k_all = torch.cat([_fold(cache["k"]), _fold(k)], 1)
     v_all = torch.cat([_fold(cache["v"]), _fold(v)], 1)
-    o = ops.flash_attention(_fold(q), k_all, v_all, causal=True,
+    o = ops.flash_attention(*_paired(_fold(q), k_all, v_all), causal=True,
                             window=window,
                             scale=1.0 / math.sqrt(a.head_dim),
                             q_pos=_rows(q_pos, K).int(),
@@ -744,9 +855,11 @@ def _mla_attend(params, q_c, q_r, c_kv, k_r, q_pos, k_pos, a: AttnConfig):
     (B, S), causal, through `attend` -> (K, B, Tq, d)."""
     K, B = q_c.shape[:2]
     k_c, v = _mla_expand(params, c_kv, a)
-    k_full = torch.cat([k_c, k_r[..., None, :].expand(
-        *k_c.shape[:-1], a.qk_rope_dim)], -1)
-    o = attend(_fold(torch.cat([q_c, q_r], -1)), _fold(k_full), _fold(v),
+    k_full = constrain(_fold(torch.cat([k_c, k_r[..., None, :].expand(
+        *k_c.shape[:-1], a.qk_rope_dim)], -1)), None, None, "model", None)
+    q_full = constrain(_fold(torch.cat([q_c, q_r], -1)),
+                       None, None, "model", None)
+    o = attend(q_full, k_full, _fold(v),
                _rows(q_pos, K), _rows(k_pos, K), window=0, causal=True,
                scale=1.0 / math.sqrt(a.qk_nope_dim + a.qk_rope_dim))
     return _out(params, o, K, B)
@@ -794,8 +907,8 @@ def mla_decode(params: dict, x: torch.Tensor, cache: dict,
     q, c_kv, k_r = _mla_qkv(params, x, a)
     q_c, q_r, k_r = _mla_rope(q, k_r, pos, a, theta)
     rows = torch.arange(B, device=x.device)
-    cache["c_kv"][:, rows, pos[:, 0]] = c_kv[:, :, 0]
-    cache["k_r"][:, rows, pos[:, 0]] = k_r[:, :, 0]
+    _write_token(cache["c_kv"], c_kv[:, :, 0], rows, pos[:, 0])
+    _write_token(cache["k_r"], k_r[:, :, 0], rows, pos[:, 0])
     S = cache["c_kv"].shape[2]
     slot_ids = torch.arange(S, device=x.device)
     k_pos = torch.where(slot_ids <= pos, slot_ids, FAR)
@@ -944,13 +1057,14 @@ def cross_attn_apply(params: dict, x: torch.Tensor, enc: torch.Tensor,
     `attend`."""
     K, B, T, _ = x.shape
     S = enc.shape[2]
-    q = mm(x, params["w_cross_q"]).reshape(K, B, T, a.n_heads, a.head_dim)
-    k = mm(enc, params["w_k"]).reshape(K, B, S, a.n_kv_heads, a.head_dim)
-    v = mm(enc, params["w_v"]).reshape(K, B, S, a.n_kv_heads, a.head_dim)
+    q = _heads(mm(x, params["w_cross_q"]), a.n_heads, a.head_dim,
+               _head_spec(a.n_heads, x))
+    k, v = (_heads(mm(enc, params[w]), a.n_kv_heads, a.head_dim,
+                   _head_spec(a.n_kv_heads, x)) for w in ("w_k", "w_v"))
     scale = 1.0 / math.sqrt(a.head_dim)
     if flash:
-        o = ops.flash_attention(_fold(q), _fold(k), _fold(v), causal=False,
-                                scale=scale)
+        o = ops.flash_attention(*_paired(_fold(q), _fold(k), _fold(v)),
+                                causal=False, scale=scale)
     else:
         o = attend(_fold(q), _fold(k), _fold(v),
                    torch.arange(T, device=x.device),

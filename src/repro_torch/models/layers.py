@@ -13,6 +13,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common.sharding import REP, constrain, is_dtensor
 from repro_torch.common.types import ModelConfig
 
 
@@ -149,6 +150,7 @@ def mlp_apply(params: dict, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
         h = F.gelu(mm(x, params["w_gate"]), approximate="tanh") * up
     else:  # plain gelu
         h = F.gelu(up, approximate="tanh")
+    h = constrain(h, *(None,) * (h.dim() - 1), "model")
     return mm(h, params["w_down"])
 
 
@@ -167,7 +169,9 @@ def embed_lookup(params: dict, tokens: torch.Tensor,
     """tokens (B, T) shared by all members, or (K, B, T) with one batch
     per member (training) -> (K, B, T, d)."""
     table = params["embed"]
-    if tokens.dim() == 3:
+    if is_dtensor(table):
+        x = _sharded_lookup(table, tokens)
+    elif tokens.dim() == 3:
         k = torch.arange(table.shape[0], device=tokens.device)
         x = table[k[:, None, None], tokens.long()]
     else:
@@ -177,6 +181,22 @@ def embed_lookup(params: dict, tokens: torch.Tensor,
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
     return x
+
+
+def _sharded_lookup(table, tokens: torch.Tensor) -> torch.Tensor:
+    """embed_lookup over a DTensor table (the dry-run's; vocab sharded
+    over "model").  One member: F.embedding, which DTensor runs on each
+    vocab shard, masked, and sums (the JAX package's gather over a
+    sharded operand).  Several: the indexed read.  Either way the rows
+    come out whole over the hidden dim, the shards' sum taken."""
+    if table.shape[0] == 1:
+        tok = tokens if tokens.dim() == 2 else tokens[0]
+        x = F.embedding(tok.long(), table[0]).unsqueeze(0)
+    else:
+        k = torch.arange(table.shape[0], device=tokens.device)
+        x = table[k[:, None, None], tokens.long()] if tokens.dim() == 3 \
+            else table[:, tokens.long()]
+    return constrain(x, None, None, None, REP)
 
 
 def head_init(gen, lead, vocab: int, d_model: int, dtype) -> dict:
@@ -191,4 +211,4 @@ def lm_logits(params: dict, x: torch.Tensor,
     if cfg.logit_softcap > 0:
         c = cfg.logit_softcap
         logits = torch.tanh(logits / c) * c
-    return logits
+    return constrain(logits, *(None,) * (logits.dim() - 1), "model")

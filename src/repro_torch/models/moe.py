@@ -31,6 +31,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common.sharding import constrain
 from repro_torch.common.types import FFNConfig
 from repro_torch.models.layers import dense_init, mlp_apply, mlp_init, mm
 
@@ -116,8 +117,7 @@ def moe_apply(params: dict, x: torch.Tensor, f: FFNConfig,
 
     # --- dispatch: slot -> source token (T, the zero row, where empty) --
     pools = torch.arange(K * G, device=x.device).reshape(K, G, 1)
-    slot_to_tok = torch.full((K, G, E * C + 1), T * k, dtype=torch.long,
-                             device=x.device)
+    slot_to_tok = dest.new_full((K, G, E * C + 1), T * k)
     slot_to_tok.scatter_(2, dest, torch.arange(T * k, device=x.device)
                          .expand(K, G, T * k))
     tok_ids = slot_to_tok[..., :E * C] // k                # (K, G, E*C)
@@ -125,9 +125,11 @@ def moe_apply(params: dict, x: torch.Tensor, f: FFNConfig,
     disp = x_plus.reshape(-1, d).index_select(
         0, (tok_ids + pools * (T + 1)).reshape(-1))
     xe = disp.reshape(K, G, E, C, d).transpose(1, 2).reshape(K, E, G * C, d)
+    xe = constrain(xe, None, "model", None, None)          # EP boundary
 
     # --- per-expert FFN, then combine ------------------------------------
-    out_e = _experts(params, xe).reshape(K, E, G, C, d).transpose(1, 2)
+    out_e = constrain(_experts(params, xe), None, "model", None, None)
+    out_e = out_e.reshape(K, E, G, C, d).transpose(1, 2)
     flat_out = torch.cat([out_e.reshape(K, G, E * C, d),
                           out_e.new_zeros(K, G, 1, d)], 2)
     tok_out = flat_out.reshape(-1, d).index_select(

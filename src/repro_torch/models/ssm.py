@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.common.sharding import constrain
 from repro_torch.common.types import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init, member_view, mm
@@ -192,14 +193,15 @@ def mamba_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
     d_inner, _ = mamba_dims(cfg)
     xz = mm(x, params["mamba_in"])
     xs, z = xz[..., :d_inner], xz[..., d_inner:]
+    xs = constrain(xs, None, None, None, "model")
     xs = F.silu(_mamba_conv_full(xs, params["mamba_conv"])).to(xs.dtype)
-    state = torch.zeros(K, B, d_inner, cfg.ssm.d_state, dtype=torch.float32,
-                        device=x.device)
+    # new_zeros: over a DTensor (the dry-run's) the state is one too
+    state = x.new_zeros(K, B, d_inner, cfg.ssm.d_state, dtype=torch.float32)
     if train:
         y, _ = _mamba_chunked(params, xs, cfg, state)
     else:
         y = _mamba_inner(params, xs, cfg, state)
-    return _mamba_out(params, y, z)
+    return _mamba_out(params, constrain(y, None, None, None, "model"), z)
 
 
 def mamba_cache_init(cfg: ModelConfig, lead, batch: int, dtype,
@@ -305,16 +307,16 @@ def _rwkv_proj(params, x: torch.Tensor, x_prev: torch.Tensor):
     xf5 = xf[..., None, :]
     mixed = xf5 + (x_prev.float()[..., None, :] - xf5) * mix
     xr, xk, xv, xg, xw = (mixed[..., i, :].to(x.dtype) for i in range(5))
-    r = mm(xr, params["rwkv_r"])
-    k = mm(xk, params["rwkv_k"])
-    v = mm(xv, params["rwkv_v"])
-    g = F.silu(mm(xg, params["rwkv_g"]))
+    r, k, v, g = (constrain(mm(xi, params[w]), None, "batch", None, "model")
+                  for xi, w in ((xr, "rwkv_r"), (xk, "rwkv_k"),
+                                (xv, "rwkv_v"), (xg, "rwkv_g")))
+    g = F.silu(g)
     # decay in log space: log w = -exp(base + lora)
     dec = member_view(params["rwkv_decay_base"], xf) + mm(
         torch.tanh(mm(xw.float(), params["rwkv_decay_lora_a"])),
         params["rwkv_decay_lora_b"])
     log_w = -torch.exp(dec.clamp(-20.0, 4.0))
-    return r, k, v, g, log_w
+    return r, k, v, g, constrain(log_w, None, "batch", None, "model")
 
 
 def _rwkv_groupnorm(y: torch.Tensor, scale: torch.Tensor, H: int,
@@ -416,8 +418,7 @@ def rwkv_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
                             params["rwkv_first"], s0)
         y = y.reshape(K, B, T, d)
     else:
-        state = torch.zeros(K, B, H, dh, dh, dtype=torch.float32,
-                            device=x.device)
+        state = x.new_zeros(K, B, H, dh, dh, dtype=torch.float32)
         y = _wkv(params, r, k, v, log_w, state, H, dh)
     return _rwkv_out(params, y, g, H, dh)
 

@@ -20,6 +20,8 @@ Entry points
         embeds=, enc_embeds=)
   encode(params, cfg, enc_embeds)           -> encoder frames (K,B,S,d)
   init_slot_cache(cfg, batch, max_seq, ...) -> slot-addressable cache
+  prefill(params, cfg, tokens, embeds=,     -> (last logits (K,B,V),
+          enc_embeds=)                          argmax (K,B))
   decode_step_slots / decode_step_paged     -> (logits (K,B,1,V), cache)
   prefill_slots / prefill_step_paged        -> (last logits (K,B,V), cache)
   verify_slots / verify_step_paged          -> (logits (K,B,C,V), cache)
@@ -43,6 +45,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.device import DeviceLike, resolve_device, torch_dtype
+from repro_torch.common.sharding import (REP, constrain, is_dtensor,
+                                         layout_flag)
 from repro_torch.common.types import LayerSpec, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe
@@ -199,10 +203,11 @@ def _block(p, spec: LayerSpec, cfg: ModelConfig, x: torch.Tensor,
         window, theta = _mixer_window(cfg, spec)
         x = x + attn.gqa_apply(p["attn"], h_in, cfg.attn, cfg, pos, window,
                                theta, causal=causal, train=train)
+    x = _residual(x)
     if "cross" in p:
-        x = x + attn.cross_attn_apply(
+        x = _residual(x + attn.cross_attn_apply(
             p["cross"], rmsnorm(p["norm_cross"], x, cfg.norm_eps), enc,
-            cfg.attn, flash=not train)
+            cfg.attn, flash=not train))
     h_f = rmsnorm(p["norm_ffn"], x, cfg.norm_eps)
     aux = 0.0
     if spec.ffn == "rwkv_cmix":
@@ -213,7 +218,21 @@ def _block(p, spec: LayerSpec, cfg: ModelConfig, x: torch.Tensor,
         x = x + h
     else:
         x = x + mlp_apply(p["mlp"], h_f, cfg.ffn.mlp_type)
-    return x, aux
+    return _residual(x), aux
+
+
+def _residual(x: torch.Tensor) -> torch.Tensor:
+    """The residual stream's layout after a sublayer adds into it: batch
+    over the batch role, the sequence over the "seq" role (sequence
+    parallelism where a policy names it) or whole, the hidden dim whole:
+    GSPMD's tensor-parallel residual, which the JAX package's programs
+    take.  Left free, DTensor would settle each partial sum onto
+    whichever dim its cost model picks (a sequence shard) and gather it
+    back before every projection.  A plain tensor passes."""
+    if not is_dtensor(x):
+        return x
+    return constrain(x, None, "batch", "seq" if layout_flag("seq") else REP,
+                     REP)
 
 
 def _member_input(x: torch.Tensor, K: int) -> torch.Tensor:
@@ -278,9 +297,24 @@ def apply(params, cfg: ModelConfig, tokens: Optional[torch.Tensor] = None,
     torch.utils.checkpoint (its activations recomputed in the backward),
     attention through attention.attend and the recurrences through their
     chunked plain forms (models/ssm.py)."""
+    x, aux = _forward(params, cfg, tokens, remat, pool_rows, carry, embeds,
+                      enc_embeds)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return lm_logits(params, x, cfg), aux
+
+
+def _embed_in(params, cfg: ModelConfig, tokens, embeds) -> torch.Tensor:
+    if embeds is not None:
+        return _member_input(embeds, params["embed"].shape[0])
+    return constrain(embed_lookup(params, tokens, cfg),
+                     None, "batch", None, None)
+
+
+def _forward(params, cfg: ModelConfig, tokens, remat: bool, pool_rows,
+             carry, embeds, enc_embeds):
+    """apply's blocks -> (the last block's output (K, B, T, d), aux)."""
     _check_supported(cfg)
-    x = (embed_lookup(params, tokens, cfg) if embeds is None
-         else _member_input(embeds, params["embed"].shape[0]))
+    x = _embed_in(params, cfg, tokens, embeds)
     B, T = x.shape[1:3]
     if cfg.enc_dec and not cfg.attn.use_rope:
         x = x + sinusoidal_positions(T, cfg.d_model, x.device).to(x.dtype)
@@ -295,8 +329,23 @@ def apply(params, cfg: ModelConfig, tokens: Optional[torch.Tensor] = None,
                                   pos, remat, pool_rows, carry, (si, c, i),
                                   enc=enc)
                 aux = aux + a
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return lm_logits(params, x, cfg), aux
+    return x, aux
+
+
+def prefill(params, cfg: ModelConfig, tokens: Optional[torch.Tensor] = None,
+            embeds: Optional[torch.Tensor] = None,
+            enc_embeds: Optional[torch.Tensor] = None):
+    """The forward scoring pass of the dry-run's prefill cell (the JAX
+    package's transformer.prefill): apply's forward-only route (the flash
+    kernel) without holding logits for every position -> (last-token
+    logits (K, B, V), their argmax (K, B)).  The serving engine fills its
+    cache with prefill_slots / prefill_step_paged instead."""
+    x, _ = _forward(params, cfg, tokens, False, None, None, embeds,
+                    enc_embeds)
+    x = rmsnorm(params["final_norm"], x[:, :, -1:], cfg.norm_eps)
+    logits = lm_logits(params, x, cfg)[:, :, 0]
+    # the argmax over a vocab-sharded DTensor reads it whole
+    return logits, constrain(logits, None, None, REP).argmax(-1)
 
 
 # ---------------------------------------------------------------------------
@@ -489,17 +538,18 @@ def _cross(p, cfg: ModelConfig, cache: dict, x: torch.Tensor,
            flash: bool) -> torch.Tensor:
     """x plus the block's cross-attention over cache["enc"] (none
     without "cross")."""
+    x = _residual(x)
     if "cross" not in p:
         return x
-    return x + attn.cross_attn_apply(
+    return _residual(x + attn.cross_attn_apply(
         p["cross"], rmsnorm(p["norm_cross"], x, cfg.norm_eps), cache["enc"],
-        cfg.attn, flash)
+        cfg.attn, flash))
 
 
 def _decode(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor):
     pos = cache["idx"][0]
     table = cache.get("page_table")
-    x = _sinusoid_at(cfg, embed_lookup(params, tokens, cfg), pos)
+    x = _sinusoid_at(cfg, _embed_in(params, cfg, tokens, None), pos)
     for seg, seg_cache, (count, specs) in zip(
             params["segments"], cache["segments"], cfg.segments()):
         for c in range(count):
@@ -529,9 +579,9 @@ def _decode(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor):
                 x = _cross(p, cfg, cache, x + h, flash=False)
                 # the JAX package's paged step routes the batch as one
                 # pool, its contiguous step (a row vmap) each row alone
-                x = x + _ffn_step(p, spec, cfg, lc,
-                                  rmsnorm(p["norm_ffn"], x, cfg.norm_eps),
-                                  None, moe_per_row=table is None)
+                x = _residual(x + _ffn_step(
+                    p, spec, cfg, lc, rmsnorm(p["norm_ffn"], x, cfg.norm_eps),
+                    None, moe_per_row=table is None))
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     out = dict(cache)
     out["idx"] = cache["idx"] + 1

@@ -18,6 +18,7 @@ from typing import Any, Callable, Tuple
 
 import torch
 
+from repro_torch.common.sharding import is_dtensor
 from repro_torch.common.tree import tree_leaves, tree_map
 
 
@@ -46,16 +47,49 @@ def _pieces(x: torch.Tensor):
             for piece in x[k].view(-1).split(_PIECE)]
 
 
+def _sq_norms(g: torch.Tensor) -> torch.Tensor:
+    """(K,) f32 squared norms of each member's slice of g (K, ...),
+    reduced piece by piece (the f32 cast copies what it reduces)."""
+    flat = g.reshape(g.shape[0], -1)
+    return sum(torch.linalg.vector_norm(flat[:, i:i + _PIECE], dim=1,
+                                        dtype=torch.float32).square()
+               for i in range(0, flat.shape[1], _PIECE))
+
+
+def _sharded_sq_norms(g):
+    """_sq_norms of a DTensor (the dry-run's sharded state): each shard's
+    own, summed over the mesh dims that split a member -> (K,) DTensor,
+    its member dim laid out as g's."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    pl = [q if isinstance(q, Shard) and q.dim == 0
+          else (Partial() if isinstance(q, Shard) else Replicate())
+          for q in g.placements]
+    sq = DTensor.from_local(_sq_norms(g.to_local()), g.device_mesh, pl,
+                            run_check=False, shape=torch.Size(g.shape[:1]),
+                            stride=(1,))
+    return sq.redistribute(g.device_mesh, [Replicate() if isinstance(
+        q, Partial) else q for q in pl])
+
+
+def _member_local(x: torch.Tensor, like) -> torch.Tensor:
+    """A (K,) vector's entries for the members a DTensor leaf's shard
+    holds, as a plain tensor."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = like.device_mesh
+    if not is_dtensor(x):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    want = [q if isinstance(q, Shard) and q.dim == 0 else Replicate()
+            for q in like.placements]
+    return x.redistribute(mesh, want).to_local()
+
+
 def _clip_scale(grads, max_norm: float):
     """-> ((K,) factors that bring each member's global gradient norm to
     <= max_norm, (K,) norms), each leaf's norm reduced in f32 (a large
     leaf piece by piece: the f32 cast copies what it reduces)."""
-    def sq(g):
-        flat = g.reshape(g.shape[0], -1)
-        return sum(torch.linalg.vector_norm(flat[:, i:i + _PIECE], dim=1,
-                                            dtype=torch.float32).square()
-                   for i in range(0, flat.shape[1], _PIECE))
-    gn = torch.sqrt(sum(sq(g) for g in tree_leaves(grads)))
+    gn = torch.sqrt(sum(_sharded_sq_norms(g) if is_dtensor(g)
+                        else _sq_norms(g) for g in tree_leaves(grads)))
     return (max_norm / gn.clamp_min(1e-9)).clamp_max(1.0), gn
 
 
@@ -142,6 +176,21 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         delta.add_(p, alpha=weight_decay)
         p.sub_(delta.mul_(lr_t))
 
+    def leaf(p, g, m, v, vecs):
+        """One leaf's update in place; vecs (K,) per member or None."""
+        if p.numel() <= _ONE_PASS:
+            one(p, g, m, v, *(None if x is None else _per_member(x, p)
+                              for x in vecs))
+            return
+        # in place on views of params and moments; the gradient is only
+        # read
+        per_member = -(-p[0].numel() // _PIECE)
+        parts = zip(*(_pieces(x) for x in (p, g.contiguous(), m, v)))
+        for i, (pp, gp, mp, vp) in enumerate(parts):
+            k = i // per_member
+            one(pp, gp, mp, vp, *(None if x is None else x[k]
+                                  for x in vecs))
+
     @torch.no_grad()
     def update(grads, state, params):
         scale = _clip_scale(grads, clip_norm)[0] if clip_norm > 0 else None
@@ -156,18 +205,14 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         vecs = (scale, lr_t, c1, c2)
         for p, g, m, v in zip(*(tree_leaves(t) for t in (
                 params, grads, state["m"], state["v"]))):
-            if p.numel() <= _ONE_PASS:
-                one(p, g, m, v, *(None if x is None else _per_member(x, p)
-                                  for x in vecs))
-                continue
-            # in place on views of params and moments; the gradient is
-            # only read
-            per_member = -(-p[0].numel() // _PIECE)
-            parts = zip(*(_pieces(x) for x in (p, g.contiguous(), m, v)))
-            for i, (pp, gp, mp, vp) in enumerate(parts):
-                k = i // per_member
-                one(pp, gp, mp, vp, *(None if x is None else x[k]
-                                      for x in vecs))
+            if is_dtensor(p):
+                # shard by shard, in place on the local tensors, each with
+                # the entries of its own members
+                leaf(*(x.to_local() for x in (p, g, m, v)),
+                     [None if x is None else _member_local(x, p)
+                      for x in vecs])
+            else:
+                leaf(p, g, m, v, vecs)
         return params, state
 
     return Optimizer(init, update)

@@ -25,11 +25,7 @@ from repro_torch.common.types import SHAPES
 from repro_torch.configs import registry
 from repro_torch.core.compression import bytes_per_token
 
-# the JAX package's registry.ARCH_IDS, in its order: every arch but the
-# paper's NiN
-ARCH_IDS = ("llama3-405b", "gemma3-1b", "starcoder2-7b", "deepseek-7b",
-            "jamba-v0.1-52b", "rwkv6-7b", "deepseek-v2-236b", "arctic-480b",
-            "qwen2-vl-2b", "whisper-tiny")
+ARCH_IDS = registry.LM_ARCH_IDS
 
 
 def param_bytes(arch: str) -> int:

@@ -13,12 +13,13 @@ autograd differentiates.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
+from repro_torch.common.sharding import is_dtensor, layout_ctx
 from repro_torch.common.tree import tree_leaves, tree_map
-from repro_torch.common.types import ModelConfig
+from repro_torch.common.types import ModelConfig, ParallelConfig
 from repro_torch.core import compression as comp
 from repro_torch.core import distill
 from repro_torch.optim import Optimizer
@@ -111,7 +112,13 @@ def make_member_grads(cfg: ModelConfig, grad_accum: int = 1) -> Callable:
     def grads_of(params, batch, pseudo, lam):
         leaves = tree_leaves(params)
         total = member_loss(params, batch, pseudo, lam)
-        return total.detach(), torch.autograd.grad(total, leaves)
+        grads = torch.autograd.grad(total, leaves)
+        # a DTensor gradient (the dry-run's) is reduced into its
+        # parameter's layout as it is made (partial sums over the batch
+        # shards settled a microbatch at a time, as FSDP does)
+        grads = [g.redistribute(p.device_mesh, p.placements)
+                 if is_dtensor(g) else g for g, p in zip(grads, leaves)]
+        return total.detach(), grads
 
     def fn(params, batch, pseudo, lam):
         if grad_accum <= 1:
@@ -123,8 +130,12 @@ def make_member_grads(cfg: ModelConfig, grad_accum: int = 1) -> Callable:
                                  f"{grad_accum} microbatches")
             loss, flat = 0.0, None
             for i in range(grad_accum):
+                # rows i, i + accum, ... as a view through (B/accum, accum):
+                # a batch sharded over its rows keeps every microbatch's
+                # rows on their shard (a strided slice would gather them)
                 micro = lambda t: tree_map(  # noqa: E731
-                    lambda x: x[:, i::grad_accum], t)
+                    lambda x: x.unflatten(1, (B // grad_accum,
+                                              grad_accum))[:, :, i], t)
                 l_i, g_i = grads_of(params, micro(batch),
                                     None if pseudo is None else micro(pseudo),
                                     lam)
@@ -143,8 +154,8 @@ def make_member_grads(cfg: ModelConfig, grad_accum: int = 1) -> Callable:
 
 
 def make_local_step(cfg: ModelConfig, opt: Optimizer, grad_accum: int = 1,
-                    sync: bool = False, mesh=None,
-                    axis: str = "data") -> Callable:
+                    sync: bool = False, mesh=None, axis: str = "data",
+                    par: Optional[ParallelConfig] = None) -> Callable:
     """EC local-training step over member-stacked state.
 
     (state {params, opt}, batch, pseudo, lam) -> (state, mean loss over
@@ -154,13 +165,18 @@ def make_local_step(cfg: ModelConfig, opt: Optimizer, grad_accum: int = 1,
     members' mean is averaged over the ranks of `axis`
     (aggregation.psum_gradients), every rank holding as many members.
     An optimizer that updates in place (adamw) returns the state's own
-    tensors; the loss is this rank's members' mean."""
+    tensors; the loss is this rank's members' mean.  `par` names the
+    layout roles of the dry-run's DTensor state (the member batch's axes,
+    the sequence axis; models' constrain sites)."""
     member_grads = make_member_grads(cfg, grad_accum)
+    batch_axes = tuple(par.batch_axes) if par is not None else ()
+    seq_axis = (par.seq_axis or None) if par is not None else None
 
     def step(state, batch, pseudo, lam):
         params = tree_map(lambda p: p.detach().requires_grad_(),
                           state["params"])
-        total, grads = member_grads(params, batch, pseudo, lam)
+        with layout_ctx(batch=batch_axes, seq=seq_axis, train=True):
+            total, grads = member_grads(params, batch, pseudo, lam)
         if sync:
             mean = tree_map(lambda g: g.mean(0, keepdim=True), grads)
             if mesh is not None:
@@ -172,3 +188,26 @@ def make_local_step(cfg: ModelConfig, opt: Optimizer, grad_accum: int = 1,
         K = tree_leaves(params)[0].shape[0]
         return {"params": new_params, "opt": new_opt}, total / K
     return step
+
+
+def make_serve_fns(cfg: ModelConfig, par: Optional[ParallelConfig] = None):
+    """(prefill_fn, decode_fn) for single-model serving, the dry-run's
+    prefill and decode cells: prefill_fn(params, batch) ->
+    transformer.prefill's (last logits, argmax); decode_fn(params, cache,
+    tokens) -> transformer.decode_step_slots's (logits, cache) over an
+    init_slot_cache cache."""
+    from repro_torch.models import transformer
+    batch_axes = tuple(par.batch_axes) if par is not None else \
+        ("pod", "data")
+
+    def prefill_fn(params, batch):
+        with layout_ctx(batch=batch_axes):
+            return transformer.prefill(params, cfg, batch.get("tokens"),
+                                       embeds=batch.get("embeds"),
+                                       enc_embeds=batch.get("enc_embeds"))
+
+    def decode_fn(params, cache, tokens):
+        with layout_ctx(batch=batch_axes):
+            return transformer.decode_step_slots(params, cfg, cache, tokens)
+
+    return prefill_fn, decode_fn
