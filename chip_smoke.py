@@ -29,7 +29,9 @@ Phases, one JSON line each, in the order 0, 1, 7, 10, 11, 2, 8, 9, 12,
      deepseek-7b over 576, each plus a 128-token chunk, mid-prompt and
      ragged tail), the full forward's (top-left causal, T = S = 2048)
      and phase 14's relabel and eval chunk (16 sequences, T = S = 64,
-     gemma3-1b's heads, window 0 and 512), whisper-tiny's encoder (no
+     gemma3-1b's heads, window 0 and 512), phase 24's relabel score
+     (one sequence, T = S = 4096, window 0 and 512), whisper-tiny's
+     encoder (no
      mask, 16 rows, T = S = 1500: ragged tiles), its prefill chunk's
      cross-attention (no mask, 128 queries over 1500 frames) and
      self-attention, qwen2-vl-2b's prefill chunk (g = 6), and speculative
@@ -214,14 +216,21 @@ Phases, one JSON line each, in the order 0, 1, 7, 10, 11, 2, 8, 9, 12,
      each rank's cache bytes half the reference's; decode ms a step,
      each rank's busy ms and idle share, the fusion's all-reduce ms a
      step (profiler), peak memory a rank.  22b: phase 14's training
-     (bf16, AdamW) at K = 2 over two ranks on the card under gloo, a
-     member a rank, protocol ring: two dense EC rounds and one top-64,
-     evaluate() after each mode (finite, Jensen gap >= 0); distill
-     launches once each way a distill step; on one relabel subset the
-     ring's dense targets equal the mesh all-gather's within 1e-4, each
-     relabel's flash launches as its formula; relabel seconds (ring,
-     all-gather, ring top-64), the bytes a hop moves, host and busy ms
-     a step, peak memory a rank;
+     (bf16, AdamW) at K = 2 over four ranks on the card under gloo, a
+     2 x 2 mesh: a member a rank along the ring's axis, each member's
+     rows split over 2 data ranks (gradients averaged over them before
+     AdamW), protocol ring: two dense EC rounds and one top-64,
+     evaluate() after each mode (finite, Jensen gap >= 0), a member's
+     two replicas' params bit for bit equal after every round (a digest
+     of their bits); distill launches once each way a distill step; on
+     each rank's share of one relabel subset the ring's dense targets
+     equal the mesh all-gather's within 1e-4, each relabel's flash
+     launches as its formula (over the share's rows), the bytes each
+     ring sent equal to K - 1 hops of tokens and K of its accumulator;
+     relabel seconds (ring, all-gather, ring top-64), host and busy ms a
+     step; then reshard 2 -> 4 members over the mesh and one all-gather
+     round (finite, Jensen gap >= 0, replicas equal); peak memory a
+     rank, before the reshard and in all;
  23  the paper's experiments and the examples through their entry points
      (repro_torch/paper, repro_torch/examples): Table 1 and Figures 1-2
      at --fast (NiN width 96, K = 4), the faithful run at --fast (the
@@ -249,7 +258,14 @@ Phases, one JSON line each, in the order 0, 1, 7, 10, 11, 2, 8, 9, 12,
      layers x calls; the predicted peak bytes are printed beside
      max_memory_allocated.  Also the host microseconds a call of the
      flash kernel takes through its custom op, the routing ops.py and the
-     wrapper alone.
+     wrapper alone.  The relabel step (launch/specs.build_relabel_cell)
+     likewise on the (1, 1) mesh, in the same loop, by its first part:
+     the score of one chunk (one sequence of 4096 tokens, 26 layers,
+     the shape phase 7 holds the kernel at) fake against real FLOPs,
+     bound against the measured median, flash launches layers x calls;
+     and, in a child process over a fake world of 2 ranks, the cell at
+     22b's shape (its rows a rank, K = 2, 22b's layers, top-64), whose
+     collective-permute bytes must equal what 22b's top-64 ring sent.
 Then the kernels line, the card line, and last the result line.  Any
 failure exits non-zero before the result line.  Imports nothing of JAX.
 """
@@ -641,6 +657,7 @@ def flash_positions(torch, N, S, C, idx, n_tok, ring_window):
 # positions (global layer) plus a 128 chunk; deepseek-7b: 576 gathered
 # plus the chunk; apply at T = S = 2048, top-left causal; phase 14's
 # relabel and eval: one member's chunk of 16 sequences at T = S = 64;
+# phase 24's relabel score: one sequence of 4096 (global and window 512);
 # whisper-tiny's encoder stub (K 4 x 4 slots over 1500 frames), a
 # 128-token prefill chunk's cross-attention over the frames and its
 # self-attention over the slot's 192 positions (one chunk a prompt);
@@ -661,6 +678,8 @@ FLASH_CASES = {
     "deepseek_apply_2048": (4, 2048, 0, 32, 32, 128, 0, 0, 0),
     "gemma3_relabel_64": (16, 64, 0, 4, 1, 256, 0, 0, 0),
     "gemma3_relabel_64_w512": (16, 64, 0, 4, 1, 256, 512, 0, 0),
+    "gemma3_relabel_4096": (1, 4096, 0, 4, 1, 256, 0, 0, 0),
+    "gemma3_relabel_4096_w512": (1, 4096, 0, 4, 1, 256, 512, 0, 0),
     "whisper_encoder": (16, 1500, 0, 6, 6, 64, 0, 0, 0, False),
     "whisper_cross_chunk": (4, 128, 1500, 6, 6, 64, 0, 0, 0, False),
     "whisper_self_chunk": (4, 128, 192, 6, 6, 64, 0, 0, 96),
@@ -3407,14 +3426,19 @@ def phase15(torch, np, card) -> dict:
 # ---------------------------------------------------------------------------
 
 # 22a: gemma3-1b in f32, K = 4, paged, phase 2's prompts; two ranks hold
-# 2 members each.  22b: phase 14's training at K = 2, a member a rank.
-# phase 22 runs gemma3-1b cut to 13 of its 26 layers (two 5:1 periods and
-# one local layer): its runs are host-bound, and the cut keeps the whole
-# script inside the call's time with phase 23
+# 2 members each.  22b: phase 14's training at K = 2, a member a rank
+# along the ring's axis, 2 data ranks a member.  22a runs gemma3-1b cut
+# to 13 of its 26 layers (two 5:1 periods and one local layer): its runs
+# are host-bound, and the cut keeps the whole script inside the call's
+# time with phase 23.  22b's four processes share the card and double
+# their members at the reshard: at 13 layers the grown state did not fit
+# (out of memory, 79 GB in use), so 22b runs 7 layers (one 5:1 period and
+# one local layer)
 MESH = dict(members=4, ranks=2, lp_tol=1e-4, profile=3, timeout=900.0,
             n_layers=13)
 RING = dict(LM_TRAIN, members=2, rounds=3, dense_rounds=2, timeout=900.0,
-            n_layers=13)
+            n_layers=7, data_ranks=2, grown=4)
+RING_TOPK_SENT = None   # 22b's top-64 ring's bytes sent (phase 24 reads)
 
 
 def mesh_cfg():
@@ -3754,11 +3778,15 @@ def ring_trainer(mesh):
 
 
 def ring_train_rank(rank: int) -> dict:
-    """One rank of 22b: two dense EC rounds over the ring, then one with
-    top-64 labels, evaluate() after the dense rounds and after the last;
-    then, on one relabel subset, the ring against the mesh all-gather
-    (dense), both timed, and the ring at top-64; then 3 plain steps timed
-    on the host and profiled."""
+    """One rank of 22b (local_mesh(2, 2): a member a rank along the ring's
+    axis, each member's rows split over 2 data ranks): two dense EC
+    rounds over the ring, then one with top-64 labels, evaluate() after
+    the dense rounds and after the last, the params' digest after every
+    round; then, on this rank's share of one relabel subset, the ring
+    against the mesh all-gather (dense), both timed, and the ring at
+    top-64, the bytes each ring sent; then 3 plain steps timed on the
+    host and profiled; then reshard 2 -> 4 over the mesh and one
+    all-gather round, evaluate() after it."""
     import dataclasses
 
     import numpy as np
@@ -3769,14 +3797,15 @@ def ring_train_rank(rank: int) -> dict:
     from repro_torch.data import sample_batch, sample_relabel_subset
     from repro_torch.kernels import distill_loss as dl
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serving.frontend.replica import param_digest
     c = RING
-    mesh = shd.local_mesh(1, c["members"], device="cuda")
+    mesh = shd.local_mesh(c["data_ranks"], c["members"], device="cuda")
     torch.cuda.reset_peak_memory_stats()
     tr = ring_trainer(mesh)
     cfg = tr.cfg
     dl.distill_loss_fwd.launches = dl.distill_loss_bwd.launches = 0
     fa.flash_attention.launches = 0
-    losses, evals, round_s = [], [], []
+    losses, evals, round_s, digests = [], [], [], []
     for r in range(c["rounds"]):
         if r == c["dense_rounds"]:
             tr.ec = dataclasses.replace(tr.ec, label_mode="topk")
@@ -3785,6 +3814,7 @@ def ring_train_rank(rank: int) -> dict:
         losses.append(tr.run_round())
         torch.cuda.synchronize()
         round_s.append(time.perf_counter() - t0)
+        digests.append(param_digest(tr.state["params"]))
         if r in (c["dense_rounds"] - 1, c["rounds"] - 1):
             t0 = time.perf_counter()
             evals.append(tr.evaluate())
@@ -3794,6 +3824,8 @@ def ring_train_rank(rank: int) -> dict:
                 "flash_attention": fa.flash_attention.launches}
     subset, _ = sample_relabel_subset(np.random.default_rng(7), tr.shards,
                                       c["relabel"], of=tr._of)
+    share = tr._split(subset["tokens"].shape[1], "relabel rows")
+    subset = {k: v[:, share] for k, v in subset.items()}
     params = tr.state["params"]
     V = cfg.vocab_size
     relabel = {}
@@ -3801,6 +3833,7 @@ def ring_train_rank(rank: int) -> dict:
                        ("ring_topk", "topk")):
         ec = dataclasses.replace(tr.ec, label_mode=mode)
         fa.flash_attention.launches = 0
+        shd.ppermute.bytes = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if name == "allgather":
@@ -3811,64 +3844,106 @@ def ring_train_rank(rank: int) -> dict:
                                    axis="data", n_out=V)
         torch.cuda.synchronize()
         relabel[name] = {"s": time.perf_counter() - t0,
-                         "flash_launches": fa.flash_attention.launches}
+                         "flash_launches": fa.flash_attention.launches,
+                         "permute_bytes": shd.ppermute.bytes}
         if name != "ring_topk":
             relabel[name]["targets"] = out
         del out
     gap = float((relabel["ring"].pop("targets")
                  - relabel["allgather"].pop("targets")).abs().max())
     n, T = subset["tokens"].shape[1:]
+    chunk = agg.chunk_rows({"tokens": subset["tokens"][0]}, V)
     tok_bytes = n * T * subset["tokens"].element_size()
     hop = {"tokens_bytes": tok_bytes,
            "dense_accumulator_bytes": n * T * V * 4,
-           "topk_accumulator_bytes": n * T * (c["top_m"] * 8 + 4)}
+           "topk_accumulator_bytes": n * T * (c["top_m"] * 8 + 4),
+           "ring_dense_sent": relabel["ring"]["permute_bytes"],
+           "ring_topk_sent": relabel["ring_topk"]["permute_bytes"]}
     times = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        batch = sample_batch(tr.rng, tr.shards, tr.batch, of=tr._of)
+        batch = tr._mine(sample_batch(tr.rng, tr.shards, tr.batch,
+                                      of=tr._of))
         tr.state, _ = tr._plain_step(tr.state, batch, None, 0.0)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     prof = profile_steps(torch, lambda: [tr._plain_step(
-        tr.state, sample_batch(tr.rng, tr.shards, tr.batch, of=tr._of),
+        tr.state, tr._mine(sample_batch(tr.rng, tr.shards, tr.batch,
+                                        of=tr._of)),
         None, 0.0) for _ in range(2)], 2)
+    peak = torch.cuda.max_memory_allocated()
+    # four processes share the card: hand the cached blocks back before
+    # the state doubles
+    del subset, params, batch
+    torch.cuda.empty_cache()
+    # reshard past one member a rank: the ring would refuse, so the round
+    # after it takes the all-gather
+    tr.ec = dataclasses.replace(tr.ec, protocol="allgather")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.reshard(c["grown"], torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    reshard_s = time.perf_counter() - t0
+    grown = {"reshard_s": reshard_s, "k_local": tr.K_local,
+             "loss": tr.run_round(), "eval": tr.evaluate(),
+             "digest": param_digest(tr.state["params"])}
     return {"rank": rank, "backend": torch.distributed.get_backend(),
+            "member": shd.axis_index(mesh, "data"),
+            "data_rank": shd.axis_index(mesh, "member"),
             "losses": losses, "evals": evals, "round_s": round_s,
+            "digests": digests, "grown": grown,
             "launches": launches, "relabel": relabel,
             "ring_vs_allgather_max_abs": gap, "hop": hop,
             "relabel_rows": n, "seq_len": T,
-            "chunk_rows": agg.chunk_rows({"tokens": subset["tokens"][0]},
-                                         V),
-            "n_layers": cfg.n_layers, "step_host_ms": times,
+            "chunk_rows": chunk, "n_layers": cfg.n_layers,
+            "step_host_ms": times,
             "step_busy_ms": prof["busy_ms"],
+            "max_memory_allocated_before_reshard": peak,
             "max_memory_allocated": torch.cuda.max_memory_allocated()}
 
 
 def phase22_train(torch, np, card) -> dict:
-    """22b: the EC round across 2 ranks on the card under gloo, a member
-    a rank, over the ring.  -> the leader rank's launches."""
+    """22b: the EC round on the card under gloo over a 2 x 2 mesh, a
+    member a rank along the ring's axis, 2 data ranks a member.  -> the
+    first rank's launches and the topk ring's bytes sent."""
     from repro_torch.common import sharding as shd
     c = RING
-    K = c["members"]
+    K, D = c["members"], c["data_ranks"]
     t0 = time.perf_counter()
-    ranks = shd.spawn(ring_train_rank, K, device="cuda", backend="gloo",
-                      timeout=c["timeout"])
+    ranks = shd.spawn(ring_train_rank, K * D, device="cuda",
+                      backend="gloo", timeout=c["timeout"])
     world_s = time.perf_counter() - t0
     r0 = ranks[0]
     n, rows, L = r0["relabel_rows"], r0["chunk_rows"], r0["n_layers"]
     ring_want = L * K * -(-n // rows)
     ag_want = L * -(-K * n // rows)
     distill_want = (c["rounds"] - 1) * c["p_steps"]
+    by_member = {}
+    for r in ranks:
+        by_member.setdefault(r["member"], []).append(r)
+    for reps in by_member.values():
+        if len(reps) != D or any(x["digests"] != reps[0]["digests"]
+                                 or x["grown"]["digest"]
+                                 != reps[0]["grown"]["digest"]
+                                 for x in reps):
+            raise AssertionError(
+                f"22b: a member's data replicas differ: "
+                f"{[(x['rank'], x['digests'], x['grown']['digest']) for x in reps]}")
     for r in ranks:
         what = f"22b rank {r['rank']}"
-        vals = [*r["losses"], *(v for e in r["evals"] for v in e.values())]
+        g = r["grown"]
+        vals = [*r["losses"], *(v for e in r["evals"] for v in e.values()),
+                g["loss"], *g["eval"].values()]
         if not all(math.isfinite(v) for v in vals):
             raise AssertionError(f"{what}: non-finite {r['losses']}, "
-                                 f"{r['evals']}")
-        for e in r["evals"]:
+                                 f"{r['evals']}, {g}")
+        for e in (*r["evals"], g["eval"]):
             if e["local_loss"] - e["global_loss"] < -1e-6:
                 raise AssertionError(f"{what}: Jensen gap < 0: {e}")
+        if g["k_local"] != c["grown"] // K:
+            raise AssertionError(f"{what}: {g['k_local']} members after "
+                                 f"the reshard to {c['grown']}")
         if r["ring_vs_allgather_max_abs"] > 1e-4:
             raise AssertionError(f"{what}: ring targets "
                                  f"{r['ring_vs_allgather_max_abs']} from "
@@ -3889,19 +3964,29 @@ def phase22_train(torch, np, card) -> dict:
             raise AssertionError(f"{what}: the rounds launched flash "
                                  f"{r['launches']['flash_attention']} "
                                  f"times, fewer than their relabels'")
+        h = r["hop"]
+        for mode in ("dense", "topk"):
+            # K - 1 hops of rows and accumulator, then the home hop
+            want = (K - 1) * h["tokens_bytes"] \
+                + K * h[f"{mode}_accumulator_bytes"]
+            if h[f"ring_{mode}_sent"] != want:
+                raise AssertionError(f"{what}: the {mode} ring sent "
+                                     f"{h[f'ring_{mode}_sent']} bytes, "
+                                     f"want {want}")
     emit({"phase": 22, "part": "b", "card": card, "arch": "gemma3-1b",
           "dtype": "bfloat16", "n_layers": c["n_layers"], "members": K,
-          "ranks": len(ranks),
+          "data_ranks": D, "ranks": len(ranks),
           "backend": r0["backend"], "protocol": "ring",
           "batch_per_member": c["batch"], "seq_len": c["seq_len"],
-          "per_member": c["per_member"], "relabel_sequences": n,
+          "per_member": c["per_member"], "relabel_sequences_a_rank": n,
           "tau": c["tau"], "p_steps": c["p_steps"], "rounds": c["rounds"],
           "label_modes": ["dense"] * c["dense_rounds"]
           + ["topk"] * (c["rounds"] - c["dense_rounds"]),
           "top_m": c["top_m"], "world_s": world_s,
           "flash_formula": {
               "ring": f"{L} layers x {K} batches x ceil({n} / {rows}) "
-                      f"chunks = {ring_want} a rank",
+                      f"chunks = {ring_want} a rank ({n} rows: its share "
+                      f"of a member's relabel rows over {D} data ranks)",
               "allgather": f"{L} layers x ceil({K} x {n} / {rows}) "
                            f"chunks = {ag_want} a rank"},
           "distill_formula": f"({c['rounds']} rounds - 1) x "
@@ -3910,6 +3995,7 @@ def phase22_train(torch, np, card) -> dict:
           "round_loss": r0["losses"], "evaluate": r0["evals"],
           "jensen_gap": [e["local_loss"] - e["global_loss"]
                          for e in r0["evals"]],
+          "replicas_bitwise_equal": True,
           "ring_vs_allgather_max_abs": [r["ring_vs_allgather_max_abs"]
                                         for r in ranks],
           "relabel_s": {k: [r["relabel"][k]["s"] for r in ranks]
@@ -3921,9 +4007,20 @@ def phase22_train(torch, np, card) -> dict:
           "step_idle_share": [1.0 - r["step_busy_ms"]
                               / sorted(r["step_host_ms"])[1]
                               for r in ranks],
+          "grown": {"members": c["grown"], "protocol": "allgather",
+                    "reshard_s": [r["grown"]["reshard_s"] for r in ranks],
+                    "round_loss": r0["grown"]["loss"],
+                    "evaluate": r0["grown"]["eval"],
+                    "jensen_gap": r0["grown"]["eval"]["local_loss"]
+                    - r0["grown"]["eval"]["global_loss"]},
           "launches_per_rank": [r["launches"] for r in ranks],
+          "max_memory_allocated_before_reshard": [
+              r["max_memory_allocated_before_reshard"] for r in ranks],
           "max_memory_allocated": [r["max_memory_allocated"]
                                    for r in ranks]})
+    global RING_TOPK_SENT
+    RING_TOPK_SENT = {"bytes": r0["hop"]["ring_topk_sent"], "rows": n,
+                      "seq_len": r0["seq_len"], "members": K}
     return r0["launches"]
 
 
@@ -4116,10 +4213,13 @@ def phase23(torch, np, card) -> dict:
 # ---------------------------------------------------------------------------
 
 # gemma3-1b's cells on a (1, 1) mesh, cut to fit one card and the phase's
-# time: (seq_len, batch, layers or None for all 26)
-DRYRUN_CELLS = {"prefill_32k": (32768, 1, None),
-                "decode_32k": (32768, 128, 13),
-                "train_4k": (4096, 1, 6)}
+# time: (shape, variant, seq_len, batch, layers or None for all 26); the
+# relabel step is held by its first part, the score of one chunk (1 row
+# of 4096 tokens: at 262k classes a chunk is one sequence)
+DRYRUN_CELLS = {"prefill_32k": ("prefill_32k", "plain", 32768, 1, None),
+                "decode_32k": ("decode_32k", "plain", 32768, 128, 13),
+                "train_4k": ("train_4k", "plain", 4096, 1, 6),
+                "relabel": ("train_4k", "relabel", 4096, 2, None)}
 DRYRUN_RUNS = 3            # timed runs a cell (the median is reported)
 DRYRUN_SLACK = 1.05        # a bound may exceed the measured time by 5%
 OP_CALLS = 200             # calls a way in the custom op's host timing
@@ -4138,6 +4238,10 @@ def dryrun_real_args(torch, cell, cfg, seed: int = 0):
                              device="cuda", dtype=torch.int32)
 
     k = cell.meta["k"]
+    if cell.step_name == "relabel_step":    # its first part's rows
+        rows = cell.parts[0][3][1]["tokens"].shape[0]
+        return (models.init(cfg, seed=seed, device="cuda", members=1),
+                {"tokens": tokens(rows, shape.seq_len)})
     if shape.kind == "train":
         params = models.init(cfg, seed=seed, device="cuda", members=k)
         moment = cell.args[0]["opt"]["m"]["embed"].dtype
@@ -4188,6 +4292,50 @@ def op_host_us(torch) -> dict:
     return {name: min(v) for name, v in got.items()}
 
 
+RELABEL_PERMUTE = """
+import json, sys
+sys.path.insert(0, {src!r})
+from repro_torch.common.types import ShapeConfig
+from repro_torch.configs import registry
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_mesh
+mesh = make_mesh(({k}, 1), ("data", "model"), "cuda")
+cfg = registry.get_config("gemma3-1b").with_(n_layers={layers})
+rec = dryrun.run_cell("gemma3-1b", "train_4k", False, variant="relabel",
+                      device="cuda", mesh=mesh, cfg=cfg,
+                      shape=ShapeConfig("train_4k", {seq}, {batch}, "train"))
+print("RELABEL_CELL " + json.dumps({{k: rec.get(k) for k in (
+    "status", "error", "traceback", "collective_bytes", "collective_count",
+    "meta", "parts", "trace_s")}}))
+"""
+
+
+def relabel_permute_cell(want: dict) -> dict:
+    """The dry-run's relabel cell at 22b's configuration (K members a rank
+    each along "data", `rows` visiting rows of seq_len tokens, top-64,
+    22b's layers) on a (K, 1) fake world, traced in a child process (a fake
+    world is its process's default group) -> its record."""
+    import json as _json
+    K, n, T = want["members"], want["rows"], want["seq_len"]
+    # m = int(b x 0.7) rows a member: the smallest b giving n
+    b = next(b for b in range(n, 2 * n + 2) if int(b * 0.7) == n)
+    script = RELABEL_PERMUTE.format(src=os.path.join(ROOT, "src"), k=K,
+                                    layers=RING["n_layers"], seq=T,
+                                    batch=K * b)
+    proc = subprocess.run([sys.executable, "-c", script],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"phase 24 relabel cell (22b's shape): "
+                             f"{proc.stderr[-3000:]}")
+    line = next(x for x in proc.stdout.splitlines()
+                if x.startswith("RELABEL_CELL "))
+    rec = _json.loads(line[len("RELABEL_CELL "):])
+    if rec["status"] != "ok":
+        raise AssertionError(f"phase 24 relabel cell (22b's shape): "
+                             f"{rec['error']}\n{rec['traceback']}")
+    return rec
+
+
 def phase24(torch, np, card) -> dict:
     """The dry-run against the card (see the module note).  -> the
     prefill cell's flash launches."""
@@ -4206,33 +4354,47 @@ def phase24(torch, np, card) -> dict:
     setup_s = time.perf_counter() - t0
     mesh = make_test_mesh()
     rows, launches = {}, {}
-    for name, (seq, batch, layers) in DRYRUN_CELLS.items():
+    for name, (shape_name, variant, seq, batch, layers) in \
+            DRYRUN_CELLS.items():
         cfg = registry.get_config("gemma3-1b")
         if layers:
             cfg = cfg.with_(n_layers=layers)
-        shape = ShapeConfig(name, seq, batch, kinds[name])
+        shape = ShapeConfig(shape_name, seq, batch, kinds[shape_name])
         t0 = time.perf_counter()
-        rec = dryrun.run_cell("gemma3-1b", name, False, device="cuda",
-                              mesh=mesh, cfg=cfg, shape=shape)
+        rec = dryrun.run_cell("gemma3-1b", shape_name, False, device="cuda",
+                              mesh=mesh, cfg=cfg, shape=shape,
+                              variant=variant)
         fake_s = time.perf_counter() - t0
         if rec["status"] != "ok":
             raise AssertionError(f"phase 24 {name}: the trace failed: "
                                  f"{rec['error']}\n{rec['traceback']}")
         with FakeTensorMode():   # the cell's step and specs, not its inputs
-            cell = build_cell("gemma3-1b", name, mesh, False, device="cuda",
-                              cfg=cfg, shape=shape)
+            cell = build_cell("gemma3-1b", shape_name, mesh, False,
+                              device="cuda", cfg=cfg, shape=shape,
+                              variant=variant)
+            fn, want = cell.fn, rec
+            if variant == "relabel":     # its first part, traced alone
+                part, count, fn, fake_args = cell.parts[0]
+                _, fake = cost_analysis.analyze(fn, *fake_args)
+                terms = dryrun.roofline(fake, 1, 0.0)
+                want = {"flops_per_dev": fake.flops,
+                        "flops_executed_per_dev": fake.flops_executed,
+                        "hbm_bytes_per_dev": fake.hbm_bytes,
+                        "bytes_per_device": fake.peak_bytes,
+                        "dominant": terms["dominant"],
+                        "kernel_calls": fake.kernel_calls, **terms}
         args = dryrun_real_args(torch, cell, cfg)
         torch.cuda.synchronize()
         fa.flash_attention.launches = 0
         # once under the accounting (its ops run for real), then timed
-        _, real = cost_analysis.analyze(cell.fn, *args)
+        _, real = cost_analysis.analyze(fn, *args)
         times = []
         torch.cuda.reset_peak_memory_stats()
         for _ in range(DRYRUN_RUNS):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            cell.fn(*args)
+            fn(*args)
             end.record()
             torch.cuda.synchronize()
             times.append(start.elapsed_time(end))
@@ -4241,25 +4403,31 @@ def phase24(torch, np, card) -> dict:
         calls = 1 + DRYRUN_RUNS
         launches[name] = fa.flash_attention.launches
         ms = float(np.median(times))
-        bound_ms = max(rec["t_compute_s"], rec["t_memory_s"]) * 1e3
-        row = {"fake_flops": rec["flops_per_dev"], "real_flops": real.flops,
-               "fake_flops_executed": rec["flops_executed_per_dev"],
+        bound_ms = max(want["t_compute_s"], want["t_memory_s"]) * 1e3
+        row = {"fake_flops": want["flops_per_dev"], "real_flops": real.flops,
+               "fake_flops_executed": want["flops_executed_per_dev"],
                "real_flops_executed": real.flops_executed,
-               "fake_hbm_bytes": rec["hbm_bytes_per_dev"],
+               "fake_hbm_bytes": want["hbm_bytes_per_dev"],
                "real_hbm_bytes": real.hbm_bytes,
-               "predicted_peak_bytes": rec["bytes_per_device"],
+               "predicted_peak_bytes": want["bytes_per_device"],
                "real_trace_peak_bytes": real.peak_bytes,
                "max_memory_allocated": peak,
-               "t_compute_ms": rec["t_compute_s"] * 1e3,
-               "t_memory_ms": rec["t_memory_s"] * 1e3,
+               "t_compute_ms": want["t_compute_s"] * 1e3,
+               "t_memory_ms": want["t_memory_s"] * 1e3,
                "bound_ms": bound_ms, "measured_ms": ms, "runs_ms": times,
                "bound_over_measured": bound_ms / ms,
-               "dominant": rec["dominant"], "fake_s": fake_s,
+               "dominant": want["dominant"], "fake_s": fake_s,
                "real_s": real_s,
-               "kernel_calls": rec["kernel_calls"],
+               "kernel_calls": want["kernel_calls"],
                "flash_launches": launches[name], "calls": calls,
                "cuts": {"seq_len": seq, "batch": batch,
                         "layers": cfg.n_layers}}
+        if variant == "relabel":
+            row.update(part=part, count=count,
+                       chunk_rows=args[1]["tokens"].shape[0],
+                       cell_flops_per_dev=rec["flops_per_dev"],
+                       cell_parts=rec["parts"],
+                       cell_kernel_calls=rec["kernel_calls"])
         rows[name] = row
         del args, cell, real
         torch.cuda.empty_cache()
@@ -4271,15 +4439,44 @@ def phase24(torch, np, card) -> dict:
             raise AssertionError(f"phase 24 {name}: the roofline bound "
                                  f"{bound_ms:.3f} ms exceeds the measured "
                                  f"{ms:.3f} ms by more than 5%: {row}")
-        if kinds[name] == "prefill" and \
+        if (kinds[shape_name] == "prefill" or variant == "relabel") and \
                 launches[name] != cfg.n_layers * calls:
             raise AssertionError(f"phase 24 {name}: {launches[name]} flash "
                                  f"launches, want {cfg.n_layers} layers x "
                                  f"{calls} calls")
+    # the ring's permute bytes at 22b's configuration against 22b's own
+    # (its rows a rank, its members, top-64); where phase 22 did not run
+    # in this process, against the bytes its ring sends by construction
+    sent = RING_TOPK_SENT
+    source = "22b measured"
+    if sent is None:
+        T, K = RING["seq_len"], RING["members"]
+        n = int(RING["per_member"] * RING["relabel"]) // RING["data_ranks"]
+        sent = {"rows": n, "seq_len": T, "members": K,
+                "bytes": (K - 1) * n * T * 4
+                + K * n * T * (RING["top_m"] * 8 + 4)}
+        source = "22b's formula (phase 22 not run)"
+    t0 = time.perf_counter()
+    cell = relabel_permute_cell(sent)
+    permute = {"dryrun_bytes": cell["collective_bytes"].get(
+                   "collective-permute", 0.0),
+               "dryrun_count": cell["collective_count"].get(
+                   "collective-permute", 0),
+               "ring_bytes": sent["bytes"], "against": source,
+               "rows": sent["rows"], "seq_len": sent["seq_len"],
+               "members": sent["members"], "parts": cell["parts"],
+               "trace_s": cell["trace_s"],
+               "child_s": time.perf_counter() - t0}
+    if permute["dryrun_bytes"] != sent["bytes"]:
+        raise AssertionError(f"phase 24: the dry-run's permute bytes "
+                             f"{permute['dryrun_bytes']} differ from the "
+                             f"ring's {sent['bytes']} ({source})")
     host_us = op_host_us(torch)
     emit({"phase": 24, "card": card, "setup_s": setup_s, "cells": rows,
+          "relabel_permute": permute,
           "flash_host_us_per_call": host_us})
-    return {"prefill": launches["prefill_32k"]}
+    return {"prefill": launches["prefill_32k"],
+            "relabel": launches["relabel"]}
 
 
 def main() -> int:
@@ -4395,6 +4592,7 @@ def main() -> int:
                 out[path] = n[kernel]
         if kernel == "flash_attention":
             out["gemma3-1b dryrun prefill"] = dryrun_launches["prefill"]
+            out["gemma3-1b dryrun relabel"] = dryrun_launches["relabel"]
         return out
 
     def by_shape(rows):

@@ -196,10 +196,18 @@ def ppermute(x: torch.Tensor, mesh, axis: str, shift: int = 1
              ) -> torch.Tensor:
     """x sent to the rank `shift` places on along `axis` (cyclically),
     and the one `shift` places back received: the JAX package's ppermute
-    with perm [(i, (i + shift) % n)]."""
+    with perm [(i, (i + shift) % n)].  On a world of ranks a pair of
+    point-to-point calls; on the dry-run's fake world (a fake tensor, or
+    a DTensor of fake shards over a member's own mesh) a functional
+    collective (an all_to_all_single with one peer each way), which the
+    accounting reads as a collective-permute.  `ppermute.bytes` counts
+    the bytes sent."""
     n = axis_size(mesh, axis)
     if n == 1:
         return x.clone()
+    ppermute.bytes += x.numel() * x.element_size()
+    if is_dtensor(x) or _is_fake(x):
+        return _permute_functional(x, mesh, axis, shift)
     group = mesh.get_group(axis)
     me = axis_index(mesh, axis)
     buf, staged = _staged(x, group)
@@ -213,6 +221,34 @@ def ppermute(x: torch.Tensor, mesh, axis: str, shift: int = 1
     return _home(recv, x, staged)
 
 
+ppermute.bytes = 0
+
+
+def _is_fake(x: torch.Tensor) -> bool:
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(x, FakeTensor)
+
+
+def _permute_functional(x: torch.Tensor, mesh, axis: str, shift: int):
+    """ppermute by torch's functional permute over `axis`'s group, on x
+    or, for a DTensor, on its local shard (same layout after)."""
+    from torch.distributed import _functional_collectives as funcol
+    n = axis_size(mesh, axis)
+    local = x.to_local() if is_dtensor(x) else x
+    # flat: permute_tensor's splits count elements, all_to_all_single's
+    # rows of dim 0
+    out = funcol.permute_tensor(local.reshape(-1),
+                                [(i + shift) % n for i in range(n)],
+                                mesh.get_group(axis))
+    out = funcol.wait_tensor(out).view(local.shape)
+    if not is_dtensor(x):
+        return out
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(out, x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
 def all_gather(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """(n, *x.shape): every rank's x along `axis`, in rank order."""
     group = mesh.get_group(axis)
@@ -220,6 +256,18 @@ def all_gather(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     parts = [torch.empty_like(buf) for _ in range(axis_size(mesh, axis))]
     dist.all_gather(parts, buf, group=group)
     return _home(torch.stack(parts), x, staged)
+
+
+def gather_all_rows(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Every rank's (K/M, ...) rows along `axis` as the global (K, ...)
+    stack, on every rank: on the host under gloo (nothing K-sized lands
+    on the card), on x's device under NCCL."""
+    group = mesh.get_group(axis)
+    if dist.get_backend(group) == "gloo":
+        x = x.cpu()
+    parts = [torch.empty_like(x) for _ in range(axis_size(mesh, axis))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts)
 
 
 def reduce_scatter(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:

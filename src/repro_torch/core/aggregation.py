@@ -26,11 +26,13 @@ allgather_relabel: every member scores every member's relabel batch and
 ring_relabel: the JAX package's ring, with data moving instead of
   weights.  Each rank holds one member and its relabel batch; it scores
   its own batch, then K-1 hops each pass (batch, accumulator) to the
-  next rank along the axis (sharding.ppermute) and merge the visiting
-  batch's score into the accumulator, and one last hop brings each
-  accumulator home.  Dense accumulators add; top-M ones merge
-  (compression.merge of from_dense's candidates).  A hop
-  moves the batch's tokens and the accumulator, never weights.
+  next rank along the axis (ring_hop: sharding.ppermute) and merge
+  (ring_merge) the visiting batch's score (ring_score) into the
+  accumulator, and one last hop brings each accumulator home.  Dense
+  accumulators add; top-M ones merge (compression.merge of
+  from_dense's candidates).  A hop moves the batch's rows and the
+  accumulator, never weights.  The dry-run (launch/specs.py) accounts
+  the ring by tracing those three functions on DTensors.
 
 ma_aggregate: parameter mean over the member axis (MA-DNN), an
   all-reduce over a mesh; psum_gradients: the sync-SGD baseline's
@@ -197,6 +199,60 @@ def _allgather_relabel_mesh(params, batches, logits_fn, ec, quorum, n_out,
     return tree_map(lambda o: o.reshape(Kl, n, *o.shape[1:]), res)
 
 
+def _softmax(x: torch.Tensor) -> torch.Tensor:
+    """softmax over the last dim.  Over a DTensor (the dry-run's logits,
+    the vocabulary split over "model") by its two reductions, so that
+    only the row maxima and sums cross ranks, as in XLA's sharded
+    softmax, not the logits."""
+    if not shd.is_dtensor(x):
+        return torch.softmax(x, dim=-1)
+    e = torch.exp(x - x.amax(-1, keepdim=True))
+    return e / e.sum(-1, keepdim=True)
+
+
+@torch.no_grad()
+def ring_score(stacked_params, visiting: dict, logits_fn: Callable,
+               ec: ECConfig, weight: float = 1.0, *, n_out: int,
+               pooled: bool = False, row_floats: int = 0):
+    """A ring hop's work on one rank: its one member (stacked_params
+    with a leading 1) scores the visiting rows {name: (n, ...)}, a chunk
+    at a time (stream_logits) -> its output times `weight` (its quorum
+    entry), dense (n, ..., V) probs (or logits, average_probs=False) or
+    a TopM.  The top-M is taken per vocabulary shard where the logits
+    are a DTensor split over "model" (compression.from_dense_sharded;
+    from_dense on one shard)."""
+    n = tree_leaves(visiting)[0].shape[0]
+    acc = None
+    for sl, _, logits in stream_logits(stacked_params, visiting, logits_fn,
+                                       n_out,
+                                       pool_rows=n if pooled else None,
+                                       row_floats=row_floats):
+        lg = logits.float()
+        out = (_softmax(lg) if ec.average_probs else lg) * weight
+        if ec.label_mode == "topk":
+            out = comp.from_dense_sharded(out, ec.top_m,
+                                          shd.mesh_axis_size("model", out))
+        if sl.start == 0 and sl.stop >= n:      # one chunk: no copy
+            return out
+        if acc is None:
+            acc = tree_map(lambda x: x.new_empty((n, *x.shape[1:])), out)
+        tree_map(lambda a, x: a[sl].copy_(x), acc, out)
+    return acc
+
+
+def ring_merge(acc, part, ec: ECConfig):
+    """Fold a hop's score into the accumulator: a sum of dense outputs
+    (in place), a merge of TopMs."""
+    return comp.merge(acc, part) if ec.label_mode == "topk" \
+        else acc.add_(part)
+
+
+def ring_hop(tree, mesh, axis: str):
+    """Every tensor of `tree` (the visiting batch, an accumulator) passed
+    to the next rank along `axis` (sharding.ppermute)."""
+    return tree_map(lambda x: shd.ppermute(x, mesh, axis), tree)
+
+
 @torch.no_grad()
 def ring_relabel(mesh, stacked_params, batches: dict, logits_fn: Callable,
                  ec: ECConfig, axis: str = "data",
@@ -207,7 +263,8 @@ def ring_relabel(mesh, stacked_params, batches: dict, logits_fn: Callable,
     pseudo-labels with a leading 1, dense or TopM as allgather_relabel.
     quorum: the global (K,) 0/1 mask (None: every member); the sum
     divides by max(sum(quorum), 1).  Raises unless the axis holds one
-    member a rank (its size is K)."""
+    member a rank (its size is K).  A hop is ring_hop, ring_score,
+    ring_merge: the dry-run accounts the ring by the same three."""
     if tree_leaves(stacked_params)[0].shape[0] != 1:
         raise ValueError(
             f"ring_relabel holds one member a rank, but this rank holds "
@@ -219,41 +276,17 @@ def ring_relabel(mesh, stacked_params, batches: dict, logits_fn: Callable,
         raise ValueError(f"quorum has {quorum.shape[0]} entries, the ring "
                          f"{K} members")
     w_me = 1.0 if quorum is None else float(quorum[me])
-    topk = ec.label_mode == "topk"
-    batch = {name: v[0] for name, v in batches.items()}
-    n = tree_leaves(batch)[0].shape[0]
-
-    def score(visiting: dict):
-        """The member's weighted output on a visiting batch, dense (n,
-        ..., V) or TopM, a chunk of rows at a time."""
-        acc = None
-        for sl, _, logits in stream_logits(stacked_params, visiting,
-                                           logits_fn, n_out,
-                                           pool_rows=n if pooled else None,
-                                           row_floats=row_floats):
-            lg = logits.float()
-            out = (torch.softmax(lg, dim=-1) if ec.average_probs else lg) \
-                * w_me
-            if topk:
-                out = comp.from_dense(out, ec.top_m)
-            if acc is None:
-                acc = tree_map(lambda x: x.new_empty((n, *x.shape[1:])),
-                               out)
-            tree_map(lambda a, x: a[sl].copy_(x), acc, out)
-        return acc
-
-    def merge(acc, part):
-        return comp.merge(acc, part) if topk else acc.add_(part)
-
-    hop = lambda tree: tree_map(  # noqa: E731
-        lambda x: shd.ppermute(x, mesh, axis), tree)
-    acc = score(batch)
+    # the rows travel without their labels: no member reads them
+    batch = {name: v[0] for name, v in batches.items() if name != "labels"}
+    kw = dict(n_out=n_out, pooled=pooled, row_floats=row_floats)
+    acc = ring_score(stacked_params, batch, logits_fn, ec, w_me, **kw)
     for _ in range(K - 1):
-        batch, acc = hop(batch), hop(acc)
-        acc = merge(acc, score(batch))
-    acc = hop(acc)                                  # home
+        batch, acc = ring_hop((batch, acc), mesh, axis)
+        acc = ring_merge(acc, ring_score(stacked_params, batch, logits_fn,
+                                         ec, w_me, **kw), ec)
+    acc = ring_hop(acc, mesh, axis)                    # home
     denom = float(K) if quorum is None else max(float(quorum.sum()), 1.0)
-    if topk:
+    if ec.label_mode == "topk":
         return comp.TopM(*[x[None] for x in comp.scale(acc, 1.0 / denom)])
     return (acc / denom)[None]
 

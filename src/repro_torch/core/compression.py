@@ -42,12 +42,12 @@ def from_dense_sharded(probs: torch.Tensor, m: int, n_shards: int,
     takes it over a vocabulary split n_shards ways: the M heaviest of
     each of n_shards equal slices of V, then the M heaviest of those
     n_shards * M candidates.  The global top M always lie among the
-    slices' own, so the result is from_dense's (which it falls back to
-    where V does not split evenly or a slice holds fewer than M).  Over
+    slices' own, so the result is from_dense's (which it is, where V does not split evenly or where a slice holds
+    fewer than M).  Over
     a DTensor the slice dim is pinned to `shard_axis`, so each shard's
     top-M is local and only the candidates cross ranks."""
     V = probs.shape[-1]
-    if V % n_shards or V // n_shards < m:
+    if n_shards == 1 or V % n_shards or V // n_shards < m:
         return from_dense(probs, m)
     vs = V // n_shards
     p = constrain(probs.reshape(*probs.shape[:-1], n_shards, vs),

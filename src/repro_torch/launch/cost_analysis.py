@@ -20,7 +20,10 @@ local tensors:
     issue, by kind, with hlo_analysis's convention that an all-reduce
     counts twice its bytes (a ring moves each byte out and back);
     all-gather, reduce-scatter and all-to-all count their output; each
-    also by the link its process group takes (launch/mesh.py);
+    also by the link its process group takes (launch/mesh.py); an
+    all_to_all_single with one peer each way is the ring's
+    collective-permute (common/sharding.ppermute), counted by its
+    output as the reference counts one;
   - peak_bytes: the most bytes of tensor storage alive at once, the
     step's inputs included (the reference's memory_analysis: arguments
     + temporaries + outputs - aliases);
@@ -87,6 +90,29 @@ def _bytes(t: torch.Tensor) -> int:
         if stride:
             n *= size
     return n
+
+
+_TIMES = [1]   # how many times each op now traced counts (repeated)
+
+
+@contextlib.contextmanager
+def repeated(n: int):
+    """Count every op run inside the block n times (FLOPs, bytes,
+    collectives, ops, kernel calls; not the peak): a loop whose steps
+    are alike, traced one step for all (models/ssm's Mamba step loop in
+    the dry-run), as the reference's HLO runs one scan body."""
+    old = _TIMES[0]
+    _TIMES[0] = old * n
+    try:
+        yield
+    finally:
+        _TIMES[0] = old
+
+
+def _one_peer(splits) -> bool:
+    """Does an all_to_all_single's split list send to (or receive from)
+    one rank only, as a permute does?"""
+    return sum(1 for x in splits if x) == 1
 
 
 def _executed() -> dict:
@@ -182,24 +208,26 @@ class CostMode(TorchDispatchMode):
         ns = func.namespace
         outs = [t for t in tree_flatten(out)[0]
                 if isinstance(t, torch.Tensor)]
-        self.c.n_ops += 1
+        n = _TIMES[0]
+        self.c.n_ops += n
         for t in outs:
             if t._base is None:
                 self._track(t)
         if ns == "repro_torch":
-            self.c.kernel_calls[name] = self.c.kernel_calls.get(name, 0) + 1
+            self.c.kernel_calls[name] = self.c.kernel_calls.get(name, 0) + n
         packet = func._overloadpacket
         if packet in flop_registry:
-            fl = float(flop_registry[packet](*args, **kwargs, out_val=out))
+            fl = n * float(flop_registry[packet](*args, **kwargs,
+                                                 out_val=out))
             ex = _executed().get(func)
             self.c.flops += fl
-            self.c.flops_executed += float(ex(*args, **kwargs)) if ex \
+            self.c.flops_executed += n * float(ex(*args, **kwargs)) if ex \
                 else fl
             self._flops[self._desc(name, flat)] += fl
         if name in _COLL and ns == "_c10d_functional":
-            self._collective(name, args, flat, outs)
+            self._collective(name, args, flat, outs, n)
             return
-        b = self._moved(func, name, args, flat, outs)
+        b = n * self._moved(func, name, args, flat, outs)
         if b:
             self.c.hbm_bytes += b
             self._bytes[self._desc(name, flat)] += b
@@ -227,15 +255,18 @@ class CostMode(TorchDispatchMode):
             return 2 * written + idx
         return sum(_bytes(t) for t in ins) + written
 
-    def _collective(self, name, args, flat, outs) -> None:
+    def _collective(self, name, args, flat, outs, n: int = 1) -> None:
         kind, by_out = _COLL[name]
+        if name == "all_to_all_single" and _one_peer(args[1]) \
+                and _one_peer(args[2]):
+            kind = "collective-permute"     # sharding.ppermute's
         ts = outs if by_out else [a for a in flat
                                   if isinstance(a, torch.Tensor)]
-        b = float(sum(_bytes(t) for t in ts))
+        b = n * float(sum(_bytes(t) for t in ts))
         if kind == "all-reduce":
             b *= 2.0
         self.c.collective_bytes[kind] += b
-        self.c.collective_count[kind] += 1
+        self.c.collective_count[kind] += n
         # a functional collective's group name is its last str argument;
         # a group of no mesh dim counts as crossing nodes
         group = next((a for a in reversed(flat) if isinstance(a, str)),
@@ -316,3 +347,34 @@ def analyze(fn: Callable, *args, links: Dict[str, str] = None,
     with _uncounted_shadow(mode), mode:
         out = fn(*args, **kwargs)
     return out, mode.finish(collect_top)
+
+
+def combine(parts, collect_top: int = 6) -> Costs:
+    """The costs of a step traced in parts, [(Costs, times it runs)]:
+    FLOPs, bytes, collectives, ops and kernel calls summed (each part
+    times its count), the peak the largest part's (each part's trace
+    holds what is alive beside it: its inputs).  The top lists merge
+    the parts' own tops, scaled."""
+    out = Costs()
+    tops = {"top_flops": defaultdict(float), "top_bytes": defaultdict(float),
+            "top_coll": defaultdict(float)}
+    for c, n in parts:
+        out.flops += n * c.flops
+        out.flops_executed += n * c.flops_executed
+        out.hbm_bytes += n * c.hbm_bytes
+        out.n_ops += n * c.n_ops
+        out.peak_bytes = max(out.peak_bytes, c.peak_bytes)
+        for kind in COLLECTIVES:
+            out.collective_bytes[kind] += n * c.collective_bytes[kind]
+            out.collective_count[kind] += n * c.collective_count[kind]
+        for link, b in c.link_bytes.items():
+            out.link_bytes[link] = out.link_bytes.get(link, 0.0) + n * b
+        for name, k in c.kernel_calls.items():
+            out.kernel_calls[name] = out.kernel_calls.get(name, 0) + n * k
+        for key, acc in tops.items():
+            for desc, v in getattr(c, key):
+                acc[desc] += n * v
+    for key, acc in tops.items():
+        setattr(out, key, sorted(acc.items(),
+                                 key=lambda kv: -kv[1])[:collect_top])
+    return out

@@ -32,6 +32,13 @@ Usage:
   python -m repro_torch.launch.dryrun --all --multi-pod --out results.json
   python -m repro_torch.launch.dryrun --arch gemma3-1b --shape train_4k \\
       --variant distill
+  python -m repro_torch.launch.dryrun --variant relabel   # every train_4k
+
+--variant relabel accounts the EC round's ring relabel step of each
+train_4k cell (launch/specs.build_relabel_cell): K scores of m visiting
+rows a member, K - 1 top-M merges, the hops' collective-permutes.  A
+train cell of accum > 1 microbatches is traced a microbatch and the
+update apart (specs.train_parts) and summed.
 """
 from __future__ import annotations
 
@@ -48,15 +55,29 @@ from repro_torch.common.types import SHAPES, ModelConfig, ShapeConfig
 
 def flops_model(arch: str, shape_name: str,
                 cfg: Optional[ModelConfig] = None,
-                shape: Optional[ShapeConfig] = None) -> float:
+                shape: Optional[ShapeConfig] = None,
+                scored_tokens: int = 0) -> float:
     """MODEL_FLOPS = 6*N*D (dense) / 6*N_active*D (MoE), D = tokens
-    processed per step; decode steps process one token per sequence."""
-    from repro_torch import models
-    from repro_torch.common.sharding import leaf_name
-    from repro_torch.common.tree import tree_map_with_path
+    processed per step; decode steps process one token per sequence.
+    scored_tokens: a relabel step's forward passes, 2*N_active for each
+    token every member scores (all the mesh's members together)."""
     from repro_torch.configs import registry
     cfg = cfg or registry.get_config(arch)
     shape = shape or SHAPES[shape_name]
+    if scored_tokens:
+        return 2.0 * active_params(cfg) * scored_tokens
+    tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode"
+                                   else 1)
+    mult = 3.0 if shape.kind == "train" else 1.0  # fwd+bwd vs fwd
+    return 2.0 * active_params(cfg) * tokens * mult
+
+
+def active_params(cfg: ModelConfig) -> float:
+    """Parameters a token's forward multiplies: the experts' share of
+    them by top_k / n_experts, the untied embedding (a lookup) not."""
+    from repro_torch import models
+    from repro_torch.common.sharding import leaf_name
+    from repro_torch.common.tree import tree_map_with_path
     params = models.init(cfg, device="meta")
     active = 0.0
 
@@ -72,10 +93,7 @@ def flops_model(arch: str, shape_name: str,
             active += n
 
     tree_map_with_path(add, params)
-    tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode"
-                                   else 1)
-    mult = 3.0 if shape.kind == "train" else 1.0  # fwd+bwd vs fwd
-    return 2.0 * active * tokens * mult
+    return active
 
 
 def roofline(costs, chips: int, model_flops: float) -> dict:
@@ -99,7 +117,9 @@ def roofline(costs, chips: int, model_flops: float) -> dict:
 
 def trace_cell(cell, mesh):
     """Run a cell's step once on its fake inputs under the accounting ->
-    (its output, Costs).  Call under the FakeTensorMode that made them."""
+    (its output, Costs).  Call under the FakeTensorMode that made them.
+    A cell given in parts (specs.Cell.parts) traces each part once and
+    sums their costs, each times its count (cost_analysis.combine)."""
     import contextlib
 
     from repro_torch.launch import cost_analysis
@@ -108,8 +128,16 @@ def trace_cell(cell, mesh):
             from torch.distributed.tensor.experimental import \
                 implicit_replication
             ctx.enter_context(implicit_replication())
-        return cost_analysis.analyze(cell.fn, *cell.args,
-                                     links=mesh.links())
+        if cell.parts is None:
+            return cost_analysis.analyze(cell.fn, *cell.args,
+                                         links=mesh.links())
+        out, costs = None, []
+        for _, count, fn, args in cell.parts:
+            out, c = cost_analysis.analyze(
+                fn, *(args if args is not None else (out,)),
+                links=mesh.links())
+            costs.append((c, count))
+        return out, cost_analysis.combine(costs)
 
 
 _MESHES: dict = {}
@@ -162,11 +190,14 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         t_trace = time.time() - t0 - t_build
         held = state_bytes(cell, mesh)
         terms = roofline(costs, mesh.size, flops_model(
-            arch, shape_name, cfg, cell.shape))
+            arch, shape_name, cfg, cell.shape,
+            cell.meta.get("scored_tokens", 0)))
         rec.update({
             "status": "ok", "step": cell.step_name,
             "meta": {k: str(v) for k, v in cell.meta.items()
                      if k not in ("state_specs", "state_meta")},
+            "parts": [[name, count] for name, count, _, _ in
+                      cell.parts or ()],
             "build_s": round(t_build, 1), "trace_s": round(t_trace, 1),
             "bytes_per_device": int(costs.peak_bytes),
             "state_bytes_per_device": held,
@@ -279,6 +310,8 @@ def main(argv=None) -> int:
         shapes = [args.shape] if args.shape else list(SHAPES)
         archs = [args.arch] if args.arch else list(registry.LM_ARCH_IDS)
         cells = [(a, s) for a in archs for s in shapes]
+    if args.variant == "relabel":   # a training cell's aggregation step
+        cells = [(a, s) for a, s in cells if SHAPES[s].kind == "train"]
 
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
     world = 512 if True in meshes else 256

@@ -20,9 +20,11 @@ def fmt_row(r) -> str:
         return (f"| {r['arch']} | {r['shape']} | — | — | — | — | FAIL |"
                 f" {r['error'][:60]} | — |")
     tc, tm, tl = r["t_compute_s"], r["t_memory_s"], r["t_collective_s"]
+    shape = r["shape"] + ("[relabel]" if r.get("variant") == "relabel"
+                          else "")
     return ("| {arch} | {shape} | {gib:.1f}{fit} | {tc:.3g} | {tm:.3g} | "
             "{tl:.3g} | {dom} | {ratio:.2f} | {s:.0f} |").format(
-        arch=r["arch"], shape=r["shape"],
+        arch=r["arch"], shape=shape,
         gib=r["bytes_per_device"] / 2 ** 30,
         fit="" if r["fits_hbm"] else "!",
         tc=tc, tm=tm, tl=tl, dom=r["dominant"],

@@ -12,9 +12,20 @@ For every cell this module builds
 Step per shape kind:
   train_4k     the EC local-training step over member-stacked state
                (plain CE; the distill variant takes top-64 TopM
-               pseudo-labels; the relabel variant, the JAX package's
-               ring relabel step, is not traced yet: the port's ring is
-               a per-rank program of point-to-point sends);
+               pseudo-labels).  A step of accum > 1 microbatches is
+               traced in pieces (its first microbatch, a later one
+               counted accum - 1 times, the optimizer's update), as the
+               reference compiles one scan body.  The relabel variant is
+               the JAX package's ring relabel step: one member a rank of
+               the ensemble axis scores m = int(b x relabel_fraction)
+               visiting rows over its own mesh (the "model" axis; the
+               whole mesh where K = 1) through the forward-only route
+               and the flash op, merges the top-64 candidates and passes
+               rows and accumulator on (a collective-permute), traced a
+               piece each (aggregation.ring_score / ring_merge /
+               ring_hop, the Trainer's own) and counted as the ring runs
+               them: K scores, K - 1 merges and batch hops, K
+               accumulator hops (the last one home);
   prefill_32k  transformer.prefill: single-model forward, last-token
                logits;
   decode_*     one token against a seq_len cache: the port's contiguous
@@ -31,7 +42,7 @@ do not.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -276,12 +287,17 @@ def abstract_tree(tree: Any, specs: Any, mesh, device: str,
 
 @dataclasses.dataclass
 class Cell:
+    """fn(*args) is the step.  parts, where given, is the step traced
+    in pieces, [(name, times it runs, fn, args)]: fn(*args), or, where
+    args is None, fn(the previous piece's output); the accounting sums
+    them (cost_analysis.combine)."""
     arch: str
     shape: ShapeConfig
     step_name: str
-    fn: Callable
-    args: Tuple
+    fn: Optional[Callable]
+    args: Optional[Tuple]
     meta: Dict[str, Any]
+    parts: Optional[List[Tuple[str, int, Callable, Optional[Tuple]]]] = None
 
 
 def train_state_meta(cfg: ModelConfig, arch: str, k: int,
@@ -311,16 +327,20 @@ def build_train_cell(arch: str, mesh, multi_pod: bool,
                      variant: str = "plain", ec: Optional[ECConfig] = None,
                      device: str = "cuda", cfg: Optional[ModelConfig] = None,
                      shape: Optional[ShapeConfig] = None) -> Cell:
-    """variant: plain | distill | relabel.  Call under the FakeTensorMode
-    the step will run in.  cfg / shape replace the registry's (a test's
-    reduced cell)."""
+    """variant: plain | distill (the local step) | relabel (the ring's
+    step, build_relabel_cell).  Call under the FakeTensorMode the step
+    will run in.  cfg / shape replace the registry's (a test's reduced
+    cell)."""
     from repro_torch.runtime import steps
     shape = shape or SHAPES["train_4k"]
     cfg = cfg or registry.get_config(arch)
+    ec = ec or ECConfig(label_mode="topk", top_m=64)
+    if variant == "relabel":
+        return build_relabel_cell(arch, mesh, multi_pod, ec, device, cfg,
+                                  shape)
     par = filter_par(registry.parallel_policy(arch, shape, multi_pod), mesh)
     k = ensemble_k(arch, mesh, par)
     b = shape.global_batch // k
-    ec = ec or ECConfig(label_mode="topk", top_m=64)
     accum = _grad_accum(arch, shape, mesh, k, par, cfg)
     metas, s_spec, opt = train_state_meta(cfg, arch, k, par, mesh)
     state = abstract_tree(metas, s_spec, mesh, device)
@@ -328,23 +348,13 @@ def build_train_cell(arch: str, mesh, multi_pod: bool,
     meta = {"k": k, "per_member": b, "accum": accum, "par": par,
             "state_specs": s_spec, "state_meta": metas}
 
-    if variant == "relabel":
-        # the port's ring is a per-rank program of point-to-point sends
-        # (common/sharding.ppermute over one member a rank), which neither
-        # takes the dry-run's member-stacked DTensors nor dispatches its
-        # sends as ops the accounting could read
-        raise NotImplementedError(
-            "the relabel variant: aggregation.ring_relabel is a per-rank "
-            "program (one member a rank, point-to-point sends); the dry-run "
-            "does not trace it yet")
-
     batch = abstract_tree(_lm_batch(cfg, k, b, shape.seq_len), b_pspec, mesh,
                           device)
     step = steps.make_local_step(cfg, opt, par=par, grad_accum=accum)
     if variant == "plain":
         return Cell(arch, shape, "train_step[plain]",
                     lambda s, bb: step(s, bb, None, 0.0), (state, batch),
-                    meta)
+                    meta, train_parts(step, (state, batch), 0.0, accum))
     from repro_torch.core.compression import TopM
     ens = par.ensemble_axis or None
     ba = tuple(par.batch_axes) or None
@@ -357,7 +367,147 @@ def build_train_cell(arch: str, mesh, multi_pod: bool,
                            device))
     return Cell(arch, shape, "train_step[distill]",
                 lambda s, bb, ps: step(s, bb, ps, 0.25),
-                (state, batch, pseudo), meta)
+                (state, batch, pseudo), meta,
+                train_parts(step, (state, batch, pseudo), 0.25, accum))
+
+
+def train_parts(step, args: Tuple, lam: float, accum: int):
+    """A local step of accum > 1 microbatches (steps.make_local_step) as
+    pieces: the loop's first body (it makes the f32 accumulators), a
+    later body (run accum - 1 times) and the mean with the optimizer's
+    update, each fed the previous one's output.  None where accum is 1
+    (one trace of the whole step)."""
+    if accum <= 1:
+        return None
+    grads = step.member_grads
+
+    def body(i):
+        def fn(prev):
+            state, batch, pseudo, acc, loss = (tuple(prev) + (None,) * 3)[:5]
+            params = tree_map(lambda p: p.detach().requires_grad_(),
+                              state["params"])
+            with step.layout():
+                acc, loss = grads.micro(params, batch, pseudo, lam, i, acc,
+                                        0.0 if loss is None else loss)
+            return state, batch, pseudo, acc, loss
+        return fn
+
+    def update(prev):
+        state, _, _, acc, loss = prev
+        loss, flat = grads.finish(acc, loss)
+        it = iter(flat)
+        return step.apply(state, loss,
+                          tree_map(lambda _: next(it), state["params"]))
+
+    return [("microbatch 0", 1, body(0), (args,)),
+            ("microbatch", accum - 1, body(1), None),
+            ("update", 1, update, None)]
+
+
+def member_mesh(mesh, axis: Optional[str]):
+    """The mesh one member spans: every dim of `mesh` but its members'
+    `axis` (None: the whole mesh), as a launch.mesh.Mesh."""
+    from repro_torch.launch.mesh import Mesh
+    names = tuple(a for a in mesh.axis_names if a != axis)
+    sizes = tuple(mesh.shape[a] for a in names)
+    n = 1
+    for x in sizes:
+        n *= x
+    sub = None
+    if mesh.device_mesh is not None and n > 1:
+        sub = mesh.device_mesh[names if len(names) > 1 else names[0]]
+    return Mesh(names, sizes, sub)
+
+
+def _visiting(cfg: ModelConfig, n: int, t: int) -> Dict:
+    """The rows a ring hop moves: a batch's inputs, not its labels."""
+    rows = _lm_batch(cfg, 0, n, t)
+    rows.pop("labels")
+    return rows
+
+
+def build_relabel_cell(arch: str, mesh, multi_pod: bool, ec: ECConfig,
+                       device: str, cfg: ModelConfig,
+                       shape: ShapeConfig) -> Cell:
+    """The ring relabel step of one rank (the JAX package's relabel_step
+    cell: m = max(1, int(b x relabel_fraction)) rows a member, top-M
+    labels, the members on par.ensemble_axis or "data").  Its member's
+    params (a leading 1) lie over the member's own mesh by the training
+    policy's rules; the visiting rows and the accumulator are
+    replicated there (the ring moves whole rows, as the reference's
+    shard_map over the members' axis does): DTensors where the score
+    reads them, plain tensors (each rank's copy) where the merge and
+    the hops do.  Pieces, each traced once
+    and counted as ring_relabel runs it: the score of a chunk of rows
+    (aggregation.chunk_rows; every chunk of the K scores), the top-M
+    merge, a hop of rows and accumulator, the home hop.  Where K = 1 the
+    ring is the member's score of its own rows."""
+    from repro_torch import models
+    from repro_torch.common.sharding import REP, layout_ctx
+    from repro_torch.core import aggregation as agg
+    from repro_torch.core.compression import TopM
+    from repro_torch.runtime import steps
+    par = filter_par(registry.parallel_policy(arch, shape, multi_pod), mesh)
+    k = ensemble_k(arch, mesh, par)
+    b = shape.global_batch // k
+    m = max(1, int(b * ec.relabel_fraction))
+    axis = par.ensemble_axis or "data"
+    if k > 1 and mesh.shape.get(axis) != k:
+        raise ValueError(f"the ring holds one member a rank: {k} members "
+                         f"on {mesh.shape.get(axis)} ranks along {axis!r}")
+    own = member_mesh(mesh, axis if k > 1 else None)
+    mpar = dataclasses.replace(par, ensemble_axis="", batch_axes=())
+    params = models.init(cfg, device="meta", members=1)
+    p_spec = make_param_pspecs(params, mpar, ensemble=False, mesh=own,
+                               lead=1)
+    T, V = shape.seq_len, cfg.vocab_size
+    rows_meta = _visiting(cfg, m, T)
+    rep = {name: (None,) * len(x[0]) for name, x in rows_meta.items()}
+    chunk = min(m, agg.chunk_rows(
+        {n: torch.empty(x[0], device="meta") for n, x in rows_meta.items()},
+        V))
+    logits_fn = steps.make_logits_fn(cfg)
+    pooled = steps.routes_by_pool(cfg)
+
+    def rows(n):
+        return abstract_tree(_visiting(cfg, n, T), rep, own, device)
+
+    def topm():
+        # replicated over the member's mesh: every rank merges and sends
+        # its own copy, as plain tensors
+        return TopM(torch.empty((m, T, ec.top_m), dtype=torch.float32,
+                                device=device),
+                    torch.empty((m, T, ec.top_m), dtype=torch.int32,
+                                device=device),
+                    torch.empty((m, T), dtype=torch.float32, device=device))
+
+    def score(p, visiting):
+        with layout_ctx(batch=REP):   # the rows stay whole on every rank
+            return agg.ring_score(p, visiting, logits_fn, ec, n_out=V,
+                                  pooled=pooled)
+
+    p_args = abstract_tree(params, p_spec, own, device)
+    parts = [("score", k * (m // chunk), score, (p_args, rows(chunk)))]
+    if m % chunk:
+        parts.append(("score (last chunk)", k, score,
+                      (p_args, rows(m % chunk))))
+    if k > 1:
+        dm = mesh.device_mesh
+        parts += [
+            ("merge", k - 1, lambda a, c: agg.ring_merge(a, c, ec),
+             (topm(), topm())),
+            ("hop", k - 1, lambda bt, a: agg.ring_hop((bt, a), dm, axis),
+             ({n: torch.empty(x[0], dtype=x[1], device=device)
+               for n, x in rows_meta.items()}, topm())),
+            ("home", 1, lambda a: agg.ring_hop(a, dm, axis), (topm(),))]
+    meta = {"k": k, "per_member": m, "accum": 1, "par": par,
+            "ring_axis": axis if k > 1 else "", "hops": k - 1,
+            "chunk_rows": chunk, "member_mesh": own.shape,
+            # every member scores every member's m rows
+            "scored_tokens": k * k * m * T,
+            "state_specs": {"params": p_spec},
+            "state_meta": {"params": params}}
+    return Cell(arch, shape, "relabel_step", None, None, meta, parts)
 
 
 def serve_par(arch: str, shape: ShapeConfig, mesh,

@@ -198,6 +198,54 @@ def _attend_chunked(q, k, v, q_pos, k_pos, window, causal, scale,
     return o.permute(0, 3, 1, 2, 4).reshape(N, Tq, H, dv).to(v.dtype)
 
 
+def _heads_sharded_layout(q, k, v):
+    """The layout DTensor q, k, v share once each takes the others'
+    shards (each mesh dim shards at most rows (dim 0) or heads (dim 2),
+    the same in all three, or leaves a tensor whole), when it shards the
+    heads: the score einsum would fold sharded heads into one batch dim
+    after the rows, which DTensor's view rule (torch 2.11) refuses.
+    None otherwise (plain tensors, other layouts)."""
+    if not all(is_dtensor(t) for t in (q, k, v)):
+        return None
+    lay = []
+    for ps in zip(q.placements, k.placements, v.placements):
+        if any(p.is_partial() for p in ps):
+            return None
+        dims = {p.dim for p in ps if p.is_shard()}
+        if len(dims) > 1 or not dims <= {0, 2}:
+            return None
+        lay.append(next((p for p in ps if p.is_shard()), ps[0]))
+    return lay if any(p.is_shard(2) for p in lay) else None
+
+
+def _attend_shard_local(q, k, v, q_pos, k_pos, **kw) -> torch.Tensor:
+    """attend on each rank's shard of rows and heads (every row and head
+    attends alone), rebuilt as a DTensor of q's layout.  Per-row
+    positions are cut to this rank's rows."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh, lay = q.device_mesh, q.placements
+    n, r0 = (x[0] for x in compute_local_shape_and_global_offset(
+        q.shape, mesh, lay))
+    rows = [Shard(0) if p.is_shard(0) else Replicate() for p in lay]
+
+    def local_pos(p):
+        if p is None or p.dim() == 1:
+            return p.full_tensor() if is_dtensor(p) else p
+        if is_dtensor(p):
+            return p.redistribute(mesh, rows).to_local()
+        return p[r0:r0 + n]
+
+    o = attend(q.to_local(), k.to_local(), v.to_local(), local_pos(q_pos),
+               local_pos(k_pos), **kw).contiguous()
+    shape = (*q.shape[:3], v.shape[-1])
+    return DTensor.from_local(o, mesh, lay, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
+
+
 def _paired(q, k, v):
     """Folded q (N, T, H, dh), k / v (N, S, Hkv, *) for the core math.
     Over DTensors whose query heads are sharded where the kv heads are
@@ -231,6 +279,15 @@ def attend(q, k, v, q_pos, k_pos, *, window: int, causal: bool,
     """Dispatch dense vs chunked on KV length.  Positions are (T,) shared
     by every row or (N, T) per row."""
     q, k, v = _paired(q, k, v)
+    lay = _heads_sharded_layout(q, k, v)
+    if lay is not None:
+        # a tensor whole where another is sharded (the GQA repeat in
+        # training, a decode step's gathered query heads) takes its
+        # shard: a local slice
+        q, k, v = (t.redistribute(t.device_mesh, lay) for t in (q, k, v))
+        return _attend_shard_local(q, k, v, q_pos, k_pos, window=window,
+                                   causal=causal, scale=scale,
+                                   force_dense=force_dense)
     Tk = k.shape[1]
     dense = Tk <= ATTN_CHUNK if force_dense is None else force_dense
     if is_dtensor(k) and q.shape[1] == 1:
@@ -859,7 +916,8 @@ def _mla_attend(params, q_c, q_r, c_kv, k_r, q_pos, k_pos, a: AttnConfig):
         *k_c.shape[:-1], a.qk_rope_dim)], -1)), None, None, "model", None)
     q_full = constrain(_fold(torch.cat([q_c, q_r], -1)),
                        None, None, "model", None)
-    o = attend(q_full, k_full, _fold(v),
+    v = constrain(_fold(v), None, None, "model", None)
+    o = attend(q_full, k_full, v,
                _rows(q_pos, K), _rows(k_pos, K), window=0, causal=True,
                scale=1.0 / math.sqrt(a.qk_nope_dim + a.qk_rope_dim))
     return _out(params, o, K, B)

@@ -58,15 +58,68 @@ def dense_init(gen: torch.Generator, lead: Sequence[int], shape, dtype,
 
 
 def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Per-member matmul: x (K, ..., d) @ w (K, d, n) -> (K, ..., n)."""
+    """Per-member matmul: x (K, ..., d) @ w (K, d, n) -> (K, ..., n).
+    A DTensor x sharded over more than one of its middle dims (the
+    batch and the sequence, in a big arch's training) keeps only the
+    first of them sharded before they fold into one, and so does the
+    gradient of the output's unfold: DTensor's view rule (torch 2.11)
+    refuses to fold two sharded dims."""
+    if is_dtensor(x) and x.dim() > 3:
+        x = one_sharded_middle(x)
+        out = torch.bmm(x.reshape(x.shape[0], -1, x.shape[-1]), w)
+        return unfold(out, (*x.shape[:-1], w.shape[-1]))
     K = x.shape[0]
     out = torch.bmm(x.reshape(K, -1, x.shape[-1]), w)
     return out.reshape(*x.shape[:-1], w.shape[-1])
 
 
+def one_sharded_middle(x):
+    """A DTensor (K, ..., d) with at most one of its middle dims sharded
+    (the first that is; the others gathered), so that a reshape may fold
+    them into one."""
+    from torch.distributed.tensor import Replicate
+    middle = sorted({p.dim for p in x.placements if p.is_shard()
+                     and 0 < p.dim < x.dim() - 1})
+    if len(middle) < 2:
+        return x
+    return x.redistribute(x.device_mesh, [
+        Replicate() if p.is_shard() and p.dim in middle[1:] else p
+        for p in x.placements])
+
+
+def unfold(x, shape):
+    """x (K, n, d) reshaped to (K, ..., d) splitting its middle dim; over
+    a DTensor its gradient is folded back after one_sharded_middle, as
+    the forward's fold was."""
+    return _Unfold.apply(x, tuple(shape)) if is_dtensor(x) \
+        else x.reshape(shape)
+
+
+class _Unfold(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shape):
+        ctx.shape = x.shape
+        return x.reshape(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        if is_dtensor(g):
+            g = one_sharded_middle(g)
+        return g.reshape(ctx.shape), None
+
+
 def member_view(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """(K, n) per-member vector -> broadcastable against x (K, ..., n)."""
     return w.reshape(w.shape[0], *([1] * (x.dim() - 2)), w.shape[-1])
+
+
+def shift_seq(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x (K, B, T, ...) moved n positions later along T, zeros first (a
+    causal shift).  Built by a cat, not F.pad: DTensor's pad rule in
+    torch 2.11 plans a redistribution its planner cannot run."""
+    T = x.shape[2]
+    n = min(n, T)
+    return torch.cat([torch.zeros_like(x[:, :, :n]), x[:, :, :T - n]], 2)
 
 
 # ---------------------------------------------------------------------------
@@ -192,11 +245,54 @@ def _sharded_lookup(table, tokens: torch.Tensor) -> torch.Tensor:
     if table.shape[0] == 1:
         tok = tokens if tokens.dim() == 2 else tokens[0]
         x = F.embedding(tok.long(), table[0]).unsqueeze(0)
+    elif tokens.dim() == 3 and _members_alike(table, tokens):
+        x = _masked_lookup(table, tokens)
     else:
         k = torch.arange(table.shape[0], device=tokens.device)
         x = table[k[:, None, None], tokens.long()] if tokens.dim() == 3 \
             else table[:, tokens.long()]
     return constrain(x, None, None, None, REP)
+
+
+def _members_alike(table, tokens) -> bool:
+    """Do a member-stacked (K, V, d) table and (K, B, T) tokens split
+    their members over the same mesh dims, the table's vocabulary over
+    others, and nothing else?"""
+    if not is_dtensor(tokens) or tokens.device_mesh != table.device_mesh:
+        return False
+    for pt, pk in zip(table.placements, tokens.placements):
+        if pt.is_shard(0) != pk.is_shard(0) or pk.is_partial() or \
+                pt.is_partial() or pt.is_shard(2) or \
+                (pk.is_shard() and not pk.is_shard(0)):
+            return False
+    return True
+
+
+def _masked_lookup(table, tokens):
+    """The indexed read of several members' rows on each rank's shard:
+    its members' tokens that fall in its vocabulary slice read their
+    rows, the others zeros, and the vocabulary's mesh dims hold partial
+    sums (DTensor's own F.embedding rule for one member, here over a
+    member dim; torch 2.11 has no rule for the indexed read's
+    gradient)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = table.device_mesh
+    local = table.to_local()
+    (_, n_vocab, _), (_, v0, _) = compute_local_shape_and_global_offset(
+        table.shape, mesh, table.placements)
+    idx = tokens.to_local().long() - v0
+    ok = (idx >= 0) & (idx < n_vocab)
+    k = torch.arange(local.shape[0], device=idx.device)
+    rows = local[k[:, None, None], idx.where(ok, 0)] * ok[..., None]
+    lay = [Shard(0) if p.is_shard(0) else Partial() if p.is_shard(1)
+           else Replicate() for p in table.placements]
+    shape = (*tokens.shape, table.shape[-1])
+    return DTensor.from_local(rows, mesh, lay, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
 
 
 def head_init(gen, lead, vocab: int, d_model: int, dtype) -> dict:

@@ -31,7 +31,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.common.sharding import constrain
+from repro_torch.common.sharding import REP, constrain
 from repro_torch.common.types import FFNConfig
 from repro_torch.models.layers import dense_init, mlp_apply, mlp_init, mm
 
@@ -122,8 +122,12 @@ def moe_apply(params: dict, x: torch.Tensor, f: FFNConfig,
                          .expand(K, G, T * k))
     tok_ids = slot_to_tok[..., :E * C] // k                # (K, G, E*C)
     x_plus = torch.cat([x, x.new_zeros(K, G, 1, d)], 2)
-    disp = x_plus.reshape(-1, d).index_select(
-        0, (tok_ids + pools * (T + 1)).reshape(-1))
+    # over a DTensor (the dry-run's) the gathered-from buffers and the
+    # gathered rows are whole, and so are their gradients: torch 2.11's
+    # rule for an index_select's gradient takes no sharded rows
+    disp = constrain(constrain(x_plus.reshape(-1, d), REP, None)
+                     .index_select(0, (tok_ids + pools * (T + 1))
+                                   .reshape(-1)), REP, None)
     xe = disp.reshape(K, G, E, C, d).transpose(1, 2).reshape(K, E, G * C, d)
     xe = constrain(xe, None, "model", None, None)          # EP boundary
 
@@ -132,8 +136,9 @@ def moe_apply(params: dict, x: torch.Tensor, f: FFNConfig,
     out_e = out_e.reshape(K, E, G, C, d).transpose(1, 2)
     flat_out = torch.cat([out_e.reshape(K, G, E * C, d),
                           out_e.new_zeros(K, G, 1, d)], 2)
-    tok_out = flat_out.reshape(-1, d).index_select(
-        0, (dest + pools * (E * C + 1)).reshape(-1))
+    tok_out = constrain(constrain(flat_out.reshape(-1, d), REP, None)
+                        .index_select(0, (dest + pools * (E * C + 1))
+                                      .reshape(-1)), REP, None)
     tok_out = tok_out.reshape(K, G, T * k, d) * flat_w[..., None].to(x.dtype)
     y = tok_out.reshape(K, G, T, k, d).sum(3)
 

@@ -32,10 +32,11 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.common.sharding import constrain
+from repro_torch.common.sharding import constrain, is_dtensor
 from repro_torch.common.types import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import dense_init, member_view, mm
+from repro_torch.models.layers import (dense_init, member_view, mm,
+                                      shift_seq)
 
 MAMBA_CHUNK = 128    # the JAX package's: one scan launch per piece
 RWKV_CHUNK = 32      # the JAX package's: the training route's pairwise
@@ -85,12 +86,11 @@ def _mamba_conv_full(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Causal depthwise conv by shifted adds, x (K, B, T, di), w (K, W,
     di).  Accumulates in f32 (as decode does: both stay bit-aligned
     through the silu when params are bf16); -> f32."""
-    W, T = w.shape[1], x.shape[2]
+    W = w.shape[1]
     xf, wf = x.float(), w.float()
     out = xf * member_view(wf[:, -1], xf)
     for i in range(1, W):
-        shifted = F.pad(xf, (0, 0, i, 0))[:, :, :T]
-        out = out + shifted * member_view(wf[:, -1 - i], xf)
+        out = out + shift_seq(xf, i) * member_view(wf[:, -1 - i], xf)
     return out
 
 
@@ -144,21 +144,109 @@ def _mamba_inner(params, xz: torch.Tensor, cfg: ModelConfig,
     return y + xf * member_view(params["mamba_D"], xf)
 
 
+def _mamba_state(h, dt, dtx, A, Bm, t: int):
+    """Step t of a chunk's state: h_t = exp(dt_t A) h_{t-1} + dt_t x_t
+    B_t."""
+    return torch.exp(dt[:, :, t, :, None] * A) * h \
+        + dtx[:, :, t, :, None] * Bm[:, :, t, None, :]
+
+
+def _mamba_step(h, dt, dtx, A, Bm, Cm, t: int):
+    """Step t of a chunk -> (y_t = <h_t, C_t>, h_t)."""
+    h = _mamba_state(h, dt, dtx, A, Bm, t)
+    return (h * Cm[:, :, t, None, :]).sum(-1), h
+
+
 def _mamba_chunk(h, dt, dtx, A, Bm, Cm):
     """One chunk of the training route: h (K, B, di, Ns) the carried
     state, dt and dtx (K, B, CH, di), A (K, 1, di, Ns), Bm and Cm (K, B,
-    CH, Ns).  A step loop, h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t,
-    each state contracted with C_t at once, rather than a log-depth
-    (Hillis-Steele) scan of the pairs (a, b): its backward keeps one
-    state and one a_t a step (two chunk-sized tensors, 1.1 GB a 64-token
-    chunk at jamba's width, K 2 x B 8), where the scan keeps two a
-    level, log2(CH) levels.  -> (y (K, B, CH, di), h_CH)."""
+    CH, Ns).  A step loop, each state contracted with C_t at once,
+    rather than a log-depth (Hillis-Steele) scan of the pairs (a, b):
+    its backward keeps one state and one a_t a step (two chunk-sized
+    tensors, 1.1 GB a 64-token chunk at jamba's width, K 2 x B 8), where
+    the scan keeps two a level, log2(CH) levels.  -> (y (K, B, CH, di),
+    h_CH)."""
     ys = []
     for t in range(dt.shape[2]):
-        h = torch.exp(dt[:, :, t, :, None] * A) * h \
-            + dtx[:, :, t, :, None] * Bm[:, :, t, None, :]
-        ys.append((h * Cm[:, :, t, None, :]).sum(-1))
+        y, h = _mamba_step(h, dt, dtx, A, Bm, Cm, t)
+        ys.append(y)
     return torch.stack(ys, 2), h
+
+
+class _CountedChunk(torch.autograd.Function):
+    """The dry-run's form of checkpoint(_mamba_chunk) on plain fake
+    tensors: the CH steps are alike, so a step is run and counted for
+    all that are like it (cost_analysis.repeated), as the reference's
+    HLO runs one scan body; a step loop of 4,096 tokens a layer is
+    millions of ops otherwise.  Two forms: the first step reads the
+    chunk's state as it comes (a zero state may be a broadcast), the
+    later ones a full state.  Its ops are the checkpointed loop's: the
+    forward's steps and the stack of their outputs; in the backward the
+    steps' recompute (which stops, as checkpoint's does, once the last
+    step's state is back: its output is not formed again), their
+    gradients (the last step's from the chunk's own state gradient, if
+    any, the others' from a full one, as the next step gives it), a
+    select's scatter for each sliced input, and the CH - 1 sums of the
+    gradients of the inputs every step reads: the loop's FLOPs and
+    bytes.  Not its peak: the loop's recompute holds CH steps' saved
+    tensors, this one step's.  The values are not the loop's."""
+
+    @staticmethod
+    def forward(ctx, h, dt, dtx, A, Bm, Cm):
+        from repro_torch.launch.cost_analysis import repeated
+        ctx.set_materialize_grads(False)
+        n = dt.shape[2]
+        ctx.save_for_backward(h, dt, dtx, A, Bm, Cm)
+        y, h = _mamba_step(h, dt, dtx, A, Bm, Cm, 0)
+        with repeated(n - 1):
+            _, h = _mamba_step(h, dt, dtx, A, Bm, Cm, 0)
+        with repeated(n):
+            y = torch.stack([y], 2)
+        with repeated(0):           # the n outputs, already counted
+            y = torch.cat([y] * n, 2)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        from repro_torch.launch.cost_analysis import repeated
+        saved = ctx.saved_tensors
+        n = saved[1].shape[2]
+        xs = [x.detach().requires_grad_(need)
+              for x, need in zip(saved, ctx.needs_input_grad)]
+        g_y = gy[:, :, 0]
+        with torch.enable_grad():
+            # the recompute: the first step, the full ones, the last
+            # step's state
+            with repeated(1 if n > 1 else 0):
+                y0, h0 = _mamba_step(*xs, 0)
+            later = [h0.detach().requires_grad_()] + xs[1:]
+            with repeated(max(n - 2, 0)):
+                y, h = _mamba_step(*later, 0)
+            _mamba_state(*(later if n > 1 else xs)[:5], 0)
+            with repeated(0):
+                full = torch.empty_like(h)
+
+            def grad(outs, g_outs, inputs, times, keep=True):
+                want = [x for x in inputs if x.requires_grad]
+                if gh is None and g_outs[1] is None:
+                    outs, g_outs = outs[:1], g_outs[:1]
+                with repeated(times):
+                    got = iter(torch.autograd.grad(
+                        outs, want, g_outs, retain_graph=keep,
+                        allow_unused=True))
+                return [next(got) if x.requires_grad else None
+                        for x in inputs]
+
+            if n > 1:
+                grad((y, h), (g_y, full), later, n - 2)
+                grad((y, h), (g_y, gh), later, 1)       # the last step
+                grads = grad((y0, h0), (g_y, full), xs, 1, keep=False)
+            else:
+                grads = grad((y0, h0), (g_y, gh), xs, 1, keep=False)
+        with repeated(n - 1):       # every step's share of dt .. Cm
+            grads[1:] = [g if g is None else g + g.detach()
+                         for g in grads[1:]]
+        return tuple(grads)
 
 
 def _mamba_chunked(params, xz: torch.Tensor, cfg: ModelConfig,
@@ -167,18 +255,72 @@ def _mamba_chunked(params, xz: torch.Tensor, cfg: ModelConfig,
     _mamba_inner: MAMBA_CHUNK pieces, each under torch.utils.checkpoint,
     never ops.ssm_scan.  xz (K, B, T, di) conv'd x, h (K, B, di, Ns) f32
     the initial state.  -> (y (K, B, T, di) f32, h_T)."""
-    T = xz.shape[2]
     dt, dtx, A, Bm, Cm, xf = _mamba_coeffs(params, xz, cfg)
-    A = A[:, 0]
-    ys = []
-    for t0 in range(0, T, MAMBA_CHUNK):
-        sl = slice(t0, t0 + MAMBA_CHUNK)
-        y, h = checkpoint(_mamba_chunk, h, dt[:, :, sl], dtx[:, :, sl], A,
-                          Bm[:, :, sl], Cm[:, :, sl], use_reentrant=False,
-                          preserve_rng_state=False)
-        ys.append(y)
-    y = torch.cat(ys, 2)
+    y, h = _mamba_scan(h, dt, dtx, A[:, 0], Bm, Cm)
     return y + xf * member_view(params["mamba_D"], xf), h
+
+
+def _mamba_pieces(h, dt, dtx, A, Bm, Cm):
+    """The chunks of _mamba_chunked, the state carried -> (y, h_T).  On
+    fake tensors (the dry-run) a chunk's steps are traced one for all
+    (_CountedChunk)."""
+    ys = []
+    for t0 in range(0, dt.shape[2], MAMBA_CHUNK):
+        sl = slice(t0, t0 + MAMBA_CHUNK)
+        args = (h, dt[:, :, sl], dtx[:, :, sl], A, Bm[:, :, sl],
+                Cm[:, :, sl])
+        if _fake(h):
+            y, h = _CountedChunk.apply(*args)
+        else:
+            y, h = checkpoint(_mamba_chunk, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        ys.append(y)
+    return torch.cat(ys, 2), h
+
+
+def _mamba_scan(h, dt, dtx, A, Bm, Cm):
+    """_mamba_pieces; over DTensors (the dry-run's training cells) on
+    each rank's shard, where dt's members, rows and channels may be
+    sharded but not its time: every (member, row, channel) runs alone,
+    so the steps need no collective (the inputs are laid out as dt is
+    first), and they are plain tensors' ops, not DTensor's."""
+    if not is_dtensor(dt) or any(
+            p.is_partial() or (p.is_shard() and p.dim == 2)
+            for p in dt.placements):
+        return _mamba_pieces(h, dt, dtx, A, Bm, Cm)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh, lay = dt.device_mesh, dt.placements
+
+    def local(x, dims):
+        """x's shard laid out as dt's: dims maps dt's dim to x's.  Its
+        gradient is a partial sum over the ranks that split a dim of
+        dt's that x lacks (B and C over the channels)."""
+        to = [Shard(dims[p.dim]) if p.is_shard() and p.dim in dims
+              else Replicate() for p in lay]
+        return x.redistribute(mesh, to).to_local(grad_placements=[
+            Partial() if p.is_shard() and p.dim not in dims else q
+            for p, q in zip(lay, to)])
+
+    y, h_t = _mamba_pieces(local(h, {0: 0, 1: 1, 3: 2}),
+                           local(dt, {0: 0, 1: 1, 3: 3}),
+                           local(dtx, {0: 0, 1: 1, 3: 3}),
+                           local(A, {0: 0, 3: 2}),
+                           local(Bm, {0: 0, 1: 1}), local(Cm, {0: 0, 1: 1}))
+
+    def whole(x, like, dims):
+        return DTensor.from_local(x, mesh, [
+            Shard(dims[p.dim]) if p.is_shard() and p.dim in dims
+            else Replicate() for p in lay], run_check=False,
+            shape=like.shape, stride=torch.empty(like.shape,
+                                                 device="meta").stride())
+    return (whole(y, dt, {0: 0, 1: 1, 3: 3}),
+            whole(h_t, h, {0: 0, 1: 1, 3: 2}))
+
+
+def _fake(x: torch.Tensor) -> bool:
+    """A fake tensor (a DTensor's local shard included): the dry-run."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(x._local_tensor if is_dtensor(x) else x, FakeTensor)
 
 
 def _mamba_out(params, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
@@ -396,6 +538,44 @@ def _wkv_chunked(r, k, v, log_w, u, s0):
     return torch.cat(ys, 1), S
 
 
+def _wkv_chunked_from_zero(r, k, v, log_w, u) -> torch.Tensor:
+    """_wkv_chunked's y from a zero state.  Over DTensors whose rows
+    (members) and heads are sharded (the dry-run's training cells), on
+    each rank's shard: every row and head runs alone, and DTensor's view
+    rule (torch 2.11) refuses the chunk products' fold of the two."""
+    N, _, H, dh = r.shape
+    if not is_dtensor(r) or not _rows_heads_layout(r, k, v, log_w, u=u):
+        s0 = torch.zeros(N, H, dh, dh, dtype=torch.float32, device=r.device)
+        return _wkv_chunked(r, k, v, log_w, u, s0)[0]
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    loc = [t.to_local() for t in (r, k, v, log_w)]
+    n, _, h, _ = loc[0].shape
+    u = u.redistribute(u.device_mesh, [   # its heads as r's: a slice
+        Shard(1) if p.is_shard(2) else Shard(0) if p.is_shard(0)
+        else Replicate() for p in r.placements])
+    y, _ = _wkv_chunked(*loc, u.to_local(), torch.zeros(
+        n, h, dh, dh, dtype=torch.float32, device=loc[0].device))
+    return DTensor.from_local(y, r.device_mesh, r.placements, run_check=False,
+                              shape=r.shape, stride=r.stride())
+
+
+def _rows_heads_layout(*ts, u) -> bool:
+    """Are the (N, T, H, dh) tensors `ts` laid out alike, sharded over
+    rows or heads only, and u (K, H, dh) over the same members (the
+    rows' mesh dims), its heads as theirs or whole?"""
+    lay = ts[0].placements
+    if any(t.placements != lay for t in ts) or not is_dtensor(u):
+        return False
+    for p, q in zip(lay, u.placements):
+        ok = (q.is_replicate() and not p.is_shard(0)) if not q.is_shard() \
+            else (p.is_shard(0) and q.is_shard(0)) or \
+            (p.is_shard(2) and q.is_shard(1))
+        if not ok or not (p.is_replicate() or p.is_shard(0)
+                          or p.is_shard(2)):
+            return False
+    return True
+
+
 def _rwkv_out(params, y: torch.Tensor, g: torch.Tensor, H: int, dh: int):
     y = _rwkv_groupnorm(y, params["rwkv_ln_scale"], H, dh)
     return mm(y.to(g.dtype) * g, params["rwkv_o"])
@@ -407,15 +587,13 @@ def rwkv_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
     the training route (_wkv_chunked), else ops.wkv6."""
     K, B, T, d = x.shape
     H, dh = rwkv_dims(cfg)
-    x_prev = F.pad(x, (0, 0, 1, 0))[:, :, :T]
+    x_prev = shift_seq(x, 1)
     r, k, v, g, log_w = _rwkv_proj(params, x, x_prev)
     if train:
         def heads(t):
             return t.float().reshape(K * B, T, H, dh)
-        s0 = torch.zeros(K * B, H, dh, dh, dtype=torch.float32,
-                         device=x.device)
-        y, _ = _wkv_chunked(heads(r), heads(k), heads(v), heads(log_w),
-                            params["rwkv_first"], s0)
+        y = _wkv_chunked_from_zero(heads(r), heads(k), heads(v),
+                                   heads(log_w), params["rwkv_first"])
         y = y.reshape(K, B, T, d)
     else:
         state = x.new_zeros(K, B, H, dh, dh, dtype=torch.float32)

@@ -41,7 +41,6 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.device import DeviceLike, resolve_device, torch_dtype
@@ -53,8 +52,9 @@ from repro_torch.models import moe
 from repro_torch.models import ssm
 from repro_torch.models.layers import (embed_init, embed_lookup, head_init,
                                        init_generator, lm_logits, mlp_apply,
-                                       mlp_init, rmsnorm,
-                                       sinusoidal_positions)
+                                       mlp_init, one_sharded_middle,
+                                       rmsnorm, shift_seq,
+                                       sinusoidal_positions, unfold)
 
 
 # (mixer, ffn) pairs of the ported layers
@@ -178,6 +178,11 @@ def _moe(p, cfg: ModelConfig, h: torch.Tensor, pool_rows: Optional[int],
                                arrived, pool_rows * S)
         return y.reshape(K, B, S, d), aux.sum(1)
     G = B // (pool_rows or B)
+    if is_dtensor(h):   # a fold of at most one sharded dim (layers.mm)
+        h = one_sharded_middle(h)
+        y, aux = moe.moe_apply(p["moe"], h.reshape(K, G, B // G * S, d),
+                               cfg.ffn)
+        return unfold(y, (K, B, S, d)), aux.sum(1)
     y, aux = moe.moe_apply(p["moe"], h.reshape(K, G, B // G * S, d),
                            cfg.ffn)
     return y.reshape(K, B, S, d), aux.sum(1)
@@ -190,7 +195,6 @@ def _block(p, spec: LayerSpec, cfg: ModelConfig, x: torch.Tensor,
     """One block of the full-sequence forward -> (x, aux of its MoE, or
     0.0).  causal=False is the encoder's full attention; enc (K, B, S,
     d) the frames a decoder block with "cross" attends."""
-    T = x.shape[2]
     h_in = rmsnorm(p["norm_mix"], x, cfg.norm_eps)
     if spec.mixer == "rwkv":
         x = x + ssm.rwkv_apply(p["rwkv"], h_in, cfg, train=train)
@@ -211,7 +215,7 @@ def _block(p, spec: LayerSpec, cfg: ModelConfig, x: torch.Tensor,
     h_f = rmsnorm(p["norm_ffn"], x, cfg.norm_eps)
     aux = 0.0
     if spec.ffn == "rwkv_cmix":
-        x_prev = F.pad(h_f, (0, 0, 1, 0))[:, :, :T]
+        x_prev = shift_seq(h_f, 1)
         x = x + ssm.cmix_apply(p["cmix"], h_f, x_prev)
     elif spec.ffn == "moe":
         h, aux = _moe(p, cfg, h_f, pool_rows, carry, key)

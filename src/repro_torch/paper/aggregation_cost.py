@@ -28,6 +28,17 @@ from repro_torch.core.compression import bytes_per_token
 ARCH_IDS = registry.LM_ARCH_IDS
 
 
+def relabel_tokens(per_member_tokens: int, fraction: float) -> int:
+    """Tokens a member's relabel subset holds."""
+    return int(per_member_tokens * fraction)
+
+
+def ring_topm_bytes(members: int, tokens: int, top_m: int) -> int:
+    """A ring round's top-M accumulator traffic on one link: K hops (the
+    last one home) of `tokens` accumulator entries."""
+    return members * tokens * (bytes_per_token(top_m) + 4)
+
+
 def param_bytes(arch: str) -> int:
     cfg = registry.get_config(arch)
     params = models.init(cfg, device="meta")
@@ -47,11 +58,11 @@ def main(argv=None):
     K = args.members
     shape = SHAPES["train_4k"]
     per_member_tokens = shape.global_batch // K * shape.seq_len
-    relabel_tokens = int(per_member_tokens * args.relabel_fraction)
+    tokens = relabel_tokens(per_member_tokens, args.relabel_fraction)
 
     archs = ("gemma3-1b", "llama3-405b") if args.fast else ARCH_IDS
     print(f"# aggregation bytes per round, K={K}, "
-          f"relabel {relabel_tokens:,} tokens/member, top-M={args.top_m}")
+          f"relabel {tokens:,} tokens/member, top-M={args.top_m}")
     print(f"{'arch':20s} {'MA (x2 AR)':>12s} {'EC naive':>12s} "
           f"{'EC dense':>12s} {'EC top-M':>12s} {'vs naive':>9s}")
     rows = {}
@@ -60,8 +71,8 @@ def main(argv=None):
         pb = param_bytes(arch)
         ma = 2 * pb
         naive = K * pb
-        dense = K * relabel_tokens * cfg.vocab_size * 4
-        topm = K * relabel_tokens * (bytes_per_token(args.top_m) + 4)
+        dense = K * tokens * cfg.vocab_size * 4
+        topm = ring_topm_bytes(K, tokens, args.top_m)
         rows[arch] = {"param_bytes": pb, "ma": ma, "naive": naive,
                       "dense": dense, "topm": topm}
         print(f"{arch:20s} {ma/2**30:10.2f}Gi {naive/2**30:10.2f}Gi "

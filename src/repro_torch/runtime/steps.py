@@ -101,12 +101,26 @@ def make_member_loss(cfg: ModelConfig) -> Callable:
     return lm_loss
 
 
+def microbatch(tree, i: int, accum: int):
+    """Microbatch i of accum of every member's rows (K, B, ...): rows i,
+    i + accum, ... (the JAX package's split), as a view through (B /
+    accum, accum): a batch sharded over its rows keeps every
+    microbatch's rows on their shard (a strided slice would gather
+    them)."""
+    if tree is None:
+        return None
+    B = tree_leaves(tree)[0].shape[1]
+    return tree_map(lambda x: x.unflatten(1, (B // accum, accum))[:, :, i],
+                    tree)
+
+
 def make_member_grads(cfg: ModelConfig, grad_accum: int = 1) -> Callable:
     """(params, batch, pseudo, lam) -> (the members' summed loss, a 0-d
     tensor, grads).  grad_accum > 1 splits every member's batch into
-    microbatches, member k's microbatch i being its rows i, i + accum,
-    ... (the JAX package's split), and means their losses and gradients
-    in f32 accumulators."""
+    microbatches (`microbatch`) and means their losses and gradients,
+    the gradients in f32 accumulators.  The returned fn's `micro` and
+    `finish` are that loop's body and its end: the dry-run traces a
+    microbatch apart through them and counts it grad_accum times."""
     member_loss = make_member_loss(cfg)
 
     def grads_of(params, batch, pseudo, lam):
@@ -120,6 +134,23 @@ def make_member_grads(cfg: ModelConfig, grad_accum: int = 1) -> Callable:
                  if is_dtensor(g) else g for g, p in zip(grads, leaves)]
         return total.detach(), grads
 
+    def micro(params, batch, pseudo, lam, i, acc=None, loss=0.0):
+        """Microbatch i's gradients added into acc (made at the first:
+        f32 zeros) and its loss into loss -> (acc, loss).  A function of
+        its own, so that the microbatch's gradients die with it."""
+        l_i, g_i = grads_of(params, microbatch(batch, i, grad_accum),
+                            microbatch(pseudo, i, grad_accum), lam)
+        if acc is None:
+            acc = [torch.zeros_like(g, dtype=torch.float32) for g in g_i]
+        for a, g in zip(acc, g_i):
+            a.add_(g)
+        return acc, loss + l_i
+
+    def finish(acc, loss):
+        """The mean over the microbatches, in place -> (loss, grads)."""
+        inv = 1.0 / grad_accum
+        return loss * inv, [a.mul_(inv) for a in acc]
+
     def fn(params, batch, pseudo, lam):
         if grad_accum <= 1:
             loss, flat = grads_of(params, batch, pseudo, lam)
@@ -128,34 +159,20 @@ def make_member_grads(cfg: ModelConfig, grad_accum: int = 1) -> Callable:
             if B % grad_accum:
                 raise ValueError(f"batch {B} does not split into "
                                  f"{grad_accum} microbatches")
-            loss, flat = 0.0, None
+            acc, loss = None, 0.0
             for i in range(grad_accum):
-                # rows i, i + accum, ... as a view through (B/accum, accum):
-                # a batch sharded over its rows keeps every microbatch's
-                # rows on their shard (a strided slice would gather them)
-                micro = lambda t: tree_map(  # noqa: E731
-                    lambda x: x.unflatten(1, (B // grad_accum,
-                                              grad_accum))[:, :, i], t)
-                l_i, g_i = grads_of(params, micro(batch),
-                                    None if pseudo is None else micro(pseudo),
-                                    lam)
-                if flat is None:
-                    flat = [torch.zeros_like(g, dtype=torch.float32)
-                            for g in g_i]
-                for acc, g in zip(flat, g_i):
-                    acc.add_(g)
-                loss = loss + l_i
-            inv = 1.0 / grad_accum
-            loss = loss * inv
-            flat = [acc.mul_(inv) for acc in flat]
+                acc, loss = micro(params, batch, pseudo, lam, i, acc, loss)
+            loss, flat = finish(acc, loss)
         it = iter(flat)
         return loss, tree_map(lambda _: next(it), params)
+    fn.micro, fn.finish = micro, finish
     return fn
 
 
 def make_local_step(cfg: ModelConfig, opt: Optimizer, grad_accum: int = 1,
                     sync: bool = False, mesh=None, axis: str = "data",
-                    par: Optional[ParallelConfig] = None) -> Callable:
+                    par: Optional[ParallelConfig] = None,
+                    data_axis: Optional[str] = None) -> Callable:
     """EC local-training step over member-stacked state.
 
     (state {params, opt}, batch, pseudo, lam) -> (state, mean loss over
@@ -164,29 +181,46 @@ def make_local_step(cfg: ModelConfig, opt: Optimizer, grad_accum: int = 1,
     member axis first (the sync-SGD baseline): over a mesh, this rank's
     members' mean is averaged over the ranks of `axis`
     (aggregation.psum_gradients), every rank holding as many members.
+    data_axis: a mesh dim whose ranks hold the same members, each an
+    equal share of every member's batch rows; the gradients are averaged
+    over it before the optimizer's clip and step, so that they are the
+    whole batch's (the loss stays the share's).
     An optimizer that updates in place (adamw) returns the state's own
     tensors; the loss is this rank's members' mean.  `par` names the
     layout roles of the dry-run's DTensor state (the member batch's axes,
-    the sequence axis; models' constrain sites)."""
+    the sequence axis; models' constrain sites).  The returned step's
+    `member_grads` and `apply` are its two halves (the gradients, the
+    optimizer's update) and `layout()` the context the first runs in:
+    the dry-run traces them apart."""
     member_grads = make_member_grads(cfg, grad_accum)
     batch_axes = tuple(par.batch_axes) if par is not None else ()
     seq_axis = (par.seq_axis or None) if par is not None else None
 
-    def step(state, batch, pseudo, lam):
-        params = tree_map(lambda p: p.detach().requires_grad_(),
-                          state["params"])
-        with layout_ctx(batch=batch_axes, seq=seq_axis, train=True):
-            total, grads = member_grads(params, batch, pseudo, lam)
+    def layout():
+        return layout_ctx(batch=batch_axes, seq=seq_axis, train=True)
+
+    def apply(state, total, grads):
+        if mesh is not None and (sync or data_axis):
+            from repro_torch.core import aggregation as agg
+        if data_axis is not None:
+            grads = agg.psum_gradients(grads, mesh, data_axis)
         if sync:
             mean = tree_map(lambda g: g.mean(0, keepdim=True), grads)
             if mesh is not None:
-                from repro_torch.core import aggregation as agg
                 mean = agg.psum_gradients(mean, mesh, axis)
             grads = tree_map(lambda m, g: m.expand_as(g), mean, grads)
         new_params, new_opt = opt.update(grads, state["opt"],
                                          state["params"])
-        K = tree_leaves(params)[0].shape[0]
+        K = tree_leaves(state["params"])[0].shape[0]
         return {"params": new_params, "opt": new_opt}, total / K
+
+    def step(state, batch, pseudo, lam):
+        params = tree_map(lambda p: p.detach().requires_grad_(),
+                          state["params"])
+        with layout():
+            total, grads = member_grads(params, batch, pseudo, lam)
+        return apply(state, total, grads)
+    step.member_grads, step.apply, step.layout = member_grads, apply, layout
     return step
 
 

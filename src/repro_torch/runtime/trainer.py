@@ -25,19 +25,26 @@ K members' logits over the test set would not fit beside the state.
 Over a mesh (common/sharding.local_mesh, one process a rank) the K
 members lie along the dim `ec_axis()` names ("data", as in the JAX
 package): a rank holds its K/M members, their shards, their optimizer
-state and its slice of the quorum.  Every rank draws the host's indices
-for all K members and takes its own rows, so the batches are the
+state and its slice of the quorum.  The ranks along the mesh's other dim
+(data parallelism within a member) hold the same members, and each takes
+an equal share of every member's batch rows, of the relabel's rows and
+of evaluate()'s test rows; gradients are averaged over that dim before
+the optimizer's clip and step (aggregation.psum_gradients), so the
+replicas of a member stay bit for bit equal, and the relabel's targets
+are gathered back over it.  Every rank draws the host's indices for all
+K members and every row and takes its own, so the batches are the
 single-process trainer's.  The relabel takes the ring
 (aggregation.ring_relabel, one member a rank) when ECConfig.protocol is
 "ring" and K > 1, else the all-gather; MA and sync all-reduce;
 evaluate() fuses the ensemble across ranks chunk by chunk; save()
 gathers the state to the first rank, which writes the single-process
-layout, and resume() sends each rank its rows back.
+layout, and resume() sends each rank its rows back.  A model that
+routes tokens by pool (a MoE) pools each rank's share of the rows.
 
 Fault tolerance: with ckpt_dir, every round ends with an async save of
 the state (checkpoint/store.py: the JAX package's layout, keep 3), and
 `resume()` restores the newest committed round; `reshard(k_new)` changes
-K between rounds (not over a mesh).
+K between rounds, over a mesh too.
 
 Straggler policy: members listed as lagging at aggregation time are
 excluded from the ensemble (and from the MA mean) via a (K,) quorum mask.
@@ -89,10 +96,15 @@ class Trainer:
     from; else torch-seeded from init_seed.  grad_accum splits each
     step's batch into that many microbatches.
 
-    mesh: a DeviceMesh whose ec_axis() dim holds the members (its other
-    dims of size 1), e.g. local_mesh(1, M).  Every rank is given the
-    global shards and params and keeps its rows; K stays the global
-    count and K_local is this rank's."""
+    mesh: a DeviceMesh whose ec_axis() dim holds the members and whose
+    other dim, where it has more than one rank, splits every member's
+    rows (local_mesh(D, M): M member ranks, D data ranks each).  Every
+    rank is given the global shards and params and keeps its rows; K
+    stays the global count and K_local is this rank's.  Raises where a
+    member's batch, relabel rows or test rows do not split evenly over
+    the data ranks, and where data ranks would split a MoE model's
+    token pool (steps.routes_by_pool: its capacity, and so the tokens
+    it drops, depends on the rows of a call)."""
 
     def __init__(self, cfg: ModelConfig, ec: ECConfig, opt: Optimizer,
                  n_members: int, init_seed: int, train_shards: dict,
@@ -112,23 +124,20 @@ class Trainer:
         self.K = n_members
         self.mesh = mesh
         self._rows = slice(0, n_members)
+        self._dp = None        # the mesh dim of data ranks within a member
         if mesh is not None:
             axis = self.ec_axis()
             rest = [n for n in mesh.mesh_dim_names if n != axis
                     and shd.axis_size(mesh, n) > 1]
-            if rest:
-                raise NotImplementedError(
-                    f"the trainer's members lie along {axis!r}; replicas "
-                    f"along {rest} (data parallelism within a member) are "
-                    f"not ported")
-            self._rows = shd.member_rows(n_members, mesh, axis)
-            if ec.aggregator == "ec" and ec.protocol == "ring" \
-                    and n_members > 1 \
-                    and shd.axis_size(mesh, axis) != n_members:
+            self._dp = rest[0] if rest else None
+            if self._dp and steps.routes_by_pool(cfg):
                 raise ValueError(
-                    f"the ring holds one member a rank, but {n_members} "
-                    f"members lie on {shd.axis_size(mesh, axis)} ranks "
-                    f"along {axis!r}: use protocol='allgather'")
+                    f"{cfg.name} routes each call's tokens as one MoE pool, "
+                    f"which the {shd.axis_size(mesh, self._dp)} data ranks "
+                    f"along {self._dp!r} would split: give each member "
+                    f"one rank")
+            self._rows = shd.member_rows(n_members, mesh, axis)
+            self._check_ring(n_members)
         self.K_local = self._rows.stop - self._rows.start
         self._leader = mesh is None or shd.is_leader(mesh)
         self.device = resolve_device(device)
@@ -136,6 +145,13 @@ class Trainer:
                                train_shards)
         self.test = tree_map(lambda a: a.to(self.device), test_set)
         self.batch = batch_size
+        self._share = self._split(batch_size, "batch rows")
+        if ec.aggregator == "ec":
+            n = tree_leaves(train_shards)[0].shape[1]
+            self._split(max(1, int(n * ec.relabel_fraction)),
+                        "relabel rows")
+        self._eval_share = self._split(
+            min(EVAL_ROWS, tree_leaves(test_set)[0].shape[0]), "test rows")
         self.rng = np.random.default_rng(seed)
         self.metrics = TrainerMetrics()
         self.ckpt = CheckpointManager(ckpt_dir, keep=3) \
@@ -164,13 +180,48 @@ class Trainer:
         self._row_floats = models.activation_floats(cfg, params,
                                                     self.shards)
         self._member_loss = steps.make_member_loss(cfg)
-        self._plain_step = steps.make_local_step(cfg, opt, grad_accum)
+        self._plain_step = steps.make_local_step(
+            cfg, opt, grad_accum, mesh=mesh, data_axis=self._dp)
         self._sync_step = steps.make_local_step(
-            cfg, opt, grad_accum, sync=True, mesh=mesh, axis=self.ec_axis())
+            cfg, opt, grad_accum, sync=True, mesh=mesh, axis=self.ec_axis(),
+            data_axis=self._dp)
 
     def ec_axis(self) -> str:
         """The mesh dim the members (and the ring) lie along."""
         return "data"
+
+    def _check_ring(self, k: int) -> None:
+        """The ring holds one member a rank: its axis must have k ranks."""
+        axis = self.ec_axis()
+        if self.ec.aggregator == "ec" and self.ec.protocol == "ring" \
+                and k > 1 and shd.axis_size(self.mesh, axis) != k:
+            raise ValueError(
+                f"the ring holds one member a rank, but {k} members lie on "
+                f"{shd.axis_size(self.mesh, axis)} ranks along {axis!r}: "
+                f"use protocol='allgather'")
+
+    def _split(self, n: int, what: str) -> slice:
+        """This rank's share of n rows over the data ranks (all of them
+        without).  Raises unless they split evenly."""
+        if self._dp is None:
+            return slice(0, n)
+        D = shd.axis_size(self.mesh, self._dp)
+        if n % D:
+            raise ValueError(f"{n} {what} a member do not split over the "
+                             f"{D} data ranks along {self._dp!r}")
+        d = shd.axis_index(self.mesh, self._dp)
+        return slice(d * (n // D), (d + 1) * (n // D))
+
+    def _gather_rows(self, tree):
+        """The data ranks' shares (K_local, n / D, ...) of every leaf ->
+        (K_local, n, ...) on each of them, in rank order."""
+        if self._dp is None:
+            return tree
+
+        def one(x):
+            parts = shd.all_gather(x, self.mesh, self._dp)
+            return parts.movedim(0, 1).flatten(1, 2)
+        return tree_map(one, tree)
 
     @property
     def _of(self):
@@ -187,19 +238,21 @@ class Trainer:
         subset, _ = sample_relabel_subset(self.rng, self.shards,
                                           self.ec.relabel_fraction,
                                           of=self._of)
+        share = self._split(tree_leaves(subset)[0].shape[1], "relabel rows")
+        mine = tree_map(lambda x: x[:, share], subset)
         kw = dict(quorum=quorum, n_out=self.cfg.vocab_size,
                   pooled=self._pooled, row_floats=self._row_floats)
         if self.mesh is not None and self.ec.protocol == "ring" \
                 and self.K > 1:
             pseudo = agg.ring_relabel(self.mesh, self.state["params"],
-                                      subset, self._logits, self.ec,
+                                      mine, self._logits, self.ec,
                                       axis=self.ec_axis(), **kw)
         else:
-            pseudo = agg.allgather_relabel(self.state["params"], subset,
+            pseudo = agg.allgather_relabel(self.state["params"], mine,
                                            self._logits, self.ec,
                                            mesh=self.mesh,
                                            axis=self.ec_axis(), **kw)
-        self.pseudo_buffer = (subset, pseudo)
+        self.pseudo_buffer = (subset, self._gather_rows(pseudo))
 
     # ------------------------------------------------------------------
     # round loop
@@ -219,17 +272,19 @@ class Trainer:
                     lams = distill.lam_schedule(
                         torch.arange(ec.p_steps, device=self.device),
                         ec.lam, ec.p_steps)
-                batch, pseudo = self._sample_pseudo_batch()
+                batch, pseudo = self._mine(self._sample_pseudo_batch())
                 self.state, loss = self._plain_step(self.state, batch,
                                                     pseudo, lams[t])
             else:
-                batch = sample_batch(self.rng, self.shards, self.batch,
-                                     of=self._of)
+                batch = self._mine(sample_batch(self.rng, self.shards,
+                                                self.batch, of=self._of))
                 step = self._sync_step if ec.aggregator == "sync" \
                     else self._plain_step
                 self.state, loss = step(self.state, batch, None, 0.0)
-        if self.mesh is not None:  # the mean over all K members
-            loss = shd.pmean(loss, self.mesh, self.ec_axis())
+        if self.mesh is not None:  # the mean over all K members and rows
+            for axis in (self.ec_axis(), self._dp):
+                if axis is not None:
+                    loss = shd.pmean(loss, self.mesh, axis)
 
         quorum = None
         if straggler_mask is not None:
@@ -247,6 +302,12 @@ class Trainer:
         if self._saves:
             self._save_state(wait=False)
         return float(loss)
+
+    def _mine(self, tree):
+        """This rank's share of every member's batch rows."""
+        if self._dp is None:
+            return tree
+        return tree_map(lambda x: x[:, self._share], tree)
 
     def _sample_pseudo_batch(self):
         """A batch of the relabelled subset and its pseudo-labels (dense
@@ -269,12 +330,16 @@ class Trainer:
         where their logits pass CHUNK_BYTES (full-width jamba: 64 of the
         256 rows a chunk), its chunks are pieces of that pool.  With a
         mesh, params are this rank's members: each chunk's ensemble sum
-        is all-reduced over the members' axis before it is read."""
+        is all-reduced over the members' axis before it is read, and the
+        data ranks score their shares of the rows, summed after."""
         Kl = tree_leaves(params)[0].shape[0]
         K, lo = Kl, 0
+        dp = self._dp if mesh is not None else None
         if mesh is not None:
             K = Kl * shd.axis_size(mesh, self.ec_axis())
             lo = shd.axis_index(mesh, self.ec_axis()) * Kl
+        if dp is not None:
+            test_b = {k: v[self._eval_share] for k, v in test_b.items()}
         labels = test_b["labels"]
         m_nll = m_err = e_nll = e_err = 0.0
         pool = labels.shape[0] if self._pooled else None
@@ -292,11 +357,18 @@ class Trainer:
                     shd.psum(fused.acc, mesh, self.ec_axis())
                 e_nll = e_nll + ens.gold_nll(p, y).sum()
                 e_err = e_err + (p.argmax(-1) != y).sum()
-        if mesh is not None:
-            m_nll, m_err = (shd.psum(torch.as_tensor(x, device=self.device)
-                                     .float(), mesh, self.ec_axis())
-                            for x in (m_nll, m_err))
         n = labels.numel()
+        if mesh is not None:
+            sums = torch.stack([torch.as_tensor(x, device=self.device)
+                                .float() for x in (m_nll, m_err)])
+            sums = shd.psum(sums, mesh, self.ec_axis())
+            if dp is not None:
+                sums = shd.psum(torch.cat([sums, torch.stack([
+                    torch.as_tensor(x, device=self.device).float()
+                    for x in (e_nll, e_err)])]), mesh, dp)
+                e_nll, e_err = sums[2], sums[3]
+                n *= shd.axis_size(mesh, dp)
+            m_nll, m_err = sums[0], sums[1]
         return m_nll / (K * n), e_nll / n, m_err / (K * n), e_err / n
 
     def _test_batch(self) -> dict:
@@ -417,19 +489,48 @@ class Trainer:
         generator is given (the JAX Trainer perturbs with a key, and then
         its AdamW moments too, where noise makes v negative); the
         shards follow.  The steps read K from the state: nothing to
-        rebuild."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "reshard over a mesh: K' must split over the ranks and the "
-                "grown members' rows move between them; not ported")
-        self.state = {"params": reshard_members(self.state["params"], k_new,
-                                                perturb=1e-3,
-                                                generator=generator),
-                      "opt": reshard_members(self.state["opt"], k_new)}
-        self.shards = reshard_members(self.shards, k_new)
-        self.K = self.K_local = k_new
-        self._rows = slice(0, k_new)
+        rebuild.  Over a mesh every rank gathers each leaf's K rows (on
+        the host under gloo), reshards them with its generator, which
+        must be seeded alike on every rank (the grown members' noise is
+        then the same everywhere, and a single process's), and keeps its
+        rows of k_new; raises unless the members' axis divides k_new, and
+        for a ring past one member a rank."""
+        if self.mesh is None:
+            self.state = {"params": reshard_members(
+                self.state["params"], k_new, perturb=1e-3,
+                generator=generator),
+                "opt": reshard_members(self.state["opt"], k_new)}
+            self.shards = reshard_members(self.shards, k_new)
+            rows = slice(0, k_new)
+        else:
+            self._check_ring(k_new)
+            axis = self.ec_axis()
+            rows = shd.member_rows(k_new, self.mesh, axis)
+
+            def one(x, perturb=0.0):
+                full = shd.gather_all_rows(x, self.mesh, axis)
+                out = reshard_members(full, k_new, perturb=perturb,
+                                      generator=generator)
+                return out[rows].to(x.device, copy=True)
+            # leaf by leaf in place, each old leaf freed as its new one
+            # lands: the old and the new state are never both whole
+            _replace_leaves(self.state["params"], lambda x: one(x, 1e-3))
+            _replace_leaves(self.state["opt"], one)
+            _replace_leaves(self.shards, one)
+        self.K = k_new
+        self._rows = rows
+        self.K_local = rows.stop - rows.start
         self.pseudo_buffer = None
+
+
+def _replace_leaves(tree, fn) -> None:
+    """Every leaf x of a tree of dicts and lists replaced by fn(x), in
+    place, in tree_map's order."""
+    for k in (tree.keys() if isinstance(tree, dict) else range(len(tree))):
+        if isinstance(tree[k], (dict, list)):
+            _replace_leaves(tree[k], fn)
+        else:
+            tree[k] = fn(tree[k])
 
 
 def _np_rows(tree, rows: slice):

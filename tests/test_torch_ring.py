@@ -244,18 +244,26 @@ def mesh1():
 
 def test_mesh_trainer_refusals(mesh1, trained):
     """The ring needs K ranks along its axis (one member a rank): a
-    1-rank mesh at K = 2 is refused, not silently mislabelled; reshard
-    over a mesh is not ported."""
+    1-rank mesh at K = 2 is refused, not silently mislabelled, and so is
+    a 1-member ring trainer resharded past it; the all-gather trainer
+    reshards over the mesh (tests/test_torch_mesh_data.py holds it
+    against a single process)."""
     cfg = ranks.small(treg.get_config("gemma3-1b", reduced=True))
     train, test = (params_from_numpy(x, "cpu") for x in trained[2])
     args = (cfg, ranks.train_ec(TEC, "ec"), tadamw(1e-3), K, 0, train,
             test, 4)
     with pytest.raises(ValueError, match="allgather"):
         TTrainer(*args, device="cpu", mesh=mesh1)
+    one = tree_map(lambda x: x[:1], train)
+    ring = TTrainer(*args[:3], 1, 0, one, test, 4, device="cpu", mesh=mesh1)
+    with pytest.raises(ValueError, match="allgather"):
+        ring.reshard(2)
     tr = TTrainer(*args[:1], ranks.train_ec(TEC, "ec", "allgather"),
                   *args[2:], device="cpu", mesh=mesh1)
-    with pytest.raises(NotImplementedError, match="reshard"):
-        tr.reshard(4)
+    tr.reshard(4)
+    assert tr.K == tr.K_local == 4
+    assert tree_map(lambda x: x.shape[0], tr.shards) == {"tokens": 4,
+                                                         "labels": 4}
 
 
 @pytest.mark.parametrize("protocol", ["ring", "allgather"])

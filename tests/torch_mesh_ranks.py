@@ -278,3 +278,92 @@ def failing_world(rank):
         raise ValueError("rank 1 fails on purpose")
     shd.psum(torch.ones(1), mesh, "data")
     return rank
+
+
+DATA_CASES = {  # name: (aggregator, protocol, rounds)
+    "ec_ring": ("ec", "ring", 2),         # the second opens with distill
+    "ma": ("ma", "ring", 1),
+}
+
+
+def _np_tree(tree):
+    from repro_torch.common.tree import tree_map
+    return tree_map(lambda x: x.numpy().copy(), tree)
+
+
+def data_world(rank, params, train, test, ckpt_dir, reshard_seed):
+    """4 ranks as local_mesh(2, 2): K = 2 members along "data" (the
+    trainer's ec_axis), each held by 2 data ranks along "member" that
+    split its rows.  Each case's rounds with evaluate() after each and
+    this rank's params after every round; the ec_ring trainer then saves
+    and a fresh one resumes; an all-gather trainer reshards 2 -> 4 with
+    a generator seeded `reshard_seed`; the refusals (a batch of 3 rows
+    over 2 data ranks, 19 relabel rows (0.6 of 32) over 2, a MoE model's
+    pool split over data ranks, a ring grown past one member a rank),
+    each at construction but the ring's."""
+    import dataclasses
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.common import sharding as shd
+    from repro_torch.common.types import ECConfig
+    from repro_torch.configs import registry
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import Trainer
+    cfg = small(registry.get_config("gemma3-1b", reduced=True))
+    mesh = shd.local_mesh(2, 2, device="cpu")
+    tr_t, te_t = (params_from_numpy(x, "cpu") for x in (train, test))
+
+    def trainer(aggr, protocol, **kw):
+        return Trainer(cfg, train_ec(ECConfig, aggr, protocol), adamw(1e-3),
+                       TRAIN_K, 0, tr_t, te_t, batch_size=4, seed=2,
+                       params=params, device="cpu", mesh=mesh, **kw)
+
+    out = {"rank": rank, "member": shd.axis_index(mesh, "data"),
+           "share": shd.axis_index(mesh, "member")}
+    for name, (aggr, protocol, rounds) in DATA_CASES.items():
+        tr = trainer(aggr, protocol,
+                     ckpt_dir=ckpt_dir if name == "ec_ring" else None)
+        losses, evals, states = [], [], []
+        for _ in range(rounds):
+            losses.append(tr.run_round())
+            evals.append(tr.evaluate())
+            states.append(_np_tree(tr.state["params"]))
+        out[name] = {"losses": losses, "evals": evals, "params": states}
+        if name == "ec_ring":
+            tr.save()
+            back = trainer(aggr, protocol, ckpt_dir=ckpt_dir)
+            out["resumed"] = (back.resume(), back.round,
+                              _np_tree(back.state),
+                              _np_tree(tr.state))
+    ag = trainer("ec", "allgather")
+    gen = torch.Generator().manual_seed(reshard_seed)
+    ag.reshard(4, generator=gen)
+    out["reshard"] = {"rows": (ag._rows.start, ag._rows.stop),
+                      "K": ag.K, "state": _np_tree(ag.state),
+                      "shards": _np_tree(ag.shards),
+                      "loss": ag.run_round(), "eval": ag.evaluate()}
+    refused = {}
+    try:
+        Trainer(cfg, train_ec(ECConfig, "ec"), adamw(1e-3), TRAIN_K, 0,
+                tr_t, te_t, batch_size=3, params=params, device="cpu",
+                mesh=mesh)
+    except ValueError as e:
+        refused["uneven"] = str(e)
+    try:
+        Trainer(cfg, dataclasses.replace(train_ec(ECConfig, "ec"),
+                                         relabel_fraction=0.6),
+                adamw(1e-3), TRAIN_K, 0, tr_t, te_t, batch_size=4,
+                params=params, device="cpu", mesh=mesh)
+    except ValueError as e:
+        refused["relabel"] = str(e)
+    try:
+        Trainer(registry.get_config("deepseek-v2-236b", reduced=True),
+                train_ec(ECConfig, "ec"), adamw(1e-3), TRAIN_K, 0, tr_t,
+                te_t, batch_size=4, device="cpu", mesh=mesh)
+    except ValueError as e:
+        refused["moe"] = str(e)
+    try:
+        trainer("ec", "ring").reshard(4)
+    except ValueError as e:
+        refused["ring"] = str(e)
+    out["refused"] = refused
+    return out
